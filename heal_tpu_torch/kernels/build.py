@@ -1,0 +1,135 @@
+"""Build and bind the hand-written CUDA kernels of ``heal_tpu_torch/csrc``.
+
+All ``csrc/*.cu`` files are compiled by ``nvcc`` for sm_90a into one
+shared library with a plain C interface, loaded with ctypes. The build
+runs at first use, from the sources in this checkout only, into
+``heal_tpu_torch/_build/<hash of the sources and flags>/`` (listed in
+.gitignore), so a changed source rebuilds and an unchanged one loads the
+cached library. Nothing here runs at import time.
+
+Each C entry point launches on the stream it is given and returns
+``cudaGetLastError()``; :func:`check` raises on a non-zero code.
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+
+_PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+CSRC = os.path.join(_PKG, "csrc")
+BUILD_ROOT = os.path.join(_PKG, "_build")
+NVCC_FLAGS = [
+    "-gencode", "arch=compute_90a,code=sm_90a",
+    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+]
+
+P = ctypes.c_void_p
+I = ctypes.c_int
+F = ctypes.c_float
+
+# C signature of every entry point: (name, argtypes)
+_SIGNATURES = {
+    # u, g4, fi, starts, weights, out, n_runs, feat, nx, stride, cells,
+    # batch, vx, vy, cx0, cy0, cz, stream
+    "heal_pillar_tables_f32": [P, P, P, P, P, P, I, I, I, I, I, I,
+                               F, F, F, F, F, P],
+    "heal_pillar_tables_bf16": [P, P, P, P, P, P, I, I, I, I, I, I,
+                                F, F, F, F, F, P],
+    # x, shifts, out, n, h, w, c, axis, pad, stream
+    "heal_shift_rows_f32": [P, P, P, I, I, I, I, I, I, P],
+    "heal_shift_rows_bf16": [P, P, P, I, I, I, I, I, I, P],
+}
+
+_lock = threading.Lock()
+_lib = None
+
+
+def _nvcc() -> str:
+    home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
+    path = os.path.join(home, "bin", "nvcc")
+    if os.path.exists(path):
+        return path
+    found = shutil.which("nvcc")
+    if found is None:
+        raise RuntimeError(
+            "nvcc not found (looked in $CUDA_HOME/bin and PATH): the CUDA "
+            "kernels of heal_tpu_torch need the CUDA toolkit to build"
+        )
+    return found
+
+
+def _sources() -> list[str]:
+    return sorted(
+        os.path.join(CSRC, f)
+        for f in os.listdir(CSRC)
+        if f.endswith((".cu", ".cuh"))
+    )
+
+
+def _digest(sources: list[str]) -> str:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for path in sources:
+        h.update(os.path.basename(path).encode())
+        with open(path, "rb") as f:
+            h.update(f.read())
+    return h.hexdigest()[:16]
+
+
+def _build(sources: list[str], out_dir: str) -> str:
+    lib_path = os.path.join(out_dir, "libheal_kernels.so")
+    if os.path.exists(lib_path):
+        return lib_path
+    nvcc = _nvcc()
+    os.makedirs(out_dir, exist_ok=True)
+    tmp = f"{lib_path}.{os.getpid()}.tmp"
+    cmd = [nvcc, *NVCC_FLAGS, "-Xptxas", "-v", "-o", tmp,
+           *[s for s in sources if s.endswith(".cu")]]
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    with open(os.path.join(out_dir, "nvcc.log"), "w") as f:
+        f.write(" ".join(cmd) + "\n" + proc.stdout + proc.stderr)
+    if proc.returncode != 0:
+        raise RuntimeError(
+            f"nvcc failed ({proc.returncode}):\n{proc.stdout}{proc.stderr}"
+        )
+    os.replace(tmp, lib_path)  # atomic: a concurrent builder sees all or none
+    return lib_path
+
+
+def library() -> ctypes.CDLL:
+    """The loaded kernel library; builds it on first use."""
+    global _lib
+    with _lock:
+        if _lib is None:
+            sources = _sources()
+            path = _build(sources, os.path.join(BUILD_ROOT, _digest(sources)))
+            lib = ctypes.CDLL(path)
+            for name, argtypes in _SIGNATURES.items():
+                fn = getattr(lib, name)
+                fn.argtypes = argtypes
+                fn.restype = ctypes.c_int
+            _lib = lib
+    return _lib
+
+
+def build_log() -> str:
+    """nvcc's output of the cached build (registers, spills per kernel)."""
+    sources = _sources()
+    path = os.path.join(BUILD_ROOT, _digest(sources), "nvcc.log")
+    with open(path) as f:
+        return f.read()
+
+
+def check(code: int, what: str) -> None:
+    """Raise if a C entry point reported a CUDA error."""
+    if code != 0:
+        raise RuntimeError(f"{what}: CUDA error {code} at launch")
+
+
+def stream_ptr(device) -> int:
+    import torch
+
+    return torch.cuda.current_stream(device).cuda_stream
