@@ -1,7 +1,8 @@
 """Build and bind the hand-written CUDA kernels of ``heal_tpu_torch/csrc``.
 
-All ``csrc/*.cu`` files are compiled by ``nvcc`` for sm_90a into one
-shared library with a plain C interface, loaded with ctypes. The build
+Each ``csrc/*.cu`` file is compiled by its own ``nvcc`` for sm_90a, all
+started together, and the objects are linked into one shared library
+with a plain C interface, loaded with ctypes. The build
 runs at first use, from the sources in this checkout only, into
 ``heal_tpu_torch/_build/<hash of the sources and flags>/`` (listed in
 .gitignore), so a changed source rebuilds and an unchanged one loads the
@@ -18,13 +19,17 @@ import os
 import shutil
 import subprocess
 import threading
+from concurrent.futures import ThreadPoolExecutor
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_ROOT = os.path.join(_PKG, "_build")
+# --fmad=false: no multiply-add contraction, so each product rounds as in
+# the plain PyTorch versions and kernel 2 agrees with its plain version bit
+# for bit (the kernels are bound by bytes, not by flops)
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+    "-std=c++17", "-O3", "--fmad=false", "-Xcompiler", "-fPIC",
 ]
 
 P = ctypes.c_void_p
@@ -79,22 +84,40 @@ def _digest(sources: list[str]) -> str:
     return h.hexdigest()[:16]
 
 
+def _nvcc_run(cmd: list[str]) -> str:
+    proc = subprocess.run(cmd, stdout=subprocess.PIPE,
+                          stderr=subprocess.STDOUT, text=True)
+    log = " ".join(cmd) + "\n" + proc.stdout
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{log}")
+    return log
+
+
 def _build(sources: list[str], out_dir: str) -> str:
     lib_path = os.path.join(out_dir, "libheal_kernels.so")
     if os.path.exists(lib_path):
         return lib_path
     nvcc = _nvcc()
     os.makedirs(out_dir, exist_ok=True)
-    tmp = f"{lib_path}.{os.getpid()}.tmp"
-    cmd = [nvcc, *NVCC_FLAGS, "-Xptxas", "-v", "-o", tmp,
-           *[s for s in sources if s.endswith(".cu")]]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
+    tag = f"{os.getpid()}.tmp"
+    cus = [s for s in sources if s.endswith(".cu")]
+    objs = [os.path.join(out_dir, f"{os.path.basename(s)}.{tag}.o")
+            for s in cus]
+    tmp = f"{lib_path}.{tag}"
+    try:
+        # one nvcc per source, all started together, then one link
+        with ThreadPoolExecutor(len(cus)) as pool:
+            logs = list(pool.map(_nvcc_run, [
+                [nvcc, *NVCC_FLAGS, "-Xptxas", "-v", "-c", "-o", o, s]
+                for o, s in zip(objs, cus)]))
+        logs.append(_nvcc_run([nvcc, *NVCC_FLAGS, "-shared", "-o", tmp,
+                               *objs]))
+    finally:
+        for obj in objs:
+            if os.path.exists(obj):
+                os.remove(obj)
     with open(os.path.join(out_dir, "nvcc.log"), "w") as f:
-        f.write(" ".join(cmd) + "\n" + proc.stdout + proc.stderr)
-    if proc.returncode != 0:
-        raise RuntimeError(
-            f"nvcc failed ({proc.returncode}):\n{proc.stdout}{proc.stderr}"
-        )
+        f.write("\n".join(logs))
     os.replace(tmp, lib_path)  # atomic: a concurrent builder sees all or none
     return lib_path
 

@@ -1,0 +1,137 @@
+"""PointPillars detection loss (torch).
+
+Counterpart of heal_tpu/losses/point_pillar_loss.py: sigmoid focal cls
+loss with pos_cls_weight and per-sample positive normalisation,
+smooth-L1 reg loss with the sin-difference yaw encoding, softmax
+direction-bin loss. All reductions are mask-based over fixed shapes.
+
+Prediction layout NHWC: cls (B, H, W, A), reg (B, H, W, A*7),
+dir (B, H, W, A*bins); targets from heal_tpu.postprocess.targets. The
+IoU-quality branch and the LSS depth branch are not ported: each raises
+when it would contribute.
+"""
+from __future__ import annotations
+
+import math
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from ..models.registry import register_loss
+from ..utils.common import limit_period
+
+
+def sigmoid_focal_loss(logits, labels, weights, alpha: float, gamma: float):
+    """Per-element focal loss, weighted."""
+    pred_sigmoid = torch.sigmoid(logits)
+    alpha_weight = labels * alpha + (1 - labels) * (1 - alpha)
+    pt = labels * (1.0 - pred_sigmoid) + (1.0 - labels) * pred_sigmoid
+    focal_weight = alpha_weight * torch.pow(pt, gamma)
+    bce = (torch.clamp(logits, min=0) - logits * labels
+           + torch.log1p(torch.exp(-torch.abs(logits))))
+    return bce * focal_weight * weights
+
+
+def weighted_smooth_l1(preds, targets, weights, sigma: float):
+    """Huber with its transition at 1/sigma^2."""
+    diff = preds - targets
+    abs_diff = torch.abs(diff)
+    cut = 1.0 / (sigma ** 2)
+    loss = torch.where(abs_diff < cut, 0.5 * (sigma * diff) ** 2,
+                       abs_diff - 0.5 * cut)
+    return loss * weights
+
+
+def add_sin_difference(preds, targets, dim: int = 6):
+    """Replace the yaw residuals with the sin(p - t) factorisation."""
+    p, t = preds[..., dim:dim + 1], targets[..., dim:dim + 1]
+    rad_pred = torch.sin(p) * torch.cos(t)
+    rad_tgt = torch.cos(p) * torch.sin(t)
+    preds = torch.cat([preds[..., :dim], rad_pred, preds[..., dim + 1:]], -1)
+    targets = torch.cat([targets[..., :dim], rad_tgt, targets[..., dim + 1:]],
+                        -1)
+    return preds, targets
+
+
+def direction_targets(reg_targets, anchor_yaw_deg, dir_offset: float,
+                      num_bins: int):
+    """One-hot direction bins from the yaw residual + anchor yaw.
+
+    reg_targets: (B, N, 7) where N = H*W*A and anchors cycle fastest.
+    """
+    anchor_yaw = torch.from_numpy(
+        np.radians(np.asarray(anchor_yaw_deg, np.float64)).astype(np.float32)
+    ).to(reg_targets.device)
+    n = reg_targets.shape[1]
+    anchor_map = anchor_yaw.repeat(n // anchor_yaw.shape[0])
+    rot_gt = reg_targets[..., -1] + anchor_map[None, :]
+    offset_rot = limit_period(rot_gt - dir_offset, 0.0, 2 * math.pi)
+    bins = torch.clamp(
+        torch.floor(offset_rot / (2 * math.pi / num_bins)).long(),
+        0, num_bins - 1)
+    return F.one_hot(bins, num_bins).to(reg_targets.dtype)
+
+
+@register_loss("point_pillar_loss")
+class PointPillarLoss:
+    def __init__(self, args: dict):
+        self.args = args
+        self.pos_cls_weight = args["pos_cls_weight"]
+        self.cls = args["cls"]
+        self.reg = args["reg"]
+        self.dir = args.get("dir")
+        self.iou = args.get("iou")
+
+    def __call__(self, output_dict, target_dict, suffix: str = ""):
+        cls_preds = output_dict[f"cls_preds{suffix}"]
+        b = cls_preds.shape[0]
+        cls_labels = target_dict["pos_equal_one"].reshape(b, -1, 1)
+        positives = cls_labels > 0
+        negatives = target_dict["neg_equal_one"].reshape(b, -1, 1) > 0
+        pos_normalizer = torch.clamp(
+            positives.sum(dim=1, keepdim=True).float(), min=1.0)
+
+        cls_preds = cls_preds.reshape(b, -1, 1)
+        cls_weights = (positives * self.pos_cls_weight
+                       + negatives * 1.0) / pos_normalizer
+        cls_loss = sigmoid_focal_loss(
+            cls_preds, cls_labels.to(cls_preds.dtype), cls_weights,
+            alpha=self.cls["alpha"], gamma=self.cls["gamma"])
+        cls_loss = cls_loss.sum() * self.cls["weight"] / b
+
+        reg_weights = positives.float() / pos_normalizer
+        reg_preds = output_dict[f"reg_preds{suffix}"].reshape(b, -1, 7)
+        reg_targets = target_dict["targets"].reshape(b, -1, 7)
+        reg_preds_sin, reg_targets_sin = add_sin_difference(reg_preds,
+                                                            reg_targets)
+        reg_loss = weighted_smooth_l1(reg_preds_sin, reg_targets_sin,
+                                      reg_weights, self.reg["sigma"])
+        reg_loss = reg_loss.sum() * self.reg["weight"] / b
+
+        total = cls_loss + reg_loss
+        aux = {"cls_loss": cls_loss, "reg_loss": reg_loss}
+
+        if self.dir is not None and f"dir_preds{suffix}" in output_dict:
+            num_bins = self.dir["args"]["num_bins"]
+            dir_tgt = direction_targets(
+                reg_targets, self.dir["args"]["anchor_yaw"],
+                self.dir["args"]["dir_offset"], num_bins)
+            dir_logits = output_dict[f"dir_preds{suffix}"].reshape(
+                b, -1, num_bins)
+            ce = -(dir_tgt * F.log_softmax(dir_logits, dim=-1)).sum(-1)
+            dir_loss = ((ce * reg_weights.squeeze(-1)).sum()
+                        * self.dir["weight"] / b)
+            total = total + dir_loss
+            aux["dir_loss"] = dir_loss
+
+        if self.iou is not None and f"iou_preds{suffix}" in output_dict:
+            raise NotImplementedError("the IoU loss branch is not ported yet")
+        if "depth" in self.args and any(
+                k.startswith("depth_items_")
+                and f"depth_bins_{k.rsplit('_', 1)[-1]}" in target_dict
+                for k in output_dict):
+            raise NotImplementedError("the depth loss is not ported yet")
+
+        aux["total_loss"] = total
+        return total, aux

@@ -1,4 +1,4 @@
-"""PointPillars encoder (lidar -> BEV), eval mode (torch).
+"""PointPillars encoder (lidar -> BEV), train and eval (torch).
 
 Counterpart of heal_tpu/models/encoders.py ``PointPillarEncoder`` for the
 standard PointPillars configuration (one PFN layer, batch norm, absolute
@@ -10,11 +10,16 @@ fold into a PER-PILLAR additive term, and since ReLU and max commute,
     canvas_p = relu(max_{i in p} u_i + t_p),
 with u_i = [local_xyz_i, intensity_i] @ (A * s) the per-point GEMM (BN
 scale s folded in) and t_p = -(Σ local)/cnt @ W1 + center_p @ W2 + b.
-``ops/pillar.pillar_tables`` (kernel 1 on CUDA, ``scatter_reduce`` on the
-CPU) computes the max, the sums and t_p and fills the canvas.
 
-The general decorate + PFNLayer path and the train-mode BN moments of
-the fused path are not ported yet.
+Eval mode: ``ops/pillar.pillar_tables`` (kernel 1 on CUDA,
+``scatter_reduce`` on the CPU) computes the max, the sums and t_p and
+fills the canvas. Train mode never calls kernel 1 (JAX uses its Pallas
+kernel only when ``not train``, encoders.py:255-259): the BN moments
+come from the same algebra over point sums and per-pillar table sums
+(encoders.py:268-329), stay in the graph, and the segment sums and max
+are plain ``index_add_`` / ``scatter_reduce`` (XLA segment ops in JAX).
+
+The general decorate + PFNLayer path is not ported yet.
 """
 from __future__ import annotations
 
@@ -25,7 +30,7 @@ import torch.nn as nn
 
 from ..ops import pillar as _pillar
 from ..ops import voxelize
-from .layers import parse_norm
+from .layers import DEFAULT_BN_MOMENTUM, parse_norm, update_running
 
 
 class PointPillarEncoder(nn.Module):
@@ -50,6 +55,8 @@ class PointPillarEncoder(nn.Module):
         self.voxel_size = tuple(float(v) for v in voxel_size)
         self.lidar_range = tuple(float(v) for v in lidar_range)
         self.presorted = presorted
+        mom = parse_norm(norm)[1]
+        self.momentum = DEFAULT_BN_MOMENTUM if mom is None else mom
         f = int(num_filters[0])
         self.out_channels = f
         self.pfn_kernel = nn.Parameter(torch.empty(10, f))
@@ -77,11 +84,9 @@ class PointPillarEncoder(nn.Module):
             cx0=x0 + vx / 2, cy0=y0 + vy / 2, cz=z0 + vz / 2,
         )
 
-    def kernel_inputs(self, points: torch.Tensor, mask: torch.Tensor):
-        """The arguments of ``pillar_tables`` for this batch:
-        (u, g4, fi, weights, grid, batch)."""
-        if self.training:
-            raise NotImplementedError("train-mode PFN statistics are not ported")
+    def _point_terms(self, points: torch.Tensor, mask: torch.Tensor):
+        """Pillar ids and the per-point GEMM operands shared by both
+        modes: (grid, fi, w, pfeat, local, cdt), sorted by id."""
         b, n, _ = points.shape
         grid = self.grid()
         ids, valid = voxelize.pillar_ids(
@@ -107,23 +112,38 @@ class PointPillarEncoder(nn.Module):
         kdt = self.pfn_kernel.dtype
         cdt = kdt if kdt == torch.bfloat16 else fp.dtype
         w = fv.to(cdt)[:, None]
-        k32 = self.pfn_kernel.float()
-        w_raw, w_mu, w_c = k32[:4], k32[4:7], k32[7:10]
-        # decorated = [p, p_xyz - mean, p_xyz - center]: rows 0-2 apply
-        # to LOCAL xyz, the center part moves to the pillar term
-        a_mat = torch.cat([w_raw[:3] + (w_mu + w_c), w_raw[3:4]], dim=0)
-
         cell = fi % grid.cells
+        local = (fp[:, :3] - self._centers(cell, grid)).to(cdt) * w
+        pfeat = torch.cat([local, fp[:, 3:4].to(cdt) * w], dim=-1)  # (N, 4)
+        return grid, fi, w, pfeat, local, cdt
+
+    @staticmethod
+    def _centers(cell: torch.Tensor, grid) -> torch.Tensor:
+        """Pillar centers (.., 3) of within-sample table ids."""
         yi = torch.div(cell, grid.nx, rounding_mode="floor")
         xi = cell - yi * grid.nx
-        center = torch.stack(
+        return torch.stack(
             [xi.float() * grid.vx + grid.cx0, yi.float() * grid.vy + grid.cy0,
              torch.full_like(xi, 0, dtype=torch.float32) + grid.cz],
             dim=-1,
         )
-        local = (fp[:, :3] - center).to(cdt) * w
-        pfeat = torch.cat([local, fp[:, 3:4].to(cdt) * w], dim=-1)  # (N, 4)
 
+    def _weights(self):
+        """(w_raw, w_mu, a_mat) of the f32 PFN kernel: decorated =
+        [p, p_xyz - mean, p_xyz - center], so rows 0-2 apply to LOCAL xyz
+        and the center part moves to the pillar term."""
+        k32 = self.pfn_kernel.float()
+        w_raw, w_mu, w_c = k32[:4], k32[4:7], k32[7:10]
+        a_mat = torch.cat([w_raw[:3] + (w_mu + w_c), w_raw[3:4]], dim=0)
+        return w_raw, w_mu, a_mat
+
+    def kernel_inputs(self, points: torch.Tensor, mask: torch.Tensor):
+        """The arguments of ``pillar_tables`` for this batch (eval mode):
+        (u, g4, fi, weights, grid, batch)."""
+        if self.training:
+            raise RuntimeError("kernel 1 is eval-only")
+        grid, fi, w, pfeat, local, cdt = self._point_terms(points, mask)
+        w_raw, w_mu, a_mat = self._weights()
         s_aff = self.bn_scale.float() * torch.rsqrt(self.bn_var.float() + 1e-3)
         b_aff = self.bn_bias.float() - s_aff * self.bn_mean.float()
         u = pfeat @ (a_mat * s_aff).to(cdt)  # (N, F), BN scale folded in
@@ -131,9 +151,60 @@ class PointPillarEncoder(nn.Module):
         weights = torch.cat(
             [w_mu * s_aff, w_raw[:3] * s_aff, b_aff[None]], dim=0
         ).contiguous()
-        return u.contiguous(), g4, fi.contiguous(), weights, grid, b
+        return u.contiguous(), g4, fi.contiguous(), weights, grid, \
+            points.shape[0]
+
+    def _train_canvas(self, points: torch.Tensor, mask: torch.Tensor):
+        """Train-mode fused path with batch BN moments (encoders.py
+        :268-329): -> (batch*cells, F) table, drop buckets included."""
+        grid, fi, w, pfeat, local, cdt = self._point_terms(points, mask)
+        w_raw, w_mu, a_mat = self._weights()
+        f = self.out_channels
+        s_total = points.shape[0] * grid.cells
+        dev = points.device
+        idx = fi.long()
+
+        def seg_sum(x):
+            return torch.zeros((s_total, x.shape[1]), dtype=x.dtype,
+                               device=dev).index_add(0, idx, x).float()
+
+        center = self._centers(
+            torch.arange(s_total, device=dev) % grid.cells, grid)
+        a_pt = pfeat @ a_mat.to(cdt)  # (N, F), invalid -> 0
+        seg = seg_sum(torch.cat([local @ w_mu.to(cdt), w], dim=-1))
+        cnt = seg[:, f:f + 1]
+        # per-pillar term t_p = center @ Wraw_xyz - local mean @ Wmu
+        t_tab = -seg[:, :f] / torch.clamp(cnt, min=1.0) + center @ w_raw[:3]
+
+        # E[y], E[y^2] of y_i = a_i + t_p over the valid points
+        n_valid = torch.clamp(w.float().sum(), min=1.0)
+        a32 = a_pt.float()
+        seg_a = seg_sum(a_pt)
+        mean_y = (a32.sum(0) + (cnt * t_tab).sum(0)) / n_valid
+        e2 = ((a32 * a32).sum(0) + 2.0 * (seg_a * t_tab).sum(0)
+              + (cnt * t_tab * t_tab).sum(0)) / n_valid
+        var_y = torch.clamp(e2 - mean_y * mean_y, min=0.0)
+        update_running(self.bn_mean, mean_y, self.momentum)
+        update_running(self.bn_var, var_y, self.momentum)
+
+        s_aff = self.bn_scale.float() * torch.rsqrt(var_y + 1e-3)
+        b_aff = self.bn_bias.float() - s_aff * mean_y
+        u = a_pt * s_aff.to(a_pt.dtype)  # per point
+        tb = (t_tab * s_aff + b_aff).to(a_pt.dtype)  # per pillar
+        # empty pillars keep -inf, then 0 on the canvas; ties share the
+        # gradient evenly, as JAX's segment_max does
+        m_seg = torch.full((s_total, f), float("-inf"), dtype=u.dtype,
+                           device=dev).scatter_reduce(
+            0, idx[:, None].expand(-1, f), u, "amax", include_self=True)
+        return torch.where(torch.isfinite(m_seg), torch.relu(m_seg + tb),
+                           torch.zeros_like(m_seg))
 
     def forward(self, points: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
-        u, g4, fi, weights, grid, b = self.kernel_inputs(points, mask)
-        canvas = _pillar.pillar_tables(u, g4, fi, weights, grid, b)
-        return canvas.reshape(b, grid.stride // grid.nx, grid.nx, -1)
+        b = points.shape[0]
+        grid = self.grid()
+        ny = grid.stride // grid.nx
+        if self.training:
+            table = self._train_canvas(points, mask).reshape(b, grid.cells, -1)
+            return table[:, : grid.stride].reshape(b, ny, grid.nx, -1)
+        canvas = _pillar.pillar_tables(*self.kernel_inputs(points, mask))
+        return canvas.reshape(b, ny, grid.nx, -1)

@@ -1,4 +1,4 @@
-"""HEAL heterogeneous pyramid collaboration model (torch), eval mode.
+"""HEAL heterogeneous pyramid collaboration model (torch), train and eval.
 
 Counterpart of heal_tpu/models/heter_pyramid.py ``HeterPyramidCollab``
 for lidar agents with the PointPillars encoder (m1): per-modality encoder
@@ -8,8 +8,10 @@ Pyramid Fusion -> shrink conv -> cls/reg/dir heads.
 Batching is the JAX package's: ``inputs_mX`` arrays hold a fixed
 per-modality agent capacity and ``slots_mX`` maps each packed agent to its
 global slot in (B, L+1), where slot L is a dump slot for padding.
-Camera branches, the SECOND encoder, the compressor and the IoU head are
-not ported yet and raise.
+Train mode follows ``module.train()`` (batch-statistics BN everywhere;
+nothing is frozen, as in JAX without a compressor). Camera branches, the
+SECOND encoder, the compressor and the IoU head are not ported yet and
+raise.
 """
 from __future__ import annotations
 
@@ -105,8 +107,8 @@ class HeterPyramidCollab(nn.Module):
     def forward(self, batch: dict) -> dict:
         """batch (tensors): inputs_mX {points (B, L_m, P, 4), point_mask},
         slots_mX (B, L_m) int, agent_mask (B, L) bool, pairwise_affine
-        (B, L, L, 2, 3). Returns the NHWC head outputs plus
-        ``occ_single_list``."""
+        (B, L, L, 2, 3). Returns the NHWC head outputs, ``pyramid`` =
+        "collab" and ``occ_single_list`` (per level, (B*L, h, w, 1))."""
         agent_mask = batch["agent_mask"]
         b, l = agent_mask.shape
         feat_all = None
@@ -140,5 +142,6 @@ class HeterPyramidCollab(nn.Module):
         if self.shrink is not None:
             fused = self.shrink(fused)
         out = self.heads(fused)
+        out["pyramid"] = "collab"
         out["occ_single_list"] = occ_list
         return out

@@ -7,10 +7,10 @@ buffers carry the flax module paths and leaf names (``ConvNormAct_0``,
 Unlike flax, a torch module needs its input width when it is built, so
 every constructor takes ``cin``.
 
-Eval only: ``Norm`` normalises with the running statistics. Train-mode
-batch statistics come with the training port. The TPU-only s2d width
-pack of heal_tpu (layers.py:380-393) is not ported; the reference for it
-is the dense path JAX takes off the TPU.
+``Norm`` follows ``module.train()``: batch statistics (and the flax
+running-average update) in train mode, running statistics in eval mode.
+The TPU-only s2d width pack of heal_tpu (layers.py:380-393) is not
+ported; the reference for it is the dense path JAX takes off the TPU.
 """
 from __future__ import annotations
 
@@ -19,6 +19,9 @@ from typing import Sequence
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
+
+# flax-style BatchNorm momentum, heal_tpu/models/layers.py:30
+DEFAULT_BN_MOMENTUM = 0.9
 
 
 def parse_norm(kind: str) -> tuple[str, float | None]:
@@ -35,17 +38,24 @@ def _kernel_param(cout: int, cin: int, k: int) -> nn.Parameter:
 
 
 class Norm(nn.Module):
-    """BatchNorm in eval mode (running statistics), or "none".
+    """BatchNorm (heal_tpu/models/layers.py ``Norm``), or "none".
 
-    eps differs by call site, as in JAX: 1e-5 inside the resblocks, 1e-3
-    in the deblocks. The momentum suffix of "batch@m" only matters for
-    training.
+    Train mode normalises with the batch moments over N, H and W, taken
+    in f32 and kept in the graph (JAX differentiates through them):
+    m = mean(x), v = mean(x^2) - m^2, the biased variance. Padded agent
+    slots count, as in JAX. The running buffers (f32 whatever the weights'
+    dtype) then move as flax moves them, running = mom*running +
+    (1-mom)*batch, with mom from the "batch@m" suffix, else
+    DEFAULT_BN_MOMENTUM. Eval mode uses the running statistics. eps
+    differs by call site, as in JAX: 1e-5 inside the resblocks, 1e-3 in
+    the deblocks.
     """
 
     def __init__(self, channels: int, kind: str = "batch",
                  epsilon: float = 1e-3):
         super().__init__()
-        self.kind = parse_norm(kind)[0]
+        self.kind, mom = parse_norm(kind)
+        self.momentum = DEFAULT_BN_MOMENTUM if mom is None else mom
         self.epsilon = epsilon
         if self.kind == "batch":
             self.scale = nn.Parameter(torch.ones(channels))
@@ -61,14 +71,24 @@ class Norm(nn.Module):
         if self.kind == "none":
             return x
         if self.training:
-            raise NotImplementedError(
-                "train-mode batch statistics are not ported yet"
-            )
-        mul = self.scale * torch.rsqrt(self.var.to(self.scale.dtype)
-                                       + self.epsilon)
-        add = self.bias - self.mean.to(self.scale.dtype) * mul
+            xf = x.float()
+            axes = [0] + list(range(2, x.dim()))
+            m = xf.mean(axes)
+            v = (xf * xf).mean(axes) - m * m
+            update_running(self.mean, m, self.momentum)
+            update_running(self.var, v, self.momentum)
+        else:
+            m, v = self.mean, self.var
+        mul = self.scale * torch.rsqrt(v.to(self.scale.dtype) + self.epsilon)
+        add = self.bias - m.to(self.scale.dtype) * mul
         shape = (1, -1) + (1,) * (x.dim() - 2)
         return (x * mul.reshape(shape) + add.reshape(shape)).to(x.dtype)
+
+
+def update_running(buf: torch.Tensor, batch: torch.Tensor, mom: float):
+    """buf <- mom*buf + (1-mom)*batch, in place, outside the graph."""
+    with torch.no_grad():
+        buf.mul_(mom).add_(batch.to(buf.dtype), alpha=1.0 - mom)
 
 
 class Conv(nn.Module):

@@ -107,7 +107,18 @@ def pillar_tables(
     the BN bias (see _table_term). Returns the (batch*stride, F) canvas in
     u's dtype; pillars with no points, the drop bucket and out-of-range
     ids leave zeros.
+
+    Eval only, like the TPU kernel (JAX calls it only when ``not train``,
+    heal_tpu/models/encoders.py:255-259): the canvas carries no graph, so
+    a call that autograd would differentiate raises instead of silently
+    cutting the gradient. The train-mode encoder takes its own path.
     """
+    if torch.is_grad_enabled() and (u.requires_grad or weights.requires_grad):
+        raise RuntimeError(
+            "pillar_tables has no backward (eval only): call it under "
+            "torch.no_grad() / inference_mode, or use the encoder in train "
+            "mode"
+        )
     if u.device.type == "cpu":
         return pillar_tables_plain(u, g4, fi, weights, grid, batch)
     n, f = u.shape

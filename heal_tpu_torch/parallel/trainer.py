@@ -1,0 +1,134 @@
+"""Training runtime (torch): one train step and one eval step.
+
+Counterpart of heal_tpu/parallel/trainer.py on one device:
+  * train step: forward in train mode (batch-statistics BN, running
+    buffers updated) -> loss (+ ``single_weight`` * the "_single" loss of
+    the per-agent labels) -> backward -> optimizer step at the scheduled
+    learning rate;
+  * bf16 compute policy (JAX trainer.py:93-103,128-168): f32 MASTER
+    parameters in the optimizer; a bf16 copy of them runs the forward and
+    backward (``torch.func.functional_call``), so the gradients
+    accumulate back into the f32 parameters through the cast; the batch
+    is not cast (points stay f32); outputs are cast to f32 before the
+    loss; BN buffers stay f32.
+Steps return their aux dict as device scalars and never synchronise.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Callable
+
+import numpy as np
+import torch
+
+
+def _label_targets(batch: dict) -> dict:
+    """The label arrays the ported losses read (JAX trainer.py
+    ``_label_targets`` also passes the anchor-free and two-stage labels)."""
+    out = {k: batch[k] for k in ("pos_equal_one", "neg_equal_one", "targets")}
+    for key, value in batch.items():
+        if key.startswith("inputs_") and isinstance(value, dict):
+            if "depth_bins" in value:
+                out[f"depth_bins_{key[len('inputs_'):]}"] = value["depth_bins"]
+    return out
+
+
+def _single_targets(batch: dict) -> dict:
+    """(B, L, ...) single-agent labels -> flat (B*L, ...)."""
+    out = {}
+    for key in ("pos_equal_one", "neg_equal_one", "targets"):
+        v = batch[f"{key}_single"]
+        out[key] = v.reshape((-1,) + tuple(v.shape[2:]))
+    return out
+
+
+def _to_f32(tree):
+    if isinstance(tree, dict):
+        return {k: _to_f32(v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_to_f32(v) for v in tree)
+    if isinstance(tree, torch.Tensor) and tree.dtype == torch.bfloat16:
+        return tree.float()
+    return tree
+
+
+def to_device(batch: dict, device) -> dict:
+    """numpy batch -> tensors on ``device`` (the host->device boundary).
+
+    Deduplicates by object id: collate aliases identical arrays (``points``
+    and ``inputs_m1/points``), so each buffer crosses once. CUDA copies go
+    from pinned memory without blocking the host.
+    """
+    device = torch.device(device)
+    memo: dict = {}
+
+    def conv(x):
+        if isinstance(x, dict):
+            return {k: conv(v) for k, v in x.items()}
+        if not isinstance(x, np.ndarray):
+            return x
+        if id(x) not in memo:
+            t = torch.from_numpy(np.ascontiguousarray(x))
+            if device.type == "cuda":
+                t = t.pin_memory().to(device, non_blocking=True)
+            else:
+                t = t.to(device)
+            memo[id(x)] = t
+        return memo[id(x)]
+
+    return conv(batch)
+
+
+@dataclasses.dataclass
+class Trainer:
+    model: torch.nn.Module
+    criterion: Callable
+    optimizer: torch.optim.Optimizer
+    # learning rate of update k (parallel/schedulers.build_lr_schedule)
+    schedule: Callable[[int], float]
+    supervise_single: bool = False
+    single_weight: float = 1.0
+    bf16: bool = False
+    step: int = 0  # updates taken (the schedule's count)
+
+    def _forward(self, batch: dict) -> dict:
+        if not self.bf16:
+            return self.model(batch)
+        params = {
+            k: p.to(torch.bfloat16) if p.dtype == torch.float32 else p
+            for k, p in self.model.named_parameters()
+        }
+        out = torch.func.functional_call(self.model, params, (batch,))
+        return _to_f32(out)
+
+    def loss(self, batch: dict) -> tuple[torch.Tensor, dict]:
+        """Train-mode forward and loss (running BN buffers move)."""
+        self.model.train()
+        out = self._forward(batch)
+        loss, aux = self.criterion(out, _label_targets(batch))
+        if self.supervise_single:
+            loss_s, aux_s = self.criterion(out, _single_targets(batch),
+                                           "_single")
+            loss = loss + self.single_weight * loss_s
+            aux = dict(aux, **{f"{k}_single": v for k, v in aux_s.items()})
+        return loss, aux
+
+    def train_step(self, batch: dict) -> dict[str, Any]:
+        """One update on a device batch (see :func:`to_device`). After it,
+        each parameter's ``.grad`` holds this step's gradient."""
+        self.optimizer.zero_grad(set_to_none=True)
+        loss, aux = self.loss(batch)
+        loss.backward()
+        lr = self.schedule(self.step)
+        for group in self.optimizer.param_groups:
+            group["lr"] = lr
+        self.optimizer.step()
+        self.step += 1
+        return {k: v.detach() for k, v in dict(aux, total_loss=loss).items()}
+
+    @torch.no_grad()
+    def eval_step(self, batch: dict) -> dict[str, Any]:
+        """Eval-mode forward (running statistics, f32) and the loss."""
+        self.model.eval()
+        loss, aux = self.criterion(self.model(batch), _label_targets(batch))
+        return dict(aux, total_loss=loss)

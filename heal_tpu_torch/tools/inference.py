@@ -10,7 +10,9 @@ visualisation are not ported yet.
         [--checkpoint net.pt | --seed 0] [--dtype bf16] [--max_batches 8]
 
 A checkpoint is a ``torch.save``d state_dict with the bridged key names
-(utils/bridge.py); without one the weights are a seeded random init.
+(utils/bridge.py, tools/checkpoint.py); with ``--model_dir`` and no
+``--checkpoint`` the run's best-validation (else newest) checkpoint is
+served; without any the weights are a seeded random init.
 """
 from __future__ import annotations
 
@@ -94,6 +96,10 @@ def run_inference(
         )
     device = torch.device(device)
     dataset = build_dataset(cfg, train=False)
+    if model is None and checkpoint is None and model_dir is not None:
+        from .checkpoint import find_checkpoint
+
+        checkpoint = find_checkpoint(model_dir, best=True)[1]
     if model is None:
         model = build_weights(cfg, checkpoint, seed)
         model = model.to(device=device, dtype=dtype)

@@ -100,7 +100,12 @@ def load_flax(model: torch.nn.Module, params: dict,
 
 def to_flax(state_dict: dict) -> tuple[dict, dict]:
     """Inverse of :func:`from_flax`: -> (params, batch_stats) nested dicts
-    of numpy arrays."""
+    of numpy arrays (f32).
+
+    Takes any mapping of port keys to tensors: a state_dict (the running
+    statistics after a train step land in batch_stats), or
+    ``{name: p.grad for name, p in model.named_parameters()}``, whose
+    params tree is then the gradient in flax layout."""
     params: dict = {}
     stats: dict = {}
     for key, value in state_dict.items():

@@ -109,16 +109,28 @@ _NO_JAX = """
 import json, sys
 sys.modules["jax"] = None
 sys.modules["flax"] = None
+sys.modules["optax"] = None
 import heal_tpu_torch
-from heal_tpu.config import load_yaml
-from heal_tpu_torch.tools.inference import run_inference
+from heal_tpu_torch.models import build_loss
+from heal_tpu_torch.parallel import Trainer, build_optimizer
+from heal_tpu_torch.tools.inference import build_weights, run_inference
+from heal_tpu_torch.tools.train import device_batches, load_config
 import torch
 torch.set_num_threads(1)
-r = run_inference(cfg=load_yaml(sys.argv[1]), device="cpu", max_batches=1)
+cfg = load_config(sys.argv[1])
+r = run_inference(cfg=cfg, device="cpu", max_batches=1)
+model = build_weights(cfg, seed=0)
+opt, schedule = build_optimizer(model.parameters(), cfg["optimizer"],
+                                cfg["lr_scheduler"], 8)
+trainer = Trainer(model, build_loss(cfg["loss"]), opt, schedule,
+                  supervise_single=True)
+batch, _ = next(device_batches(cfg, 2, "cpu"))
+losses = [trainer.train_step(batch)["total_loss"].item() for _ in range(2)]
 loaded = sorted(m for m in sys.modules
-                if m.split(".")[0] in ("jax", "jaxlib", "flax")
+                if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax")
                 and sys.modules[m] is not None)
-print(json.dumps({"frames": r["frames"], "loaded": loaded}))
+print(json.dumps({"frames": r["frames"], "steps": len(losses),
+                  "falling": losses[1] < losses[0], "loaded": loaded}))
 """
 
 
@@ -130,4 +142,4 @@ def test_port_never_imports_jax():
     )
     assert proc.returncode == 0, proc.stderr[-3000:]
     out = json.loads(proc.stdout.strip().splitlines()[-1])
-    assert out == {"frames": 1, "loaded": []}
+    assert out == {"frames": 1, "steps": 2, "falling": True, "loaded": []}

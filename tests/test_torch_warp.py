@@ -1,13 +1,15 @@
-"""Kernel 2 (row shift) and the BEV warps: port vs JAX.
+"""Kernel 2 (row shift) and the BEV warps: port vs JAX, forward and backward.
 
-The port runs on CPU torch, where ``shift_rows`` takes its plain version.
-References: heal_tpu.ops.warp._shift_rows / _shift_cols (the semantics of
-the Pallas kernel, as JAX runs it off the TPU), affine_warp,
-affine_warp_shear and warp_agents_to_ego. Stated tolerances: 1e-6 for the
-row shift (the same f32 arithmetic on both sides); 2e-5 for the warps,
-whose angles and shear offsets are f32 trigonometry computed by two
-libraries.
+The port runs on CPU torch, where ``shift_rows`` takes its plain version
+in both directions. References: heal_tpu.ops.warp._shift_rows /
+_shift_cols (the semantics of the Pallas kernel, as JAX runs it off the
+TPU) and their ``jax.vjp``, affine_warp, affine_warp_shear and
+warp_agents_to_ego. Stated tolerances: 1e-6 for the row shift and its
+gradient (the same f32 arithmetic on both sides: a gradient element sums
+at most two taps); 2e-5 for the warps, whose angles and shear offsets are
+f32 trigonometry computed by two libraries.
 """
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -15,7 +17,12 @@ import torch
 
 from heal_tpu.ops import warp as jw
 from heal_tpu_torch.ops import warp as tw
-from heal_tpu_torch.ops.shift_rows import shift_cols, shift_rows
+from heal_tpu_torch.ops.shift_rows import (
+    shift_cols,
+    shift_cols_plain,
+    shift_rows,
+    shift_rows_plain,
+)
 
 torch.set_num_threads(1)
 WARP_TOL = dict(rtol=2e-5, atol=2e-5)
@@ -54,6 +61,38 @@ def test_shift_rows_and_cols_match_jax(kind, c):
     got = shift_cols(torch.from_numpy(x), torch.from_numpy(sc), max_shift)
     want = _jax_rows(jw._shift_cols, x, sc, max_shift)
     np.testing.assert_allclose(got.numpy(), want, rtol=1e-6, atol=1e-6)
+
+
+@pytest.mark.parametrize("kind", ["fractional", "integer", "negative"])
+@pytest.mark.parametrize("c", [1, 65])
+@pytest.mark.parametrize("axis", [0, 1])
+def test_shift_backward_matches_jax_vjp_and_transpose(kind, c, axis):
+    """x.grad through the autograd.Function: the VJP of JAX's CPU form,
+    and the explicit transpose (the shift by -s), for |s| <= max_shift."""
+    rng = np.random.RandomState(10 * c + axis)
+    n, h, w, max_shift = 2, 9, 13, 5
+    x = rng.randn(n, h, w, c).astype(np.float32)
+    g = rng.randn(n, h, w, c).astype(np.float32)
+    s = rng.uniform(-max_shift, max_shift, (n, (h, w)[axis]))
+    s[:, :2] = [max_shift, -max_shift]  # at the bound
+    if kind == "integer":
+        s = np.round(s)
+    elif kind == "negative":
+        s = -np.abs(s)
+    s = s.astype(np.float32)
+    fn, plain, jfn = ((shift_rows, shift_rows_plain, jw._shift_rows)
+                      if axis == 0 else
+                      (shift_cols, shift_cols_plain, jw._shift_cols))
+    xt = torch.from_numpy(x).requires_grad_()
+    fn(xt, torch.from_numpy(s), max_shift).backward(torch.from_numpy(g))
+    want = np.stack([
+        np.asarray(jax.vjp(lambda xi: jfn(xi, jnp.asarray(si), max_shift),
+                           jnp.asarray(xi))[1](jnp.asarray(gi))[0])
+        for xi, si, gi in zip(x, s, g)])
+    np.testing.assert_allclose(xt.grad.numpy(), want, rtol=1e-6, atol=1e-6)
+    transpose = plain(torch.from_numpy(g), torch.from_numpy(-s), max_shift)
+    np.testing.assert_allclose(xt.grad.numpy(), transpose.numpy(), rtol=1e-6,
+                               atol=1e-6)
 
 
 def test_shift_without_bound_and_integer_roll():
@@ -103,6 +142,27 @@ def test_affine_warp_shear_matches_jax_in_every_sector():
                                                jnp.asarray(ms[i])))
         assert np.abs(want).max() > 0 or i == len(cases) - 1
         np.testing.assert_allclose(got[i], want, **WARP_TOL)
+
+
+def test_affine_warp_shear_input_gradient_matches_jax_vjp():
+    rng = np.random.RandomState(4)
+    h, w = 20, 32
+    src = rng.randn(4, h, w, 3).astype(np.float32)
+    g = rng.randn(4, h, w, 3).astype(np.float32)
+    # one angle per 90-degree sector
+    cases = [(0.3, 0.12, -0.07), (np.pi / 2 + 0.2, -0.1, 0.05),
+             (np.pi + 0.35, -0.2, 0.1), (-np.pi / 2 - 0.1, 0.05, 0.3)]
+    ms = np.stack([_M(t, h, w, tx, ty) for t, tx, ty in cases])
+    xt = torch.from_numpy(src).requires_grad_()
+    tw.affine_warp_shear(xt, torch.from_numpy(ms)).backward(
+        torch.from_numpy(g))
+    for i in range(len(cases)):
+        _, vjp = jax.vjp(
+            lambda x: jw.affine_warp_shear(x, jnp.asarray(ms[i])),
+            jnp.asarray(src[i]))
+        want = np.asarray(vjp(jnp.asarray(g[i]))[0])
+        assert np.abs(want).max() > 0
+        np.testing.assert_allclose(xt.grad[i].numpy(), want, **WARP_TOL)
 
 
 @pytest.mark.parametrize("method", ["exact", "shear"])
