@@ -8,9 +8,11 @@ Phases, in order; any failure raises and the exit code is non-zero:
   3. each kernel against its plain PyTorch version on the card, at the
      shapes of the flagship config (heal_tpu/configs/opv2v_m1_pyramid.yaml:
      5 agents, 30000 points each, 512x256 BEV), f32 and bf16: max abs
-     error and both times (CUDA events, after a warmup); kernel 2 also in
-     its backward (the kernel run with -s) against the plain backward,
-     shift_*_plain(g, -s);
+     error, both device times (CUDA events, after a warmup), the bytes
+     and the bound they set, and the time of one PyTorch call that
+     computes the same function where there is one (F.grid_sample for
+     kernel 2); kernel 2 at its 3 levels, rows and columns, forward and
+     backward (the kernel run with -s, against shift_*_plain(g, -s));
   4. serve 8 synthetic flagship frames through
      heal_tpu_torch.tools.inference.run_inference with seeded random
      weights, f32 (TF32 off) and bf16 (points, affines and decode f32);
@@ -42,9 +44,12 @@ import warnings
 
 import torch
 
+# the port comes from this checkout: the script fails here, before it
+# prints anything, when it stands alone
+from heal_tpu_torch.kernels.measure import bound, device_ms
+
 SEED = 0
 FRAMES = 8
-ITERS = 20
 
 # tolerances, as max |kernel - plain| <= tol * (1 + max |plain|):
 #   f32: kernel 1 sums in another order than scatter_reduce -> a few f32
@@ -73,20 +78,6 @@ def rel_err(a: torch.Tensor, b: torch.Tensor) -> tuple[float, float]:
     """(max |a - b|, that over 1 + max |b|)."""
     d = (a.float() - b.float()).abs().max().item()
     return d, d / (1.0 + b.float().abs().max().item())
-
-
-def cuda_ms(fn, iters: int = ITERS, warmup: int = 3) -> float:
-    for _ in range(warmup):
-        fn()
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(iters):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / iters
 
 
 @contextlib.contextmanager
@@ -143,7 +134,8 @@ def flagship_cfg():
 
 
 def phase_kernels(cfg, model32) -> dict:
-    """Kernel vs plain at flagship shapes; returns the JSON rows' numbers."""
+    """Kernel vs plain at flagship shapes; returns the JSON rows' numbers
+    (all but the launches)."""
     from heal_tpu_torch.ops import pillar, shift_rows
     from heal_tpu_torch.tools.train import device_batches
 
@@ -163,23 +155,35 @@ def phase_kernels(cfg, model32) -> dict:
             want = pillar.pillar_tables_plain(*args)
             torch.cuda.synchronize()
             d, r = rel_err(got, want)
-            ms = cuda_ms(lambda: pillar.pillar_tables(*args))
-            plain_ms = cuda_ms(lambda: pillar.pillar_tables_plain(*args))
-        u = args[0]
+            ms = device_ms(lambda: pillar.pillar_tables(*args))
+            plain_ms = device_ms(lambda: pillar.pillar_tables_plain(*args))
+            runs = torch.unique_consecutive(args[2]).numel()
+        u, g4, fi, w = args[:4]
+        nbytes = sum(t.numel() * t.element_size() for t in (u, g4, fi, w, got))
+        # per point: the channel max and 4 sums; per run: the epilogue
+        # (two 3-term products, bias, ReLU per channel)
+        b_ms, b_by = bound(nbytes, u.numel() + 4 * u.shape[0]
+                           + runs * u.shape[1] * 14)
         print(f"[kernel] pillar_tables {str(dt)[6:]} u {tuple(u.shape)} "
               f"canvas {tuple(got.shape)}: max_abs_err {d:.3e} (rel {r:.3e}, "
-              f"tol {KERNEL_TOL[dt]}), {ms:.4f} ms vs plain {plain_ms:.4f} ms")
+              f"tol {KERNEL_TOL[dt]}), {ms:.4f} ms vs plain {plain_ms:.4f} ms;"
+              f" {nbytes} bytes, bound {b_ms:.4f} ms ({b_by}), "
+              f"{100 * b_ms / ms:.1f}% of bound; library call: none")
         if not r <= KERNEL_TOL[dt]:
             raise AssertionError(f"pillar_tables {dt} disagrees: {r}")
         worst = max(worst, d)
         if dt == torch.bfloat16:
-            rows["pillar_tables"] = dict(max_abs_err=worst, ms=ms,
-                                         plain_ms=plain_ms)
+            rows["pillar_tables"] = dict(
+                max_abs_err=worst, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+                bound_by=b_by, library_ms=None, bytes=nbytes,
+                pct_of_bound=100 * b_ms / ms)
 
     # kernel 2: the pyramid warp's canvases (4 non-ego agents; level sides
-    # 292 / 148 / 76 with C = 65 / 129 / 257), shear-sized shifts
+    # 292 / 148 / 76 with C = 65 / 129 / 257), shear-sized shifts; each
+    # case forward (s) and backward (the kernel with -s on a gradient)
     gen = torch.Generator(device=dev).manual_seed(SEED)
     worst = worst_bwd = 0.0
+    cases = []
     for dt in (torch.float32, torch.bfloat16):
         for side, c in ((292, 65), (148, 129), (76, 257)):
             ms_bound = int(math.ceil(0.7072 * side / 2)) + 2
@@ -191,45 +195,93 @@ def phase_kernels(cfg, model32) -> dict:
                 ("rows", shift_rows.shift_rows, shift_rows.shift_rows_plain),
                 ("cols", shift_rows.shift_cols, shift_rows.shift_cols_plain),
             ):
+                axis = 0 if name == "rows" else 1
                 got = fn(x, s, ms_bound)
                 want = plain(x, s, ms_bound)
                 torch.cuda.synchronize()
                 d, r = rel_err(got, want)
-                ms = cuda_ms(lambda: fn(x, s, ms_bound))
-                plain_ms = cuda_ms(lambda: plain(x, s, ms_bound))
-                print(f"[kernel] shift_{name} {str(dt)[6:]} x {tuple(x.shape)}"
-                      f": max_abs_err {d:.3e} (rel {r:.3e}, tol "
-                      f"{KERNEL_TOL[dt]}), {ms:.4f} ms vs plain "
-                      f"{plain_ms:.4f} ms")
                 if not r <= KERNEL_TOL[dt]:
                     raise AssertionError(f"shift_{name} {dt} {side}: {r}")
                 worst = max(worst, d)
-                if dt == torch.bfloat16 and side == 292 and name == "rows":
-                    rows["shift_rows"] = dict(ms=ms, plain_ms=plain_ms)
-                b = shift_backward(x, s, ms_bound, fn, plain, gen,
-                                   0 if name == "rows" else 1)
-                print(f"[kernel] shift_{name} backward {str(dt)[6:]} x "
-                      f"{tuple(x.shape)}: max_abs_err {b['err']:.3e} (rel "
-                      f"{b['rel']:.3e}, tol {KERNEL_TOL[dt]}), {b['ms']:.4f} "
-                      f"ms vs plain {b['plain_ms']:.4f} ms (autograd through "
-                      f"the plain forward: {b['autograd_ms']:.4f} ms)")
-                if not b["rel"] <= KERNEL_TOL[dt]:
+                fwd = dict(
+                    err=d, rel=r, ms=device_ms(lambda: fn(x, s, ms_bound)),
+                    plain_ms=device_ms(lambda: plain(x, s, ms_bound)),
+                    **library_shift(x, s, axis, want))
+                bwd = shift_backward(x, s, ms_bound, fn, plain, gen, axis)
+                if not bwd["rel"] <= KERNEL_TOL[dt]:
                     raise AssertionError(f"shift_{name} backward {dt} {side}:"
-                                         f" {b['rel']}")
-                worst_bwd = max(worst_bwd, b["err"])
-                if dt == torch.bfloat16 and side == 292 and name == "rows":
-                    rows["shift_rows"].update(backward_ms=b["ms"],
-                                              backward_plain_ms=b["plain_ms"])
-    rows["shift_rows"].update(max_abs_err=worst,
-                              backward_max_abs_err=worst_bwd)
+                                         f" {bwd['rel']}")
+                worst_bwd = max(worst_bwd, bwd["err"])
+                nbytes = 2 * x.numel() * x.element_size() + s.numel() * 4
+                b_ms, b_by = bound(nbytes, 3 * x.numel())
+                for direction, m in (("forward", fwd), ("backward", bwd)):
+                    print(f"[kernel] shift_{name} {direction} {str(dt)[6:]} x "
+                          f"{tuple(x.shape)}: max_abs_err {m['err']:.3e} (rel "
+                          f"{m['rel']:.3e}, tol {KERNEL_TOL[dt]}), "
+                          f"{m['ms']:.4f} ms vs plain {m['plain_ms']:.4f} ms; "
+                          f"{nbytes} bytes, bound {b_ms:.4f} ms ({b_by}), "
+                          f"{100 * b_ms / m['ms']:.1f}% of bound; grid_sample "
+                          f"{m['library_ms']:.4f} ms (max abs diff from plain "
+                          f"{m['library_err']:.3e})"
+                          + (f"; autograd through the plain forward "
+                             f"{m['autograd_ms']:.4f} ms"
+                             if "autograd_ms" in m else ""))
+                    cases.append(dict(
+                        dtype=str(dt)[6:], x=list(x.shape), axis=name,
+                        direction=direction, max_abs_err=m["err"],
+                        ms=m["ms"], plain_ms=m["plain_ms"],
+                        library_ms=m["library_ms"],
+                        library_err=m["library_err"], bytes=nbytes,
+                        bound_ms=b_ms, pct_of_bound=100 * b_ms / m["ms"]))
+    # the row's numbers: f32 level 0 rows forward, as the f32 serve path
+    # calls it; every case is in "cases". Not a bf16 case: grid_sample
+    # takes its grid in x's dtype, and a bf16 grid cannot hold the
+    # coordinates, so there it does not compute the same function
+    head = next(c for c in cases if c["dtype"] == "float32"
+                and c["x"][1] == 292 and c["axis"] == "rows"
+                and c["direction"] == "forward")
+    rows["shift_rows"] = dict(
+        max_abs_err=worst, backward_max_abs_err=worst_bwd, ms=head["ms"],
+        plain_ms=head["plain_ms"], bound_ms=head["bound_ms"],
+        bound_by="bytes", library_ms=head["library_ms"],
+        bytes=head["bytes"], pct_of_bound=head["pct_of_bound"], cases=cases)
     return rows
+
+
+def library_shift(x, s, axis, want) -> dict:
+    """The yardstick for kernel 2: one ``F.grid_sample`` call (bilinear,
+    zero padding, align_corners=True) on x viewed as NCHW, with a grid
+    built beforehand whose x is j + s (rows) or whose y is i + s
+    (columns). Only the call is timed; its largest difference from the
+    plain version is reported (a bf16 grid cannot hold the coordinates
+    exactly). The port never calls it."""
+    import torch.nn.functional as F
+
+    n, h, w, _ = x.shape
+    i = torch.arange(h, device=x.device, dtype=torch.float32)[:, None]
+    j = torch.arange(w, device=x.device, dtype=torch.float32)[None, :]
+    if axis == 0:
+        gx, gy = j + s[:, :, None], i.expand(h, w).expand(n, h, w)
+    else:
+        gx, gy = j.expand(h, w).expand(n, h, w), i + s[:, None, :]
+    grid = torch.stack([2 * gx / (w - 1) - 1, 2 * gy / (h - 1) - 1],
+                       dim=-1).to(x.dtype)
+    src = x.permute(0, 3, 1, 2)
+
+    def call():
+        return F.grid_sample(src, grid, mode="bilinear", padding_mode="zeros",
+                             align_corners=True)
+
+    err = (call().permute(0, 2, 3, 1).float() - want.float()).abs().max()
+    return dict(library_ms=device_ms(call), library_err=err.item())
 
 
 def shift_backward(x, s, ms_bound, fn, plain, gen, axis) -> dict:
     """Kernel 2's backward against the plain backward plain(g, -s) on one
-    shape: the error through autograd, the time of the backward as autograd
-    runs it (negate the shifts, launch the kernel), and for information
-    autograd through the plain forward."""
+    shape: the error through autograd, the time of the backward launch
+    (the kernel with -s; autograd also negates the shifts, a separate
+    elementwise op), the grid_sample yardstick with -s, and for
+    information autograd through the plain forward."""
     from heal_tpu_torch.ops import shift_rows
 
     g = torch.randn(x.shape, generator=gen, device=x.device).to(x.dtype)
@@ -239,13 +291,15 @@ def shift_backward(x, s, ms_bound, fn, plain, gen, axis) -> dict:
     torch.cuda.synchronize()
     err, rel = rel_err(got, want)
     yp = plain(xr, s, ms_bound)
+    neg = -s
     return dict(
         err=err, rel=rel,
-        ms=cuda_ms(lambda: shift_rows._shift(g, -s, ms_bound, axis,
+        ms=device_ms(lambda: shift_rows._shift(g, neg, ms_bound, axis,
                                              backward=True)),
-        plain_ms=cuda_ms(lambda: plain(g, -s, ms_bound)),
-        autograd_ms=cuda_ms(
+        plain_ms=device_ms(lambda: plain(g, neg, ms_bound)),
+        autograd_ms=device_ms(
             lambda: torch.autograd.grad(yp, xr, g, retain_graph=True)),
+        **library_shift(g, neg, axis, want),
     )
 
 
@@ -316,8 +370,10 @@ def phase_serve(cfg, model32) -> dict:
     for dt in (torch.float32, torch.bfloat16):
         feats = torch.randn((1, 5, 128, 256, 65), generator=gen,
                             device="cuda").to(dt)
-        t_ex = cuda_ms(lambda: warp_agents_to_ego(feats, aff, method="exact"))
-        t_sh = cuda_ms(lambda: warp_agents_to_ego(feats, aff, method="shear"))
+        t_ex = device_ms(
+            lambda: warp_agents_to_ego(feats, aff, method="exact"))
+        t_sh = device_ms(
+            lambda: warp_agents_to_ego(feats, aff, method="shear"))
         print(f"[warp] level-0 warp_agents_to_ego {str(dt)[6:]}: exact "
               f"{t_ex:.4f} ms, shear {t_sh:.4f} ms")
     return launches
@@ -468,10 +524,6 @@ def main() -> int:
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
               "False)", file=sys.stderr)
         return 1
-    # the port comes from this checkout: fail here, before printing
-    # anything, when the script stands alone
-    import heal_tpu_torch.tools.train  # noqa: F401
-
     # cuBLAS reads this when it makes its handle: needed for the
     # deterministic train-step comparison
     os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
@@ -488,6 +540,8 @@ def main() -> int:
     rows = phase_kernels(cfg, model32)
     launches = phase_serve(cfg, model32)
     trained = phase_train(cfg, model32)
+    rows["pillar_tables"]["train_launches"] = trained["pillar_tables"]
+    rows["shift_rows"]["train_launches"] = trained["shift_rows"]
     rows["shift_rows"]["backward_launches"] = trained["shift_rows_backward"]
 
     meta = {
@@ -501,6 +555,16 @@ def main() -> int:
          "launches": launches[name], **rows[name]}
         for name, (src, rep) in meta.items()
     ]
+    for k in kernels:
+        print(f"[kernels] {k['name']}: launches {k['launches']} serving, "
+              f"{k['train_launches']} training forward"
+              + (f", {k['backward_launches']} backward"
+                 if "backward_launches" in k else "")
+              + f"; {k['bytes']} bytes, bound {k['bound_ms']:.4f} ms "
+              f"({k['bound_by']}), {k['ms']:.4f} ms = {k['pct_of_bound']:.1f}%"
+              f" of bound, plain {k['plain_ms']:.4f} ms, library call "
+              + (f"{k['library_ms']:.4f} ms" if k["library_ms"] is not None
+                 else "none"))
     print(f"[card] {smi}")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

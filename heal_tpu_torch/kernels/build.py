@@ -122,19 +122,25 @@ def _build(sources: list[str], out_dir: str) -> str:
     return lib_path
 
 
+def bind(path: str, names=tuple(_SIGNATURES)) -> ctypes.CDLL:
+    """Load a built library and set the C signature of its entry points
+    ``names`` (a library built from some of the sources has only theirs)."""
+    lib = ctypes.CDLL(path)
+    for name in names:
+        fn = getattr(lib, name)
+        fn.argtypes = _SIGNATURES[name]
+        fn.restype = ctypes.c_int
+    return lib
+
+
 def library() -> ctypes.CDLL:
     """The loaded kernel library; builds it on first use."""
     global _lib
     with _lock:
         if _lib is None:
             sources = _sources()
-            path = _build(sources, os.path.join(BUILD_ROOT, _digest(sources)))
-            lib = ctypes.CDLL(path)
-            for name, argtypes in _SIGNATURES.items():
-                fn = getattr(lib, name)
-                fn.argtypes = argtypes
-                fn.restype = ctypes.c_int
-            _lib = lib
+            _lib = bind(_build(sources,
+                               os.path.join(BUILD_ROOT, _digest(sources))))
     return _lib
 
 

@@ -1,0 +1,38 @@
+"""Device timing and the H100's bound, for chip_smoke.py and the kernel
+A/B (tools/kernel_ab.py). Nothing here runs at import time."""
+from __future__ import annotations
+
+# published peaks of one H100 SXM at 700 W (NVIDIA's data sheet)
+HBM_BYTES_PER_S = 3.35e12
+F32_FLOP_PER_S = 67e12
+
+
+def device_ms(fn, iters: int = 20, warmup: int = 3) -> float:
+    """Device time per call: CUDA events around ``iters`` calls queued
+    behind a spin kernel (~10 ms), so that the host's launch rate does not
+    bound the reading (a call that synchronises still pays its host
+    time)."""
+    import torch
+
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(20_000_000)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def bound(nbytes: int, flops: int) -> tuple[float, str]:
+    """The least time for the work on an H100 SXM (ms) and what sets it:
+    the bytes (each input read once, each output written once) over the
+    memory rate, or the f32 operations over their rate outside the tensor
+    cores."""
+    by_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    by_ops = flops / F32_FLOP_PER_S * 1e3
+    return (by_bytes, "bytes") if by_bytes >= by_ops else (by_ops, "operations")

@@ -29,9 +29,10 @@ of JAX's CPU form (whose read position clamps but whose fraction does
 not) and the shift by -s differ; no caller goes there (ops/warp.py clips
 every shift).
 
-On a CUDA tensor both directions launch csrc/shift_rows.cu (one thread
-per output element, all images in one launch; notes on design and bounds
-there); ``shift_rows.launches`` counts forward launches and
+On a CUDA tensor both directions launch csrc/shift_rows.cu (16-byte
+vectors of each row's positions, rows staged through shared memory,
+columns walked down bands; all images in one launch; notes on design and
+bounds there); ``shift_rows.launches`` counts forward launches and
 ``shift_rows.backward_launches`` backward ones. On a CPU tensor both take
 ``shift_rows_plain`` / ``shift_cols_plain``.
 """
@@ -87,6 +88,8 @@ def _launch(x: torch.Tensor, shifts: torch.Tensor, axis: int, pad: int,
     if shifts.device != x.device:
         raise ValueError("shift_rows: x and shifts must be on one device")
     x = x.contiguous()
+    if x.data_ptr() % 16:  # the kernel reads 16-byte vectors
+        x = x.clone()
     shifts = shifts.contiguous()
     out = torch.empty_like(x)
     lib = build.library()

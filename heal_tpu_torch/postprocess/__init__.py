@@ -1,5 +1,2 @@
-"""Post-processing: decode + rotated NMS (torch).
-
-Anchors and targets are host-side numpy and come from
-``heal_tpu.postprocess.anchors`` / ``targets``, shared with the JAX package.
-"""
+"""Post-processing: anchors and targets (host side, numpy), decode +
+rotated NMS (torch)."""

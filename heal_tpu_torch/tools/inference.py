@@ -1,8 +1,9 @@
 """Inference + AP evaluation for the port (intermediate fusion).
 
 Counterpart of heal_tpu/tools/inference.py ``run_inference`` for the
-intermediate-fusion path: dataset (shared numpy host side) -> model ->
-decode + rotated NMS -> AP@0.3/0.5/0.7 with the shared VOC matcher.
+intermediate-fusion path: dataset (the port's numpy host side) -> model
+-> decode + rotated NMS -> AP@0.3/0.5/0.7 with the VOC matcher of
+utils/eval_np.py.
 Late fusion, two-stage models, depth metrics, comm rate and
 visualisation are not ported yet.
 
@@ -23,12 +24,12 @@ import time
 import numpy as np
 import torch
 
-from heal_tpu.data import build_dataset
-from heal_tpu.utils import box_np, eval_np
-
+from ..config import load_yaml
+from ..data import build_dataset
 from ..models import build_model
 from ..models.layers import init_weights
 from ..postprocess.decode import post_process_single, strip_padding
+from ..utils import box_np, eval_np
 
 _DTYPES = {"f32": torch.float32, "bf16": torch.bfloat16}
 
@@ -71,7 +72,7 @@ def run_inference(
     collect_heads: bool = False,
 ) -> dict:
     """Serve the test split of ``cfg`` (or ``model_dir``'s config.yaml)
-    and return the AP dict of heal_tpu.utils.eval_np, plus:
+    and return the AP dict of utils/eval_np.py, plus:
 
       * ``frames``: frames served;
       * ``serve_s``: per-frame seconds from the host batch to the host
@@ -83,8 +84,6 @@ def run_inference(
     ``model`` (already on ``device`` in ``dtype``) skips the weight setup.
     """
     if cfg is None:
-        from heal_tpu.config import load_yaml  # needs PyYAML
-
         cfg = load_yaml("", model_dir=model_dir)
     cfg = copy.deepcopy(cfg)
     if cfg["fusion"]["core_method"] not in (
@@ -117,7 +116,7 @@ def run_inference(
         if device.type == "cuda":
             torch.cuda.synchronize(device)
 
-    batches = dataset.batches(1, shuffle=False, process_split=False)
+    batches = dataset.batches(1, shuffle=False)
     t_data = time.perf_counter()
     with torch.inference_mode():
         for batch in batches:
@@ -183,8 +182,6 @@ def main(argv=None):
         p.error("give --config or --model_dir")
     cfg = None
     if args.config is not None:
-        from heal_tpu.config import load_yaml
-
         cfg = load_yaml(args.config)
     result = run_inference(
         args.model_dir, cfg, device=args.device, dtype=_DTYPES[args.dtype],

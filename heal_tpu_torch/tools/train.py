@@ -14,11 +14,10 @@ the Adam moments restart, as in JAX. ``train_params.bf16`` selects the
 bf16 compute policy (parallel/trainer.py). The final inference on the
 test split runs in-process unless ``--no_final_inference``.
 
-The host data goes through ``Dataset.batches(..., process_split=False)``
-(the JAX pipeline's prefetch and process split import jax); host->device
-copies are pinned and asynchronous. :func:`load_config` and
-:func:`device_batches` are the port's entry points to the shared numpy
-host side (configs and batches) for other drivers too.
+The host data comes from the port's own numpy host side (config/,
+data/, postprocess/anchors.py and targets.py); host->device copies are
+pinned and asynchronous. :func:`load_config` and :func:`device_batches`
+are the entry points to it (configs and batches) for other programs too.
 """
 from __future__ import annotations
 
@@ -29,19 +28,18 @@ import time
 import numpy as np
 import torch
 
-from heal_tpu.config import load_yaml, save_yaml
-from heal_tpu.data import build_dataset
-from heal_tpu.tools.logging import MetricLogger
-
+from ..config import load_yaml, save_yaml
+from ..data import build_dataset
 from ..models import build_loss
 from ..parallel import Trainer, build_optimizer, to_device
 from . import checkpoint as ckpt_lib
 from .inference import build_weights
+from .logging import MetricLogger
 
 
 def load_config(path: str = "", model_dir: str | None = None) -> dict:
     """The config at ``path`` (or ``model_dir``'s config.yaml), with the
-    fields heal_tpu.config derives (anchors, grid sizes)."""
+    fields its ``yaml_parser`` derives (anchor grid sizes)."""
     return load_yaml(path, model_dir=model_dir)
 
 
@@ -52,8 +50,7 @@ def device_batches(cfg: dict, batch_size: int, device, *, train: bool = True,
     already built from ``cfg``."""
     if dataset is None:
         dataset = build_dataset(cfg, train=train)
-    host = dataset.batches(batch_size, shuffle=shuffle, seed=seed,
-                           process_split=False)
+    host = dataset.batches(batch_size, shuffle=shuffle, seed=seed)
     while True:
         t0 = time.perf_counter()
         batch = next(host, None)

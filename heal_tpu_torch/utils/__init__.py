@@ -1,1 +1,2 @@
-"""Device-side utilities (torch) and the flax -> torch weight bridge."""
+"""Utilities: the device side (torch) and the flax -> torch weight bridge;
+the numpy host side (``*_np.py``, ``pose_noise.py``)."""

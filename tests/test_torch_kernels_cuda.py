@@ -76,6 +76,34 @@ def test_shift_kernel_matches_plain(dev, dtype, c):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", [
+    (2, 9, 12, 8),     # rows of 96: 16-byte accesses in f32 and bf16
+    (2, 9, 10, 3),     # 30: 8-byte f32, 4-byte bf16
+    (2, 9, 10, 2),     # 20: 16-byte f32, 8-byte bf16
+    (2, 9, 11, 3),     # 33: 4-byte f32, 2-byte bf16, scalar row tails
+    (2, 5, 300, 17),   # 5100: several tiles per row
+    (1, 70, 33, 1),    # a column per position
+])
+def test_shift_kernel_matches_plain_at_every_access_width(dev, dtype, shape):
+    """The kernel picks its access width from the row's size in bytes;
+    every width, row tails and shifts past the window agree with the plain
+    version exactly (the blend rounds as the plain version does)."""
+    gen = torch.Generator(device=dev).manual_seed(sum(shape))
+    x = torch.randn(shape, generator=gen, device=dev).to(dtype)
+    for fn, plain, n_shift in (
+        (shift_rows.shift_rows, shift_rows.shift_rows_plain, shape[1]),
+        (shift_rows.shift_cols, shift_rows.shift_cols_plain, shape[2]),
+    ):
+        s = (torch.rand((shape[0], n_shift), generator=gen, device=dev) * 2
+             - 1) * 9
+        s[:, :4] = torch.tensor([6.0, -6.0, 40.0, -40.0], device=dev)
+        got = fn(x, s, 6)
+        want = plain(x, s, 6)
+        torch.cuda.synchronize()
+        assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("axis", [0, 1])
 def test_shift_backward_kernel_matches_plain_backward(dev, dtype, axis):
     """x.grad through the autograd.Function (the kernel run with -s)

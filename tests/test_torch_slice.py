@@ -105,11 +105,21 @@ def test_run_inference_two_frames(slice_outputs):
         assert 0.0 <= result[t] <= 1.0
 
 
-_NO_JAX = """
+# the port, and chip_smoke.py, run with jax, flax, optax and the JAX
+# package blocked: an import of any of them raises
+_BLOCK = """
 import json, sys
-sys.modules["jax"] = None
-sys.modules["flax"] = None
-sys.modules["optax"] = None
+for name in ("jax", "flax", "optax", "heal_tpu"):
+    sys.modules[name] = None
+"""
+_LOADED = """
+loaded = sorted(m for m in sys.modules
+                if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax",
+                                       "heal_tpu")
+                and sys.modules[m] is not None)
+"""
+
+_NO_JAX = _BLOCK + """
 import heal_tpu_torch
 from heal_tpu_torch.models import build_loss
 from heal_tpu_torch.parallel import Trainer, build_optimizer
@@ -126,20 +136,41 @@ trainer = Trainer(model, build_loss(cfg["loss"]), opt, schedule,
                   supervise_single=True)
 batch, _ = next(device_batches(cfg, 2, "cpu"))
 losses = [trainer.train_step(batch)["total_loss"].item() for _ in range(2)]
-loaded = sorted(m for m in sys.modules
-                if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax")
-                and sys.modules[m] is not None)
+""" + _LOADED + """
 print(json.dumps({"frames": r["frames"], "steps": len(losses),
                   "falling": losses[1] < losses[0], "loaded": loaded}))
 """
 
+# chip_smoke.py's host side: the flagship config and one test batch
+_CHIP_SMOKE = _BLOCK + """
+import torch
+torch.set_num_threads(1)
+import chip_smoke
+from heal_tpu_torch.tools.train import device_batches
+cfg = chip_smoke.flagship_cfg()
+batch, _ = next(device_batches(cfg, 1, "cpu", train=False))
+""" + _LOADED + """
+print(json.dumps({"points": list(batch["inputs_m1"]["points"].shape),
+                  "agents": int(batch["agent_mask"].sum()),
+                  "loaded": loaded}))
+"""
 
-def test_port_never_imports_jax():
+
+def _run_blocked(script, *args):
     env = dict(os.environ, PYTHONPATH=REPO)
     proc = subprocess.run(
-        [sys.executable, "-c", _NO_JAX, os.path.join(REPO, TINY)],
+        [sys.executable, "-c", script, *args],
         capture_output=True, text=True, cwd=REPO, env=env, timeout=300,
     )
     assert proc.returncode == 0, proc.stderr[-3000:]
-    out = json.loads(proc.stdout.strip().splitlines()[-1])
+    return json.loads(proc.stdout.strip().splitlines()[-1])
+
+
+def test_port_never_imports_jax():
+    out = _run_blocked(_NO_JAX, os.path.join(REPO, TINY))
     assert out == {"frames": 1, "steps": 2, "falling": True, "loaded": []}
+
+
+def test_chip_smoke_never_imports_jax():
+    out = _run_blocked(_CHIP_SMOKE)
+    assert out == {"points": [1, 5, 30000, 4], "agents": 4, "loaded": []}
