@@ -38,11 +38,11 @@ F = ctypes.c_float
 
 # C signature of every entry point: (name, argtypes)
 _SIGNATURES = {
-    # u, g4, fi, starts, weights, out, n_runs, feat, nx, stride, cells,
-    # batch, vx, vy, cx0, cy0, cz, stream
-    "heal_pillar_tables_f32": [P, P, P, P, P, P, I, I, I, I, I, I,
+    # u, g4, fi, weights, out, n, feat, nx, stride, cells, batch,
+    # vx, vy, cx0, cy0, cz, stream
+    "heal_pillar_tables_f32": [P, P, P, P, P, I, I, I, I, I, I,
                                F, F, F, F, F, P],
-    "heal_pillar_tables_bf16": [P, P, P, P, P, P, I, I, I, I, I, I,
+    "heal_pillar_tables_bf16": [P, P, P, P, P, I, I, I, I, I, I,
                                 F, F, F, F, F, P],
     # x, shifts, out, n, h, w, c, axis, pad, stream
     "heal_shift_rows_f32": [P, P, P, I, I, I, I, I, I, P],
@@ -122,13 +122,16 @@ def _build(sources: list[str], out_dir: str) -> str:
     return lib_path
 
 
-def bind(path: str, names=tuple(_SIGNATURES)) -> ctypes.CDLL:
+def bind(path: str, names=tuple(_SIGNATURES),
+         signatures: dict = _SIGNATURES) -> ctypes.CDLL:
     """Load a built library and set the C signature of its entry points
-    ``names`` (a library built from some of the sources has only theirs)."""
+    ``names`` (a library built from some of the sources has only theirs;
+    one built from another version of a source may need ``signatures`` of
+    its own)."""
     lib = ctypes.CDLL(path)
     for name in names:
         fn = getattr(lib, name)
-        fn.argtypes = _SIGNATURES[name]
+        fn.argtypes = signatures[name]
         fn.restype = ctypes.c_int
     return lib
 

@@ -28,6 +28,27 @@ def device_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
+def device_kernels(fn) -> list[str]:
+    """The names of the device kernels (and copies or fills) that one call
+    of ``fn`` puts on the card, from ``torch.profiler``'s CUPTI trace. The
+    call runs under ``torch.cuda.set_sync_debug_mode("error")``, so a call
+    that makes PyTorch synchronise with the host raises."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            fn()
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        torch.cuda.synchronize()
+    return [e.name for e in prof.events() if e.device_type == DeviceType.CUDA]
+
+
 def bound(nbytes: int, flops: int) -> tuple[float, str]:
     """The least time for the work on an H100 SXM (ms) and what sets it:
     the bytes (each input read once, each output written once) over the

@@ -5,9 +5,10 @@ of the PointPillars encoder in one pass (models/encoders.py). It replaces
 the TPU kernel heal_tpu/ops/pallas_pillar.py ``pillar_tables`` and the
 sorted scatter-add that expands its rows (heal_tpu/models/encoders.py
 ``_pallas_eval``). On a CUDA tensor it launches the hand-written kernel of
-csrc/pillar_tables.cu (one thread block per run of equal ids, rows written
-straight into the canvas; see the notes there on design and bounds). On a
-CPU tensor it takes ``pillar_tables_plain``, the same result by
+csrc/pillar_tables.cu once: a block per tile of canvas rows finds its runs
+by searching the sorted ids and writes every row exactly once, zeros
+included, with no host sync (see the notes there on design and bounds).
+On a CPU tensor it takes ``pillar_tables_plain``, the same result by
 ``scatter_reduce`` over the ids.
 
 ``pillar_rows_plain`` reproduces the Pallas kernel's own (vals, cells)
@@ -135,31 +136,22 @@ def pillar_tables(
             raise ValueError("pillar_tables: inputs must be contiguous, one device")
     if g4.data_ptr() % 16:
         raise ValueError("pillar_tables: g4 must be 16-byte aligned")
-    canvas = torch.zeros((batch * grid.stride, f), dtype=u.dtype,
+    # the kernel writes every row (zeros where no point lands): no fill
+    # beforehand, and nothing is read back, so the call never syncs
+    canvas = torch.empty((batch * grid.stride, f), dtype=u.dtype,
                          device=u.device)
-    if n == 0:
-        return canvas
-    # run starts from the change flags; torch.nonzero reads the run count
-    # back to the host: one device sync per frame
-    flags = torch.ones(n, dtype=torch.bool, device=u.device)
-    flags[1:] = fi[1:] != fi[:-1]
-    starts = torch.cat(
-        [
-            torch.nonzero(flags).flatten().to(torch.int32),
-            torch.tensor([n], dtype=torch.int32, device=u.device),
-        ]
-    )
     lib = build.library()
     entry = (lib.heal_pillar_tables_f32 if u.dtype == torch.float32
              else lib.heal_pillar_tables_bf16)
     code = entry(
-        u.data_ptr(), g4.data_ptr(), fi.data_ptr(), starts.data_ptr(),
-        weights.data_ptr(), canvas.data_ptr(), starts.numel() - 1, f,
-        grid.nx, grid.stride, grid.cells, batch, grid.vx, grid.vy,
-        grid.cx0, grid.cy0, grid.cz, build.stream_ptr(u.device),
+        u.data_ptr(), g4.data_ptr(), fi.data_ptr(), weights.data_ptr(),
+        canvas.data_ptr(), n, f, grid.nx, grid.stride, grid.cells, batch,
+        grid.vx, grid.vy, grid.cx0, grid.cy0, grid.cz,
+        build.stream_ptr(u.device),
     )
     build.check(code, "pillar_tables")
-    pillar_tables.launches += 1
+    if canvas.numel():  # a canvas of no rows launches nothing
+        pillar_tables.launches += 1
     return canvas
 
 

@@ -1,5 +1,7 @@
 """The two CUDA kernels of heal_tpu_torch against their plain versions, on
-the card, kernel 2 in both directions, and the gradient repairs. Marked
+the card: kernel 1 on the edge cases the CPU tests share
+(tests/torch_pillar_cases.py), one kernel and no host sync a call; kernel
+2 in both directions; and the gradient repairs. Marked
 ``cuda``: they skip where torch sees no GPU (a CUDA
 kernel has no CPU or interpret mode). On a machine with one card:
 
@@ -14,8 +16,10 @@ import numpy as np
 import pytest
 import torch
 
+from heal_tpu_torch.kernels.measure import device_kernels
 from heal_tpu_torch.ops import pillar, shift_rows
 from heal_tpu_torch.ops.warp import warp_agents_to_ego
+from torch_pillar_cases import CASES, make_case
 
 pytestmark = pytest.mark.cuda
 
@@ -55,6 +59,67 @@ def test_pillar_tables_kernel_matches_plain(dev, dtype):
     torch.cuda.synchronize()
     assert got.shape == want.shape == (b * stride, f) and got.dtype == dtype
     _close(got, want, dtype)
+
+
+def _pillar_args(name, dev, dtype):
+    """pillar_tables' arguments for a shared edge case, on the card."""
+    c = make_case(name)
+    stride = c["nx"] * c["ny"]
+    grid = pillar.PillarGrid(c["nx"], stride, stride + 1, c["vx"], c["vy"],
+                             *c["geom0"])
+    w = np.concatenate([c["w1"], c["w2"], c["b_aff"][None]])
+    return (torch.from_numpy(c["u"]).to(dev, dtype),
+            torch.from_numpy(c["g4"]).to(dev),
+            torch.from_numpy(c["fi"]).to(dev),
+            torch.from_numpy(w).to(dev), grid, c["batch"])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("name", CASES)
+def test_pillar_tables_kernel_edge_cases(dev, name, dtype):
+    """The edge cases the CPU tests hold against the Pallas kernel
+    (tests/torch_pillar_cases.py): one launch per call, the plain version's
+    canvas, and the same bits from two calls (each run reduced in one
+    fixed order)."""
+    args = _pillar_args(name, dev, dtype)
+    before = pillar.pillar_tables.launches
+    got = pillar.pillar_tables(*args)
+    assert pillar.pillar_tables.launches == before + 1
+    again = pillar.pillar_tables(*args)
+    want = pillar.pillar_tables_plain(*args)
+    torch.cuda.synchronize()
+    assert got.shape == want.shape and got.dtype == dtype
+    _close(got, want, dtype)
+    assert torch.equal(got, again)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_pillar_tables_is_one_kernel_and_never_syncs(dev, dtype):
+    """One call puts exactly one kernel on the card, and runs under
+    torch.cuda.set_sync_debug_mode("error") (a host sync would raise)."""
+    args = _pillar_args("sentinels", dev, dtype)
+    pillar.pillar_tables(*args)  # built and loaded
+    launched = device_kernels(lambda: pillar.pillar_tables(*args))
+    assert len(launched) == 1 and "pillar_tables" in launched[0], launched
+
+
+def test_pillar_tables_takes_misaligned_u_and_empty_batches(dev):
+    """A u that is not 16-byte aligned takes the kernel's element-wise
+    path at F = 64; a batch of 0 gives an empty canvas and launches
+    nothing."""
+    u, g4, fi, w, grid, batch = _pillar_args("straddle", dev, torch.float32)
+    buf = torch.empty(u.numel() + 1, device=dev)
+    shifted = buf[1:].view(u.shape)
+    shifted.copy_(u)
+    assert shifted.data_ptr() % 16 and shifted.is_contiguous()
+    got = pillar.pillar_tables(shifted, g4, fi, w, grid, batch)
+    want = pillar.pillar_tables_plain(u, g4, fi, w, grid, batch)
+    torch.cuda.synchronize()
+    _close(got, want, torch.float32)
+    before = pillar.pillar_tables.launches
+    empty = pillar.pillar_tables(u[:0], g4[:0], fi[:0], w, grid, 0)
+    assert empty.shape == (0, u.shape[1])
+    assert pillar.pillar_tables.launches == before
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
