@@ -28,7 +28,23 @@ Phases, in order; any failure raises and the exit code is non-zero:
      and every gradient must agree), then 6 steps on the repeated batch
      (the loss must be finite and fall), then 2 bf16-policy steps; kernel
      2's forward and backward counters must rise and kernel 1's must not
-     move (it is eval-only); ms/step, samples/s and peak memory.
+     move (it is eval-only); ms/step, samples/s and peak memory;
+  6. HEAL's protocol (stages 2 and 3) on the published configs at full
+     width (heal_tpu/configs/opv2v/heal/: stage1/m1_pyramid,
+     stage2/m4_alignto_m1, final_infer/m1m2m3m4 cut to m1 and m4), on
+     synthetic scenes with the flagship's scene arguments: a stage-1 m1
+     base (seeded init, two f32 steps, saved); stage 2 through
+     heal_tpu_torch.tools.train.main with --init_from the base (no
+     frozen key left out at load; the pyramid, shrink and heads bit-equal
+     to the base after it; branch_m4 moved; finite loss), then the
+     stage-2 step timed in f32 and bf16 with its peak memory; the merge
+     (heal_tpu_torch.tools.merge.merge_final: strict load into the
+     alliance, shared modules bit-equal to the base); the alliance served
+     in f32 and bf16 (2 launches of kernel 1 and 15 of kernel 2 a frame;
+     f32 heads against the plain kernel versions), the in-order
+     evaluation (m1, m1m4) and one pose-noise level. Phase 3 also holds
+     kernel 1 on the alliance's first m4 frame (16-line, sorted on the
+     card) against its plain version.
 The line before the last is {"kernels": [...]}; the last line is
 {"ok": true, "device": {...}}. The script imports torch and heal_tpu_torch
 only; configs and batches come through heal_tpu_torch.tools.train.
@@ -37,11 +53,13 @@ from __future__ import annotations
 
 import contextlib
 import copy
+import itertools
 import json
 import math
 import os
 import subprocess
 import sys
+import tempfile
 import time
 import warnings
 
@@ -49,8 +67,8 @@ import torch
 
 # the port comes from this checkout: the script fails here, before it
 # prints anything, when it stands alone
-from heal_tpu_torch.kernels.cases import (dense_inputs, frame_inputs,
-                                          pillar_work)
+from heal_tpu_torch.kernels.cases import (branch_frame_inputs, dense_inputs,
+                                          frame_inputs, pillar_work)
 from heal_tpu_torch.kernels.measure import bound, device_kernels, device_ms
 
 SEED = 0
@@ -77,6 +95,23 @@ HEADS_TOL = 1e-4
 # of atomic sums.
 TRAIN_TOL = {"loss": 1e-6, "grad": 1e-6}
 TRAIN_STEPS = 6
+
+# the protocol phase: published configs (heal_tpu/configs/opv2v/heal/)
+PROTOCOL_CFGS = {"stage1": "stage1/m1_pyramid.yaml",
+                 "stage2": "stage2/m4_alignto_m1.yaml",
+                 "final": "final_infer/m1m2m3m4.yaml"}
+PROTOCOL_FRAMES = 6
+# synthetic scenes (train, test): stage 1 takes STAGE1_STEPS steps of
+# STAGE1_BATCH; stage 2 one epoch at its published batch of 4 (2 steps)
+# and one validation batch; the alliance serves PROTOCOL_FRAMES frames
+PROTOCOL_SCENES = {"stage1": (4, 4), "stage2": (8, 4),
+                   "final": (4, PROTOCOL_FRAMES)}
+STAGE1_BATCH = 2  # published 4: two f32 steps are enough for a base
+STAGE1_STEPS = 2
+STAGE2_STEPS = 4  # timed stage-2 steps after a warm one
+# launches of each kernel a served alliance frame: kernel 1 once per
+# PointPillars branch (m1, m4); kernel 2 in weighted_fuse (3 levels x 5)
+ALLIANCE_LAUNCHES = {"pillar_tables": 2, "shift_rows": 15}
 
 
 def rel_err(a: torch.Tensor, b: torch.Tensor) -> tuple[float, float]:
@@ -138,10 +173,36 @@ def flagship_cfg():
     return cfg
 
 
-def phase_kernels(cfg, model32) -> dict:
-    """Kernel vs plain at flagship shapes; returns the JSON rows' numbers
-    (all but the launches)."""
+def protocol_cfgs() -> dict:
+    """The protocol phase's three published configs at full width, read
+    through the port's loader: the synthetic backend with the flagship's
+    scene arguments (4 agents, 14 vehicles) and PROTOCOL_SCENES scenes;
+    stage 1 at STAGE1_BATCH; the final config cut to m1 and m4."""
+    from heal_tpu_torch.config import keep_modalities
+    from heal_tpu_torch.tools.train import load_config
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    scene_args = flagship_cfg()["fusion"]["args"]
+    out = {}
+    for name, rel in PROTOCOL_CFGS.items():
+        cfg = load_config(os.path.join(root, "heal_tpu", "configs", "opv2v",
+                                       "heal", rel))
+        n_train, n_test = PROTOCOL_SCENES[name]
+        cfg["fusion"]["dataset"] = "synthetic"
+        cfg["fusion"]["args"] = dict(scene_args, num_scenes_train=n_train,
+                                     num_scenes_test=n_test)
+        out[name] = cfg
+    out["stage1"]["train_params"]["batch_size"] = STAGE1_BATCH
+    keep_modalities(out["final"], ("m1", "m4"))
+    return out
+
+
+def phase_kernels(cfg, model32, final_cfg) -> dict:
+    """Kernel vs plain at flagship shapes (and kernel 1 on the first frame
+    of ``final_cfg``'s m1+m4 alliance through its m4 encoder); returns the
+    JSON rows' numbers (all but the launches)."""
     from heal_tpu_torch.ops import pillar, shift_rows
+    from heal_tpu_torch.tools.inference import build_weights
     from heal_tpu_torch.tools.train import device_batches
 
     dev = torch.device("cuda")
@@ -149,12 +210,17 @@ def phase_kernels(cfg, model32) -> dict:
 
     # kernel 1: (a) the encoder's inputs on the first flagship frame; (b) a
     # frame as dense as OPV2V lidar on the same grid (every point real,
-    # 20000 pillars a slot of 1-32 points). Each call must launch exactly
-    # one device kernel and never sync the host.
+    # 20000 pillars a slot of 1-32 points); (c) the first frame of the
+    # m1+m4 alliance through its 16-line m4 encoder (seeded weights; its
+    # config leaves presorted false, so the ids are sorted on the card).
+    # Each call must launch exactly one device kernel and never sync the
+    # host.
     batch, _ = next(device_batches(cfg, 1, dev, train=False))
     pts = batch["inputs_m1"]["points"][0]
     msk = batch["inputs_m1"]["point_mask"][0]
     enc = model32.branch_m1.encoder
+    alliance = build_weights(final_cfg, seed=SEED).to(dev)
+    fbatch, _ = next(device_batches(final_cfg, 1, dev, train=False))
     cases = []
     for dt in (torch.float32, torch.bfloat16):
         for name, args in (
@@ -162,39 +228,10 @@ def phase_kernels(cfg, model32) -> dict:
             ("dense", dense_inputs(enc.grid(), pts.shape[0],
                                    enc.out_channels, dt, dev, SEED,
                                    points=pts.shape[1])),
+            ("m4 frame", branch_frame_inputs(alliance, fbatch, "m4", dt)),
         ):
-            got = pillar.pillar_tables(*args)
-            want = pillar.pillar_tables_plain(*args)
-            torch.cuda.synchronize()
-            d, r = rel_err(got, want)
-            if not r <= KERNEL_TOL[dt]:
-                raise AssertionError(f"pillar_tables {name} {dt} disagrees: "
-                                     f"{r}")
-            launched = device_kernels(lambda: pillar.pillar_tables(*args))
-            if len(launched) != 1 or "pillar_tables" not in launched[0]:
-                raise AssertionError(f"pillar_tables {name} {dt}: one call "
-                                     f"put {launched} on the card")
-            ms = device_ms(lambda: pillar.pillar_tables(*args))
-            plain_ms = device_ms(lambda: pillar.pillar_tables_plain(*args))
-            # the floor of any version: filling the same canvas with zeros
-            fill_ms = device_ms(got.zero_)
-            work = pillar_work(args)
-            b_ms, b_by = bound(work["bytes"], work["flops"])
-            u = args[0]
-            print(f"[kernel] pillar_tables {name} {str(dt)[6:]} u "
-                  f"{tuple(u.shape)} ({work['landed']} points in "
-                  f"{work['runs']} pillars land) canvas {tuple(got.shape)}: "
-                  f"max_abs_err {d:.3e} (rel {r:.3e}, tol {KERNEL_TOL[dt]}), "
-                  f"{ms:.4f} ms vs plain {plain_ms:.4f} ms; one kernel, no "
-                  f"sync; {work['bytes']} bytes, bound {b_ms:.4f} ms "
-                  f"({b_by}), {100 * b_ms / ms:.1f}% of bound; library call:"
-                  f" none; the canvas's fill by zero_ {fill_ms:.4f} ms")
-            cases.append(dict(
-                case=name, dtype=str(dt)[6:], u=list(u.shape),
-                landed=work["landed"], runs=work["runs"], max_abs_err=d,
-                ms=ms, plain_ms=plain_ms, fill_ms=fill_ms, bytes=work["bytes"],
-                bytes_all=work["bytes_all"], bound_ms=b_ms, bound_by=b_by,
-                pct_of_bound=100 * b_ms / ms))
+            cases.append(pillar_case(name, args, dt))
+    del alliance
     print("[kernel] pillar_tables bytes as counted before (all of u, g4 and "
           "fi, padding and drop bucket included): " + ", ".join(
               f"{c['case']} {c['dtype']} {c['bytes_all']} (bound "
@@ -277,6 +314,43 @@ def phase_kernels(cfg, model32) -> dict:
         bound_by="bytes", library_ms=head["library_ms"],
         bytes=head["bytes"], pct_of_bound=head["pct_of_bound"], cases=cases)
     return rows
+
+
+def pillar_case(name, args, dt) -> dict:
+    """Kernel 1 on one input against its plain version (tolerance
+    KERNEL_TOL), held to one device kernel and no host sync a call, with
+    both device times, the canvas's fill, the bytes and the bound."""
+    from heal_tpu_torch.ops import pillar
+
+    got = pillar.pillar_tables(*args)
+    want = pillar.pillar_tables_plain(*args)
+    torch.cuda.synchronize()
+    d, r = rel_err(got, want)
+    if not r <= KERNEL_TOL[dt]:
+        raise AssertionError(f"pillar_tables {name} {dt} disagrees: {r}")
+    launched = device_kernels(lambda: pillar.pillar_tables(*args))
+    if len(launched) != 1 or "pillar_tables" not in launched[0]:
+        raise AssertionError(f"pillar_tables {name} {dt}: one call put "
+                             f"{launched} on the card")
+    ms = device_ms(lambda: pillar.pillar_tables(*args))
+    plain_ms = device_ms(lambda: pillar.pillar_tables_plain(*args))
+    # the floor of any version: filling the same canvas with zeros
+    fill_ms = device_ms(got.zero_)
+    work = pillar_work(args)
+    b_ms, b_by = bound(work["bytes"], work["flops"])
+    u = args[0]
+    print(f"[kernel] pillar_tables {name} {str(dt)[6:]} u {tuple(u.shape)} "
+          f"({work['landed']} points in {work['runs']} pillars land) canvas "
+          f"{tuple(got.shape)}: max_abs_err {d:.3e} (rel {r:.3e}, tol "
+          f"{KERNEL_TOL[dt]}), {ms:.4f} ms vs plain {plain_ms:.4f} ms; one "
+          f"kernel, no sync; {work['bytes']} bytes, bound {b_ms:.4f} ms "
+          f"({b_by}), {100 * b_ms / ms:.1f}% of bound; library call: none; "
+          f"the canvas's fill by zero_ {fill_ms:.4f} ms")
+    return dict(
+        case=name, dtype=str(dt)[6:], u=list(u.shape), landed=work["landed"],
+        runs=work["runs"], max_abs_err=d, ms=ms, plain_ms=plain_ms,
+        fill_ms=fill_ms, bytes=work["bytes"], bytes_all=work["bytes_all"],
+        bound_ms=b_ms, bound_by=b_by, pct_of_bound=100 * b_ms / ms)
 
 
 def library_shift(x, s, axis, want) -> dict:
@@ -550,6 +624,215 @@ def phase_train(cfg, model32) -> dict:
     return launches
 
 
+def _counts() -> dict:
+    from heal_tpu_torch.ops import pillar, shift_rows
+
+    return {"pillar_tables": pillar.pillar_tables.launches,
+            "shift_rows": shift_rows.shift_rows.launches,
+            "shift_rows_backward": shift_rows.shift_rows.backward_launches}
+
+
+def _zero_counts() -> None:
+    from heal_tpu_torch.ops import pillar, shift_rows
+
+    pillar.pillar_tables.launches = 0
+    shift_rows.shift_rows.launches = 0
+    shift_rows.shift_rows.backward_launches = 0
+
+
+def _shared(sd: dict) -> dict:
+    """The modules stage 2 freezes and the merge takes from the base."""
+    from heal_tpu_torch.tools.merge import DROP_FROM_NEW_TYPES
+
+    return {k: v for k, v in sd.items()
+            if k.split(".")[0] in DROP_FROM_NEW_TYPES}
+
+
+def _same_shared(sd: dict, base: dict, what: str) -> int:
+    got, want = _shared(sd), _shared(base)
+    if got.keys() != want.keys() or not got:
+        raise AssertionError(f"{what}: the shared modules' keys differ")
+    bad = [k for k, v in got.items()
+           if not torch.equal(v.detach().float().cpu(), want[k])]
+    if bad:
+        raise AssertionError(f"{what}: {len(bad)} shared entries moved, "
+                             f"e.g. {bad[:3]}")
+    return len(got)
+
+
+def phase_protocol(cfgs: dict) -> dict:
+    """HEAL's stages 1-3 on the published configs at full width
+    (:func:`protocol_cfgs`), then the alliance served; returns the
+    launches and timings."""
+    from heal_tpu_torch.config import save_yaml
+    from heal_tpu_torch.models import build_model
+    from heal_tpu_torch.tools import checkpoint as ckpt_lib
+    from heal_tpu_torch.tools import train as train_tool
+    from heal_tpu_torch.tools.inference import build_weights, run_inference
+    from heal_tpu_torch.tools.inference_heter_in_order import run_in_order
+    from heal_tpu_torch.tools.inference_w_noise import run_noise_sweep
+    from heal_tpu_torch.tools.merge import merge_final
+
+    import numpy as np
+
+    dev = torch.device("cuda")
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        # stage 1: the m1 base, seeded, two f32 steps, a port checkpoint
+        s1cfg, s1dir = cfgs["stage1"], os.path.join(tmp, "stage1_m1")
+        os.makedirs(s1dir)
+        save_yaml(s1cfg, os.path.join(s1dir, "config.yaml"))
+        tr = train_tool.build_trainer(s1cfg, dev, STAGE1_STEPS)
+        losses = [float(tr.train_step(b)["total_loss"]) for b, _ in
+                  itertools.islice(train_tool.device_batches(
+                      s1cfg, STAGE1_BATCH, dev), STAGE1_STEPS)]
+        if len(losses) != STAGE1_STEPS or not all(map(math.isfinite,
+                                                      losses)):
+            raise AssertionError(f"stage 1 losses: {losses}")
+        s1_path = ckpt_lib.save_checkpoint(s1dir, tr.model, 1, bestval=True)
+        base = ckpt_lib.load_state_dict(s1_path)
+        print(f"[protocol] stage 1 ({PROTOCOL_CFGS['stage1']}, batch "
+              f"{STAGE1_BATCH}): losses {', '.join(f'{x:.4f}' for x in losses)}"
+              f"; {len(base)} entries saved")
+        del tr
+        torch.cuda.empty_cache()
+
+        # stage 2 through the CLI: m4 against the frozen base
+        s2cfg = cfgs["stage2"]
+        s2yaml = os.path.join(tmp, "m4_alignto_m1.yaml")
+        save_yaml(s2cfg, s2yaml)
+        left = ckpt_lib.loose_load(build_model(s2cfg["model"]), s1_path,
+                                   verbose=False)
+        if _shared({k.split(" ")[0]: None for k in left}):
+            raise AssertionError(f"stage 2 left frozen keys out: {left}")
+        s2dir = os.path.join(tmp, "stage2_m4")
+        _zero_counts()
+        train_tool.main(["-y", s2yaml, "--model_dir", s2dir, "--init_from",
+                         s1_path, "--epochs", "1", "--no_final_inference",
+                         "--device", "cuda"])
+        out["stage2_launches"] = _counts()
+        s2 = ckpt_lib.load_state_dict(ckpt_lib.find_checkpoint(s2dir)[1])
+        n_shared = _same_shared(s2, base, "stage 2")
+        init = build_weights(s2cfg, seed=0)
+        names = [n for n, _ in init.named_parameters()
+                 if n.startswith("branch_m4.")]
+        init = init.state_dict()
+        moved = [n for n in names if not torch.equal(s2[n], init[n])]
+        with open(os.path.join(s2dir, "train_log.jsonl")) as f:
+            s2loss = json.loads(f.read().splitlines()[-1])["total_loss"]
+        print(f"[protocol] stage 2 ({PROTOCOL_CFGS['stage2']}): "
+              f"{len(left)} base keys left out, none of the frozen modules;"
+              f" {n_shared} pyramid/shrink/heads entries bit-equal to stage "
+              f"1; {len(moved)} of {len(names)} branch_m4 parameters moved;"
+              f" loss {s2loss:.4f}; launches {out['stage2_launches']}")
+        if len(moved) < 0.9 * len(names) or not math.isfinite(s2loss):
+            raise AssertionError("stage 2 did not train branch_m4")
+
+        # the stage-2 step, f32 and bf16, on one device batch
+        bs = s2cfg["train_params"]["batch_size"]
+        batch, _ = next(train_tool.device_batches(s2cfg, bs, dev))
+        _zero_counts()
+        for name in ("f32", "bf16"):
+            tr = train_tool.build_trainer(s2cfg, dev, 1, init_from=s1_path)
+            tr.bf16 = name == "bf16"
+            tr.train_step(batch)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            times = []
+            for _ in range(STAGE2_STEPS):
+                t0 = time.perf_counter()
+                aux = tr.train_step(batch)
+                torch.cuda.synchronize()
+                times.append(time.perf_counter() - t0)
+            peak = torch.cuda.max_memory_allocated() / 2**30
+            _same_shared(tr.model.state_dict(), base, f"stage-2 {name} steps")
+            ms = 1e3 * sum(times) / len(times)
+            out[f"stage2_ms_{name}"], out[f"stage2_peak_{name}"] = ms, peak
+            print(f"[protocol] stage-2 step {name}: {ms:.3f} ms/step "
+                  f"({bs / ms * 1e3:.3f} samples/s; mean of {STAGE2_STEPS} "
+                  f"after a warm one), peak memory {peak:.3f} GiB, loss "
+                  f"{float(aux['total_loss']):.4f}; base unchanged")
+            if not math.isfinite(float(aux["total_loss"])):
+                raise AssertionError(f"stage-2 {name} loss is not finite")
+            del tr
+        steps = _counts()
+        print(f"[protocol] launches over {2 * (STAGE2_STEPS + 1)} stage-2 "
+              f"steps: {steps}")
+        if any(steps.values()):
+            raise AssertionError("a stage-2 train step launched a kernel")
+        torch.cuda.empty_cache()
+
+        # stage 3: the merge, served as the m1+m4 alliance
+        merged = os.path.join(tmp, "merged")
+        merge_final([s2dir], s1dir, merged)
+        final = cfgs["final"]
+        save_yaml(final, os.path.join(merged, "config.yaml"))
+        msd = ckpt_lib.load_state_dict(
+            ckpt_lib.find_checkpoint(merged, best=True)[1])
+        alliance = build_model(final["model"])
+        if set(msd) != set(alliance.state_dict()):
+            raise AssertionError("the merge's keys are not the alliance's")
+        alliance.load_state_dict(msd, strict=True)
+        _same_shared(msd, base, "the merge")
+        print(f"[protocol] merge: {len(msd)} entries, exactly the m1+m4 "
+              f"alliance's (strict load); shared modules bit-equal to stage 1")
+
+        _zero_counts()
+        r32 = run_inference(merged, final, device="cuda",
+                            dtype=torch.float32, collect_heads=True)
+        r16 = run_inference(merged, final, device="cuda",
+                            dtype=torch.bfloat16, collect_heads=True)
+        serve = _counts()
+        frames = r32["frames"] + r16["frames"]
+        want = {k: n * frames for k, n in ALLIANCE_LAUNCHES.items()}
+        print(f"[protocol] alliance launches over {frames} frames: {serve}")
+        if {k: serve[k] for k in want} != want:
+            raise AssertionError(f"alliance launches {serve}, want {want}")
+        with plain_kernels():
+            ref = run_inference(merged, final, device="cuda",
+                                dtype=torch.float32, collect_heads=True)
+        if _counts() != serve:
+            raise AssertionError("the plain alliance run launched a kernel")
+        worst = 0.0
+        for i, (a, b, h16) in enumerate(zip(r32["heads"], ref["heads"],
+                                            r16["heads"])):
+            for k in ("cls_preds", "reg_preds", "dir_preds"):
+                for t in (a[k], b[k], h16[k]):
+                    if t.shape[:3] != (1, 128, 256) or not torch.isfinite(
+                            t).all():
+                        raise AssertionError(f"alliance frame {i} {k}: bad")
+                worst = max(worst, rel_err(a[k], b[k])[1])
+        print(f"[protocol] alliance f32 heads, kernels vs plain, "
+              f"{r32['frames']} frames: max rel err {worst:.3e} (tol "
+              f"{HEADS_TOL})")
+        if not worst <= HEADS_TOL:
+            raise AssertionError(f"alliance heads disagree: {worst}")
+        for name, r in (("f32", r32), ("bf16", r16), ("f32 plain", ref)):
+            steady = r["serve_s"][1:]
+            fps = len(steady) / sum(steady)
+            out[f"alliance_fps_{name}"] = fps
+            print(f"[protocol] alliance serve {name}: {fps:.3f} frames/s "
+                  f"over {len(steady)} frames after the first "
+                  f"({np.mean(steady) * 1e3:.3f} ms/frame; host data "
+                  f"{np.mean(r['data_s']) * 1e3:.1f} ms/frame not included);"
+                  f" ap_30 {r['ap_30']:.4f}")
+
+        _zero_counts()
+        order = run_in_order(merged, max_batches=2, device="cuda")
+        noise = run_noise_sweep(merged, levels=(0.2,), max_batches=2,
+                                device="cuda")
+        evals = _counts()
+        aps = [v for r in (*order.values(), *noise.values())
+               for v in r.values()]
+        print(f"[protocol] in-order {order}; noise 0.2 {noise[0.2]}; "
+              f"launches {evals}")
+        if list(order) != ["m1", "m1m4"] or not all(0 <= v <= 1 for v in aps):
+            raise AssertionError("the in-order / noise evaluations failed")
+        out["launches"] = {k: out["stage2_launches"][k] + serve[k] + evals[k]
+                           for k in serve}
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
@@ -566,11 +849,18 @@ def main() -> int:
     from heal_tpu_torch.tools.inference import build_weights
 
     cfg = flagship_cfg()
+    pcfgs = protocol_cfgs()
     model32 = build_weights(cfg, seed=SEED).cuda().to(
         memory_format=torch.channels_last)
-    rows = phase_kernels(cfg, model32)
+    rows = phase_kernels(cfg, model32, pcfgs["final"])
     launches = phase_serve(cfg, model32)
     trained = phase_train(cfg, model32)
+    del model32
+    torch.cuda.empty_cache()
+    protocol = phase_protocol(pcfgs)
+    for name in rows:
+        rows[name]["protocol_launches"] = protocol["launches"][name]
+        rows[name]["alliance_launches_per_frame"] = ALLIANCE_LAUNCHES[name]
     rows["pillar_tables"]["train_launches"] = trained["pillar_tables"]
     rows["shift_rows"]["train_launches"] = trained["shift_rows"]
     rows["shift_rows"]["backward_launches"] = trained["shift_rows_backward"]
@@ -591,6 +881,8 @@ def main() -> int:
               f"{k['train_launches']} training forward"
               + (f", {k['backward_launches']} backward"
                  if "backward_launches" in k else "")
+              + f", {k['protocol_launches']} in the protocol phase "
+              f"({k['alliance_launches_per_frame']} a served alliance frame)"
               + f"; {k['bytes']} bytes, bound {k['bound_ms']:.4f} ms "
               f"({k['bound_by']}), {k['ms']:.4f} ms = {k['pct_of_bound']:.1f}%"
               f" of bound, plain {k['plain_ms']:.4f} ms, library call "

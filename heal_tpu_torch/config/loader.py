@@ -4,7 +4,10 @@ The port's copy of heal_tpu/config/loader.py, trimmed to the parser the
 slice's configs name (``load_general_params``: anchor W/H/D from the
 lidar range and voxel size): a scientific-notation-safe YAML loader,
 dispatch on the ``yaml_parser`` key, and ``save_yaml``. The same file
-gives the same dict as ``heal_tpu.config.load_yaml``.
+gives the same dict as ``heal_tpu.config.load_yaml``. ``reparse`` runs
+the parser again after an override (the inference tools);
+``keep_modalities`` cuts an alliance config down to the agent types
+that were trained.
 """
 from __future__ import annotations
 
@@ -46,14 +49,38 @@ def load_yaml(file: str, model_dir: str | None = None) -> dict:
             file = candidate
     with open(file, "r") as stream:
         param = yaml.load(stream, Loader=_Loader)
-    parser_name = param.get("yaml_parser")
-    if parser_name:
-        if parser_name not in PARSER_REGISTRY:
-            raise KeyError(
-                f"yaml_parser {parser_name!r} is not ported; "
-                f"registered: {sorted(PARSER_REGISTRY)}"
-            )
-        param = PARSER_REGISTRY[parser_name](param)
+    if param.get("yaml_parser"):
+        param = reparse(param)
+    return param
+
+
+def reparse(param: dict) -> dict:
+    """Run the config's ``yaml_parser`` (default ``load_general_params``)
+    again, e.g. after ``common_np.update_dict`` changed a range."""
+    parser_name = param.get("yaml_parser", "load_general_params")
+    if parser_name not in PARSER_REGISTRY:
+        raise KeyError(
+            f"yaml_parser {parser_name!r} is not ported; "
+            f"registered: {sorted(PARSER_REGISTRY)}"
+        )
+    return PARSER_REGISTRY[parser_name](param)
+
+
+def keep_modalities(param: dict, keep) -> dict:
+    """Drop every agent type but ``keep`` from ``heter.modality_setting``,
+    ``heter.mapping_dict`` and ``model.args`` (in place; -> ``param``):
+    an alliance config served with the types that were trained."""
+    keep = set(keep)
+    heter = param.get("heter") or {}
+    for section in ("modality_setting", "mapping_dict"):
+        table = heter.get(section)
+        if table:
+            for m in [m for m in table if m not in keep]:
+                del table[m]
+    margs = param["model"]["args"]
+    for m in [m for m in ("m1", "m2", "m3", "m4") if m in margs]:
+        if m not in keep:
+            del margs[m]
     return param
 
 

@@ -1,10 +1,14 @@
 """Kernel 1's measured inputs and the work they need, for chip_smoke.py and
 the kernel A/B (tools/kernel_ab.py). Nothing here runs at import time.
 
-Two cases: the eval encoder's arguments on a served frame
-(:func:`frame_inputs`), and a frame at the density of OPV2V lidar, every
-point real (:func:`dense_inputs`), which loads the reduction side of the
-kernel and not only its canvas writes.
+Three cases: the eval encoder's arguments on a served frame
+(:func:`frame_inputs`: the flagship's first frame, whose points the host
+presorted); the same for another agent type's branch
+(:func:`branch_frame_inputs`: the first frame of the m1+m4 alliance
+through its 16-line m4 encoder, whose config leaves ``presorted`` false,
+so the encoder sorts the ids on the card); and a frame at the density of
+OPV2V lidar, every point real (:func:`dense_inputs`), which loads the
+reduction side of the kernel and not only its canvas writes.
 """
 from __future__ import annotations
 
@@ -22,6 +26,14 @@ def frame_inputs(encoder, points, mask, dtype):
     enc = copy.deepcopy(encoder).to(dtype).eval()
     with torch.inference_mode():
         return enc.kernel_inputs(points, mask)
+
+
+def branch_frame_inputs(model, batch, modality: str, dtype):
+    """:func:`frame_inputs` for the first sample of ``batch`` (on the
+    model's device) through ``model.branch_<modality>``'s encoder."""
+    inputs = batch[f"inputs_{modality}"]
+    return frame_inputs(getattr(model, f"branch_{modality}").encoder,
+                        inputs["points"][0], inputs["point_mask"][0], dtype)
 
 
 def dense_counts(rng, points: int, pillars: int, most: int) -> np.ndarray:

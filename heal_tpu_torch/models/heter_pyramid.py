@@ -1,17 +1,23 @@
-"""HEAL heterogeneous pyramid collaboration model (torch), train and eval.
+"""HEAL heterogeneous pyramid models (torch), train and eval.
 
-Counterpart of heal_tpu/models/heter_pyramid.py ``HeterPyramidCollab``
-for lidar agents with the PointPillars encoder (m1): per-modality encoder
--> BEV backbone -> aligner -> slot scatter into the (B, L) agent axis ->
-Pyramid Fusion -> shrink conv -> cls/reg/dir heads.
+Counterparts of heal_tpu/models/heter_pyramid.py for lidar agents with
+the PointPillars encoder (m1, and the 16-line m4):
+
+  * ``HeterPyramidCollab`` (stages 1 and 3): per-modality encoder -> BEV
+    backbone -> aligner -> slot scatter into the (B, L) agent axis ->
+    Pyramid Fusion -> shrink conv -> cls/reg/dir heads;
+  * ``HeterPyramidSingle`` (stage 2): one new agent type's branch in
+    front of the base's pyramid (``forward_single``, no fusion), shrink
+    and heads, which stay frozen (``fix_modules``).
 
 Batching is the JAX package's: ``inputs_mX`` arrays hold a fixed
 per-modality agent capacity and ``slots_mX`` maps each packed agent to its
 global slot in (B, L+1), where slot L is a dump slot for padding.
-Train mode follows ``module.train()`` (batch-statistics BN everywhere;
-nothing is frozen, as in JAX without a compressor). Camera branches, the
-SECOND encoder, the compressor and the IoU head are not ported yet and
-raise.
+Train mode follows ``module.train()``: batch-statistics BN everywhere in
+the collab model (nothing is frozen, as in JAX without a compressor); in
+the single model the frozen pyramid and shrink stay in eval mode. Camera
+branches, the SECOND encoder, the compressor and the IoU head are not
+ported yet and raise.
 """
 from __future__ import annotations
 
@@ -64,7 +70,16 @@ class ModalityBranch(nn.Module):
             num_upsample_filter=tuple(bb.get("num_upsample_filter", ())),
             norm=norm,
         )
-        self.aligner = AlignNet(cfg.get("aligner_args"))
+        # JAX sizes the aligner by the backbone's last num_filters
+        dim = bb["num_filters"][-1]
+        align = cfg.get("aligner_args")
+        if ((align or {}).get("core_method", "identity") != "identity"
+                and dim != self.backbone.out_channels):
+            raise ValueError(
+                f"aligner width {dim} != backbone output "
+                f"{self.backbone.out_channels} channels"
+            )
+        self.aligner = AlignNet(align, dim=dim, norm=norm)
         self.out_channels = self.backbone.out_channels
 
     def forward(self, inputs: dict) -> torch.Tensor:
@@ -143,5 +158,72 @@ class HeterPyramidCollab(nn.Module):
             fused = self.shrink(fused)
         out = self.heads(fused)
         out["pyramid"] = "collab"
+        out["occ_single_list"] = occ_list
+        return out
+
+
+@register_model("heter_pyramid_single")
+class HeterPyramidSingle(nn.Module):
+    """Stage-2 model of one new agent type (heal_tpu heter_pyramid.py
+    :334-391): its branch, then the base's pyramid ``forward_single``,
+    shrink and heads. Those three are ``fix_modules``: the trainer freezes
+    them (parallel/freezing.py), and the pyramid and shrink run in eval
+    mode whatever ``train()`` says, as JAX passes ``train=False`` to them
+    (:383-385), so batch norm uses the stage-1 running statistics and
+    never moves them. Gradients still flow through them into the branch.
+    """
+
+    fix_modules = ("pyramid_backbone", "shrink", "heads")
+
+    def __init__(self, args: dict):
+        super().__init__()
+        a = args
+        if a.get("use_iou"):
+            raise NotImplementedError("use_iou is not ported yet")
+        norm = a.get("norm", "batch")
+        mods = modality_list(a)
+        if len(mods) != 1:
+            raise ValueError(
+                f"heter_pyramid_single expects one modality, got {mods}")
+        self.modality = mods[0]
+        branch = ModalityBranch(a[self.modality], norm=norm)
+        self.add_module(f"branch_{self.modality}", branch)
+        self.pyramid_backbone = PyramidFusion(
+            a["fusion_backbone"], branch.out_channels, norm=norm
+        )
+        self.shrink = _shrink_from_args(a, self.pyramid_backbone.out_channels)
+        head_in = (a["shrink_header"]["dim"][-1] if self.shrink is not None
+                   else self.pyramid_backbone.out_channels)
+        self.heads = DetectionHeads(
+            head_in,
+            anchor_number=a["anchor_number"],
+            use_dir="dir_args" in a,
+            num_bins=a.get("dir_args", {}).get("num_bins", 2),
+        )
+
+    def train(self, mode: bool = True):
+        super().train(mode)
+        self.pyramid_backbone.eval()
+        if self.shrink is not None:
+            self.shrink.eval()
+        return self
+
+    def forward(self, batch: dict) -> dict:
+        """batch: ``inputs_mX`` {points, point_mask} with a (B, L_m) agent
+        axis (flattened here, as JAX does when ``agent_mask`` is present)
+        or a flat one. Returns the NHWC head outputs, ``pyramid`` =
+        "single" and ``occ_single_list``."""
+        inputs = batch[f"inputs_{self.modality}"]
+        if inputs["point_mask"].dim() > 2 and "agent_mask" in batch:
+            inputs = {k: v.reshape((-1,) + v.shape[2:])
+                      for k, v in inputs.items()}
+        feat = getattr(self, f"branch_{self.modality}")(inputs)
+        fused, occ_list = self.pyramid_backbone.forward_single(
+            feat.permute(0, 2, 3, 1))
+        fused = fused.permute(0, 3, 1, 2)
+        if self.shrink is not None:
+            fused = self.shrink(fused)
+        out = self.heads(fused)
+        out["pyramid"] = "single"
         out["occ_single_list"] = occ_list
         return out

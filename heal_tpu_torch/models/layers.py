@@ -92,18 +92,55 @@ def update_running(buf: torch.Tensor, batch: torch.Tensor, mom: float):
 
 
 class Conv(nn.Module):
-    """flax ``nn.Conv`` counterpart: biased conv, symmetric padding."""
+    """flax ``nn.Conv`` counterpart: biased conv, symmetric padding;
+    ``groups`` is flax's ``feature_group_count`` (the HWIO kernel
+    (k, k, cin/groups, features) bridges to (features, cin/groups, k, k))."""
 
     def __init__(self, cin: int, features: int, kernel: int = 1,
-                 stride: int = 1, padding: int | None = None):
+                 stride: int = 1, padding: int | None = None,
+                 groups: int = 1):
         super().__init__()
         self.stride = stride
         self.padding = (kernel - 1) // 2 if padding is None else padding
-        self.kernel = _kernel_param(features, cin, kernel)
+        self.groups = groups
+        self.kernel = _kernel_param(features, cin // groups, kernel)
         self.bias = nn.Parameter(torch.zeros(features))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return F.conv2d(x, self.kernel, self.bias, self.stride, self.padding)
+        return F.conv2d(x, self.kernel, self.bias, self.stride, self.padding,
+                        groups=self.groups)
+
+
+class Dense(nn.Module):
+    """flax ``nn.Dense`` over the last axis; the kernel keeps flax's
+    (in, out) layout, so the bridge copies it as it is."""
+
+    def __init__(self, cin: int, features: int):
+        super().__init__()
+        self.kernel = nn.Parameter(torch.empty(cin, features))
+        self.bias = nn.Parameter(torch.zeros(features))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return x @ self.kernel + self.bias
+
+
+class LayerNorm(nn.Module):
+    """flax ``nn.LayerNorm`` over the last axis: eps 1e-6 (torch's
+    default is 1e-5), statistics in f32 with the variance as
+    E[x^2] - E[x]^2, as flax takes them."""
+
+    def __init__(self, channels: int, epsilon: float = 1e-6):
+        super().__init__()
+        self.epsilon = epsilon
+        self.scale = nn.Parameter(torch.ones(channels))
+        self.bias = nn.Parameter(torch.zeros(channels))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        xf = x.float()
+        m = xf.mean(-1, keepdim=True)
+        v = torch.clamp((xf * xf).mean(-1, keepdim=True) - m * m, min=0.0)
+        mul = torch.rsqrt(v + self.epsilon) * self.scale.float()
+        return ((xf - m) * mul + self.bias.float()).to(x.dtype)
 
 
 class ConvNormAct(nn.Module):
@@ -254,8 +291,10 @@ class DownsampleConv(nn.Module):
 
 def init_weights(model: nn.Module, generator: torch.Generator) -> nn.Module:
     """Seeded random init in flax's defaults: lecun-normal kernels
-    (truncated at 2 std), zero biases, unit BN scales; running mean 0 and
-    variance 1. Every kernel is a parameter named ``*kernel``."""
+    (truncated at 2 std), zero biases, unit BN and LayerNorm scales,
+    ConvNeXt's layer scale ``gamma`` 1e-6 (heal_tpu aligner.py:52-54; zero
+    would make each block the identity and stop its gradient); running
+    mean 0 and variance 1. Every kernel is a parameter named ``*kernel``."""
     with torch.no_grad():
         for name, p in model.named_parameters():
             leaf = name.rsplit(".", 1)[-1]
@@ -271,6 +310,8 @@ def init_weights(model: nn.Module, generator: torch.Generator) -> nn.Module:
                                       generator=generator)
             elif leaf in ("scale", "bn_scale"):
                 p.fill_(1.0)
+            elif leaf == "gamma":
+                p.fill_(1e-6)
             else:
                 p.zero_()
         for name, buf in model.named_buffers():

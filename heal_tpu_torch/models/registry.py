@@ -1,8 +1,8 @@
 """Model and loss registries (torch), keyed by the config's ``core_method``.
 
-Counterpart of heal_tpu/models/registry.py. Ported so far: the model
-``heter_pyramid_collab`` and the losses ``point_pillar_loss`` and
-``point_pillar_pyramid_loss``.
+Counterpart of heal_tpu/models/registry.py. Ported so far: the models
+``heter_pyramid_collab`` and ``heter_pyramid_single`` and the losses
+``point_pillar_loss`` and ``point_pillar_pyramid_loss``.
 """
 from __future__ import annotations
 

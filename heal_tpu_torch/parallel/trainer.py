@@ -10,7 +10,11 @@ Counterpart of heal_tpu/parallel/trainer.py on one device:
     backward (``torch.func.functional_call``), so the gradients
     accumulate back into the f32 parameters through the cast; the batch
     is not cast (points stay f32); outputs are cast to f32 before the
-    loss; BN buffers stay f32.
+    loss; BN buffers stay f32;
+  * frozen modules (``fix_modules``, HEAL stage 2; parallel/freezing.py):
+    no gradient and no optimizer slot for their parameters, and eval mode
+    in the train step, so their weights and running statistics keep the
+    loaded values bit for bit.
 Steps return their aux dict as device scalars and never synchronise.
 """
 from __future__ import annotations
@@ -20,6 +24,8 @@ from typing import Any, Callable
 
 import numpy as np
 import torch
+
+from .freezing import freeze, frozen_eval
 
 
 def _label_targets(batch: dict) -> dict:
@@ -90,6 +96,21 @@ class Trainer:
     single_weight: float = 1.0
     bf16: bool = False
     step: int = 0  # updates taken (the schedule's count)
+    # top-level modules kept at their loaded values (the model's own
+    # ``fix_modules`` in tools/train.py)
+    fix_modules: tuple = ()
+
+    def __post_init__(self):
+        if self.fix_modules:
+            freeze(self.model, self.fix_modules)
+            held = [p for g in self.optimizer.param_groups
+                    for p in g["params"] if not p.requires_grad]
+            if held:
+                raise ValueError(
+                    f"the optimizer holds {len(held)} frozen parameters; "
+                    "build it from freezing.trainable_parameters(model) "
+                    "(Adam's weight decay would move them)"
+                )
 
     def _forward(self, batch: dict) -> dict:
         if not self.bf16:
@@ -102,8 +123,10 @@ class Trainer:
         return _to_f32(out)
 
     def loss(self, batch: dict) -> tuple[torch.Tensor, dict]:
-        """Train-mode forward and loss (running BN buffers move)."""
+        """Train-mode forward and loss (running BN buffers move, but not
+        those of the frozen modules)."""
         self.model.train()
+        frozen_eval(self.model, self.fix_modules)
         out = self._forward(batch)
         loss, aux = self.criterion(out, _label_targets(batch))
         if self.supervise_single:

@@ -11,9 +11,14 @@ visualisation are not ported yet.
         [--checkpoint net.pt | --seed 0] [--dtype bf16] [--max_batches 8]
 
 A checkpoint is a ``torch.save``d state_dict with the bridged key names
-(utils/bridge.py, tools/checkpoint.py); with ``--model_dir`` and no
-``--checkpoint`` the run's best-validation (else newest) checkpoint is
-served; without any the weights are a seeded random init.
+(utils/bridge.py, tools/checkpoint.py) or a heal_tpu ``.ckpt``; with
+``--model_dir`` and no ``--checkpoint`` the run's best-validation (else
+newest) checkpoint is served; without any the weights are a seeded random
+init. ``noise_setting``, ``cfg_override`` and ``override_range`` change
+the config as JAX's do (merged in with ``update_dict``, then the
+config's ``yaml_parser`` runs again); the in-order and pose-noise
+evaluations (tools/inference_heter_in_order.py, inference_w_noise.py)
+drive them.
 """
 from __future__ import annotations
 
@@ -24,12 +29,14 @@ import time
 import numpy as np
 import torch
 
-from ..config import load_yaml
+from ..config import load_yaml, reparse
 from ..data import build_dataset
 from ..models import build_model
 from ..models.layers import init_weights
 from ..postprocess.decode import post_process_single, strip_padding
 from ..utils import box_np, eval_np
+from ..utils.common_np import update_dict
+from . import checkpoint as ckpt_lib
 
 _DTYPES = {"f32": torch.float32, "bf16": torch.bfloat16}
 
@@ -38,11 +45,37 @@ def build_weights(cfg: dict, checkpoint: str | None = None, seed: int = 0):
     """The eval-mode model of ``cfg``, from a checkpoint or a seeded init."""
     model = build_model(cfg["model"])
     if checkpoint is not None:
-        sd = torch.load(checkpoint, map_location="cpu", weights_only=True)
-        model.load_state_dict(sd, strict=True)
+        model.load_state_dict(ckpt_lib.load_state_dict(checkpoint),
+                              strict=True)
     else:
         init_weights(model, torch.Generator().manual_seed(seed))
     return model
+
+
+def apply_overrides(cfg: dict, *, noise_setting: dict | None = None,
+                    cfg_override: dict | None = None,
+                    override_range=None) -> dict:
+    """A copy of ``cfg`` changed as JAX's run_inference changes it: the
+    noise setting replaced, ``cfg_override`` merged in (``update_dict``),
+    ``override_range`` (x, y half-extents) written into the lidar, GT and
+    anchor ranges; after either of the last two the config's
+    ``yaml_parser`` runs again."""
+    cfg = copy.deepcopy(cfg)
+    if noise_setting is not None:
+        cfg["noise_setting"] = noise_setting
+    if cfg_override:
+        update_dict(cfg, copy.deepcopy(cfg_override))
+    if override_range is not None:
+        r = override_range
+        new_range = [-r[0], -r[1], -3, r[0], r[1], 1]
+        update_dict(cfg, {
+            "preprocess": {"cav_lidar_range": new_range},
+            "postprocess": {"gt_range": new_range,
+                            "anchor_args": {"cav_lidar_range": new_range}},
+        })
+    if cfg_override or override_range is not None:
+        cfg = reparse(cfg)
+    return cfg
 
 
 def _model_inputs(batch: dict, modalities, device) -> dict:
@@ -70,9 +103,14 @@ def run_inference(
     model: torch.nn.Module | None = None,
     max_batches: int | None = None,
     collect_heads: bool = False,
+    note: str = "",
+    noise_setting: dict | None = None,
+    cfg_override: dict | None = None,
+    override_range=None,
 ) -> dict:
     """Serve the test split of ``cfg`` (or ``model_dir``'s config.yaml)
-    and return the AP dict of utils/eval_np.py, plus:
+    and return the AP dict of utils/eval_np.py (written to
+    ``model_dir``/eval_<note>.yaml when there is a model_dir), plus:
 
       * ``frames``: frames served;
       * ``serve_s``: per-frame seconds from the host batch to the host
@@ -85,7 +123,9 @@ def run_inference(
     """
     if cfg is None:
         cfg = load_yaml("", model_dir=model_dir)
-    cfg = copy.deepcopy(cfg)
+    cfg = apply_overrides(cfg, noise_setting=noise_setting,
+                          cfg_override=cfg_override,
+                          override_range=override_range)
     if cfg["fusion"]["core_method"] not in (
         "intermediate", "intermediateheter", "intermediateheterinfer"
     ):
@@ -96,9 +136,9 @@ def run_inference(
     device = torch.device(device)
     dataset = build_dataset(cfg, train=False)
     if model is None and checkpoint is None and model_dir is not None:
-        from .checkpoint import find_checkpoint
-
-        checkpoint = find_checkpoint(model_dir, best=True)[1]
+        checkpoint = ckpt_lib.find_checkpoint(model_dir, best=True)[1]
+        if checkpoint:
+            print(f"[inference] loading {checkpoint}")
     if model is None:
         model = build_weights(cfg, checkpoint, seed)
         model = model.to(device=device, dtype=dtype)
@@ -156,7 +196,7 @@ def run_inference(
             t_data = time.perf_counter()
 
     result = eval_np.eval_final_results(
-        stat, save_path=model_dir, infer_info="intermediate"
+        stat, save_path=model_dir, infer_info=note or "intermediate"
     )
     result["frames"] = len(serve_s)
     result["serve_s"] = serve_s
@@ -177,6 +217,8 @@ def main(argv=None):
     p.add_argument("--device", default="cuda")
     p.add_argument("--dtype", choices=sorted(_DTYPES), default="f32")
     p.add_argument("--max_batches", type=int, default=None)
+    p.add_argument("--range", default=None, help="e.g. 102.4,102.4")
+    p.add_argument("--note", default="")
     args = p.parse_args(argv)
     if args.config is None and args.model_dir is None:
         p.error("give --config or --model_dir")
@@ -186,7 +228,9 @@ def main(argv=None):
     result = run_inference(
         args.model_dir, cfg, device=args.device, dtype=_DTYPES[args.dtype],
         checkpoint=args.checkpoint, seed=args.seed,
-        max_batches=args.max_batches,
+        max_batches=args.max_batches, note=args.note,
+        override_range=([float(x) for x in args.range.split(",")]
+                        if args.range else None),
     )
     frames = result["frames"]
     steady = result["serve_s"][1:] or result["serve_s"]

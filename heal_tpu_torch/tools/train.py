@@ -3,7 +3,8 @@
 Counterpart of heal_tpu/tools/train.py on one device:
 
     python -m heal_tpu_torch.tools.train -y heal_tpu/configs/opv2v_m1_pyramid.yaml \\
-        [--model_dir runs/x] [--epochs N] [--init_from net.pth] [--device cuda]
+        [--model_dir runs/x] [--epochs N] [--init_from net.pth|net.ckpt] \\
+        [--device cuda]
 
 The run dir gets ``config.yaml``, ``train_log.jsonl`` and the checkpoints
 of tools/checkpoint.py (every ``save_freq`` epochs, and the best
@@ -13,6 +14,12 @@ running statistics, and the learning-rate schedule at that epoch's step;
 the Adam moments restart, as in JAX. ``train_params.bf16`` selects the
 bf16 compute policy (parallel/trainer.py). The final inference on the
 test split runs in-process unless ``--no_final_inference``.
+
+HEAL stage 2: ``--init_from`` (a port ``.pth`` or a heal_tpu ``.ckpt``)
+is loaded loosely, the first 10 keys it leaves out are printed, and then
+the model's ``fix_modules`` (``heter_pyramid_single``: the pyramid,
+shrink and heads) are frozen (parallel/freezing.py): the optimizer holds
+only the other parameters.
 
 The host data comes from the port's own numpy host side (config/,
 data/, postprocess/anchors.py and targets.py); host->device copies are
@@ -32,6 +39,7 @@ from ..config import load_yaml, save_yaml
 from ..data import build_dataset
 from ..models import build_loss
 from ..parallel import Trainer, build_optimizer, to_device
+from ..parallel.freezing import freeze, trainable_parameters
 from . import checkpoint as ckpt_lib
 from .inference import build_weights
 from .logging import MetricLogger
@@ -66,7 +74,8 @@ def parse_args(argv=None):
     p.add_argument("--model_dir", default="", help="resume / output dir")
     p.add_argument("--epochs", type=int, default=None, help="override epochs")
     p.add_argument("--init_from", default=None,
-                   help="port checkpoint to load loosely before training")
+                   help="checkpoint (.pth or heal_tpu .ckpt) to load loosely "
+                        "before training (HEAL stage 2: the stage-1 base)")
     p.add_argument("--no_final_inference", action="store_true")
     p.add_argument("--device", default="cuda")
     return p.parse_args(argv)
@@ -79,6 +88,43 @@ def setup_run_dir(cfg: dict, model_dir: str) -> str:
     os.makedirs(model_dir, exist_ok=True)
     save_yaml(cfg, os.path.join(model_dir, "config.yaml"))
     return model_dir
+
+
+def build_trainer(cfg: dict, device, steps_per_epoch: int, *,
+                  init_from: str | None = None, resume: str | None = None,
+                  start_epoch: int = 0) -> Trainer:
+    """The ``Trainer`` of ``cfg`` on ``device``: the seeded init (seed 0),
+    ``init_from`` loaded loosely (its left-out keys printed), ``resume``
+    loaded strictly, then the model's ``fix_modules`` frozen and the
+    optimizer built from the parameters left to train."""
+    model = build_weights(cfg, seed=0)
+    if init_from:
+        left = ckpt_lib.loose_load(model, init_from)
+        print(f"[train] loaded {init_from}; {len(left)} keys left out")
+    if resume:
+        model.load_state_dict(ckpt_lib.load_state_dict(resume))
+        print(f"[train] resumed from {resume} (epoch {start_epoch})")
+    device = torch.device(device)
+    model = model.to(device)
+    if device.type == "cuda":
+        model = model.to(memory_format=torch.channels_last)
+
+    fix_modules = tuple(getattr(model, "fix_modules", ()))
+    if fix_modules:
+        freeze(model, fix_modules)
+        print(f"[train] frozen modules: {fix_modules}")
+    optimizer, schedule = build_optimizer(
+        trainable_parameters(model), cfg["optimizer"],
+        cfg.get("lr_scheduler"), steps_per_epoch)
+    return Trainer(
+        model=model, criterion=build_loss(cfg["loss"]), optimizer=optimizer,
+        schedule=schedule,
+        supervise_single=cfg["model"]["args"].get("supervise_single", False),
+        single_weight=cfg["loss"]["args"].get("single_weight", 1.0),
+        bf16=bool(cfg["train_params"].get("bf16", False)),
+        step=start_epoch * steps_per_epoch,
+        fix_modules=fix_modules,
+    )
 
 
 def main(argv=None) -> str:
@@ -98,31 +144,12 @@ def main(argv=None) -> str:
     save_freq = tp.get("save_freq", 2)
     steps_per_epoch = max(len(train_ds) // batch_size, 1)
 
-    model = build_weights(cfg, seed=0)
-    if args.init_from:
-        left = ckpt_lib.loose_load(model, args.init_from)
-        print(f"[train] loaded {args.init_from}; {len(left)} keys left out")
     start_epoch, path = (ckpt_lib.find_checkpoint(model_dir)
                          if args.model_dir else (0, None))
-    if path:
-        model.load_state_dict(torch.load(path, map_location="cpu",
-                                         weights_only=True))
-        print(f"[train] resumed from {path} (epoch {start_epoch})")
-    model = model.to(device)
-    if device.type == "cuda":
-        model = model.to(memory_format=torch.channels_last)
-
-    optimizer, schedule = build_optimizer(
-        model.parameters(), cfg["optimizer"], cfg.get("lr_scheduler"),
-        steps_per_epoch)
-    trainer = Trainer(
-        model=model, criterion=build_loss(cfg["loss"]), optimizer=optimizer,
-        schedule=schedule,
-        supervise_single=cfg["model"]["args"].get("supervise_single", False),
-        single_weight=cfg["loss"]["args"].get("single_weight", 1.0),
-        bf16=bool(tp.get("bf16", False)),
-        step=start_epoch * steps_per_epoch,
-    )
+    trainer = build_trainer(cfg, device, steps_per_epoch,
+                            init_from=args.init_from, resume=path,
+                            start_epoch=start_epoch)
+    model = trainer.model
 
     logger = MetricLogger(model_dir)
     best_val = float("inf")

@@ -1,8 +1,8 @@
 """Small numpy helpers of the host side.
 
-The port's copies of heal_tpu/utils/common.py ``limit_period`` and
-``rotate_points_along_z``, numpy in and numpy out (the JAX package's
-``limit_period`` sends any other input to jax.numpy). The torch
+The port's copies of heal_tpu/utils/common.py ``limit_period``,
+``rotate_points_along_z`` and ``update_dict``, numpy in and numpy out (the
+JAX package's ``limit_period`` sends any other input to jax.numpy). The torch
 ``limit_period`` of the device side is utils/common.py.
 """
 from __future__ import annotations
@@ -14,6 +14,17 @@ def limit_period(val, offset: float = 0.5, period: float = 2 * np.pi):
     """Wrap ``val`` into ``[-offset*period, (1-offset)*period)``."""
     val = np.asarray(val)
     return val - np.floor(val / period + offset) * period
+
+
+def update_dict(base: dict, override: dict) -> dict:
+    """Recursively override keys of ``base`` with ``override``, in place
+    (the config-override mechanism of the inference tools)."""
+    for key, value in override.items():
+        if isinstance(value, dict) and isinstance(base.get(key), dict):
+            update_dict(base[key], value)
+        else:
+            base[key] = value
+    return base
 
 
 def rotate_points_along_z(points: np.ndarray, angle: np.ndarray) -> np.ndarray:

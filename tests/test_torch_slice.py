@@ -105,17 +105,17 @@ def test_run_inference_two_frames(slice_outputs):
         assert 0.0 <= result[t] <= 1.0
 
 
-# the port, and chip_smoke.py, run with jax, flax, optax and the JAX
-# package blocked: an import of any of them raises
+# the port, and chip_smoke.py, run with jax, flax, optax, msgpack and the
+# JAX package blocked: an import of any of them raises
 _BLOCK = """
 import json, sys
-for name in ("jax", "flax", "optax", "heal_tpu"):
+for name in ("jax", "flax", "optax", "msgpack", "heal_tpu"):
     sys.modules[name] = None
 """
 _LOADED = """
 loaded = sorted(m for m in sys.modules
                 if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax",
-                                       "heal_tpu")
+                                       "msgpack", "heal_tpu")
                 and sys.modules[m] is not None)
 """
 
@@ -125,6 +125,11 @@ from heal_tpu_torch.models import build_loss
 from heal_tpu_torch.parallel import Trainer, build_optimizer
 from heal_tpu_torch.tools.inference import build_weights, run_inference
 from heal_tpu_torch.tools.train import device_batches, load_config
+# HEAL's stages 2 and 3 (a heal_tpu .ckpt is read by utils.flax_msgpack)
+from heal_tpu_torch.parallel import freezing
+from heal_tpu_torch.tools import (inference_heter_in_order, inference_w_noise,
+                                  merge, run_demo_full)
+from heal_tpu_torch.utils import flax_msgpack
 import torch
 torch.set_num_threads(1)
 cfg = load_config(sys.argv[1])
@@ -136,22 +141,32 @@ trainer = Trainer(model, build_loss(cfg["loss"]), opt, schedule,
                   supervise_single=True)
 batch, _ = next(device_batches(cfg, 2, "cpu"))
 losses = [trainer.train_step(batch)["total_loss"].item() for _ in range(2)]
+from heal_tpu_torch.tools import checkpoint
+build_weights(cfg, checkpoint=sys.argv[2])  # a heal_tpu .ckpt, strictly
 """ + _LOADED + """
 print(json.dumps({"frames": r["frames"], "steps": len(losses),
                   "falling": losses[1] < losses[0], "loaded": loaded}))
 """
 
-# chip_smoke.py's host side: the flagship config and one test batch
+# chip_smoke.py's host side: the flagship config and one test batch, and
+# the protocol phase's configs and one alliance batch
 _CHIP_SMOKE = _BLOCK + """
 import torch
 torch.set_num_threads(1)
 import chip_smoke
+from heal_tpu_torch.models import build_model
 from heal_tpu_torch.tools.train import device_batches
 cfg = chip_smoke.flagship_cfg()
 batch, _ = next(device_batches(cfg, 1, "cpu", train=False))
+cfgs = chip_smoke.protocol_cfgs()
+final, _ = next(device_batches(cfgs["final"], 1, "cpu", train=False))
+single = build_model(cfgs["stage2"]["model"])
 """ + _LOADED + """
 print(json.dumps({"points": list(batch["inputs_m1"]["points"].shape),
                   "agents": int(batch["agent_mask"].sum()),
+                  "alliance": [list(final[f"inputs_{m}"]["points"].shape)
+                               for m in ("m1", "m4")],
+                  "stage2": [type(single).__name__, single.fix_modules],
                   "loaded": loaded}))
 """
 
@@ -166,11 +181,24 @@ def _run_blocked(script, *args):
     return json.loads(proc.stdout.strip().splitlines()[-1])
 
 
-def test_port_never_imports_jax():
-    out = _run_blocked(_NO_JAX, os.path.join(REPO, TINY))
+def test_port_never_imports_jax(tmp_path):
+    from heal_tpu.tools.checkpoint import save_checkpoint
+    from heal_tpu_torch.models.layers import init_weights
+    from heal_tpu_torch.utils.bridge import to_flax
+
+    model = init_weights(build_torch(load_yaml(TINY)["model"]),
+                         torch.Generator().manual_seed(0))
+    params, stats = to_flax(model.state_dict())
+    ckpt = save_checkpoint(str(tmp_path), {"params": params,
+                                           "batch_stats": stats}, 1)
+    out = _run_blocked(_NO_JAX, os.path.join(REPO, TINY), ckpt)
     assert out == {"frames": 1, "steps": 2, "falling": True, "loaded": []}
 
 
 def test_chip_smoke_never_imports_jax():
     out = _run_blocked(_CHIP_SMOKE)
-    assert out == {"points": [1, 5, 30000, 4], "agents": 4, "loaded": []}
+    assert out == {"points": [1, 5, 30000, 4], "agents": 4,
+                   "alliance": [[1, 5, 30000, 4]] * 2,
+                   "stage2": ["HeterPyramidSingle",
+                              ["pyramid_backbone", "shrink", "heads"]],
+                   "loaded": []}
