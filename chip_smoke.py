@@ -31,20 +31,33 @@ Phases, in order; any failure raises and the exit code is non-zero:
      move (it is eval-only); ms/step, samples/s and peak memory;
   6. HEAL's protocol (stages 2 and 3) on the published configs at full
      width (heal_tpu/configs/opv2v/heal/: stage1/m1_pyramid,
-     stage2/m4_alignto_m1, final_infer/m1m2m3m4 cut to m1 and m4), on
-     synthetic scenes with the flagship's scene arguments: a stage-1 m1
-     base (seeded init, two f32 steps, saved); stage 2 through
+     stage2/m4_alignto_m1, stage2/m2_alignto_m1, final_infer/m1m2m3m4
+     cut to m1, m2 and m4), on synthetic scenes with the flagship's scene
+     arguments: a stage-1 m1 base (seeded init, two f32 steps, saved);
+     stage 2 of each new agent type through
      heal_tpu_torch.tools.train.main with --init_from the base (no
      frozen key left out at load; the pyramid, shrink and heads bit-equal
-     to the base after it; branch_m4 moved; finite loss), then the
+     to the base after it; the new branch moved; finite loss): m4, the
+     16-line PointPillars agent, and m2, the Lift-Splat-Shoot camera
+     agent (4 cameras at 384x512, 48 depth bins, its 128x128 grid padded
+     to the 128x256 canvas; the batches cached on the card, as
+     train_params.cache_device_batches asks; the depth loss finite), each
      stage-2 step timed in f32 and bf16 with its peak memory; the merge
      (heal_tpu_torch.tools.merge.merge_final: strict load into the
-     alliance, shared modules bit-equal to the base); the alliance served
-     in f32 and bf16 (2 launches of kernel 1 and 15 of kernel 2 a frame;
-     f32 heads against the plain kernel versions), the in-order
-     evaluation (m1, m1m4) and one pose-noise level. Phase 3 also holds
-     kernel 1 on the alliance's first m4 frame (16-line, sorted on the
-     card) against its plain version.
+     alliance, shared modules bit-equal to the base); the m1+m2+m4
+     alliance served in f32 and bf16 (2 launches of kernel 1 and 15 of
+     kernel 2 a frame; f32 heads against the plain kernel versions; the
+     camera's depth RMSE; the camera branch's stages timed with CUDA
+     events: image CNN, splat, backbone + aligner, and the splat's share
+     of the frame), the in-order evaluation (m1, m1m2, m1m2m4) and one
+     pose-noise level. Phase 3 also holds kernel 1 on the alliance's
+     first m4 frame (16-line, sorted on the card) against its plain
+     version;
+  7. the input pipeline: epochs of heal_tpu/configs/demo_heal_full/
+     stage2_m2.yaml (PIPELINE_SCENES train scenes) timed on the host
+     clock, batches assembled serially, through the prefetch pipeline
+     (tools/train.py, data/prefetch.py), and from the device cache of
+     cache_device_batches.
 The line before the last is {"kernels": [...]}; the last line is
 {"ok": true, "device": {...}}. The script imports torch and heal_tpu_torch
 only; configs and batches come through heal_tpu_torch.tools.train.
@@ -95,16 +108,21 @@ HEADS_TOL = 1e-4
 # of atomic sums.
 TRAIN_TOL = {"loss": 1e-6, "grad": 1e-6}
 TRAIN_STEPS = 6
+TRACE_TRIES = 3  # torch.profiler sessions to find kernel 1's one launch
 
 # the protocol phase: published configs (heal_tpu/configs/opv2v/heal/)
 PROTOCOL_CFGS = {"stage1": "stage1/m1_pyramid.yaml",
                  "stage2": "stage2/m4_alignto_m1.yaml",
+                 "stage2_m2": "stage2/m2_alignto_m1.yaml",
                  "final": "final_infer/m1m2m3m4.yaml"}
+# the new agent types of stage 2: config key -> branch
+STAGE2_TYPES = {"stage2": "m4", "stage2_m2": "m2"}
+ALLIANCE = ("m1", "m2", "m4")
 PROTOCOL_FRAMES = 6
 # synthetic scenes (train, test): stage 1 takes STAGE1_STEPS steps of
 # STAGE1_BATCH; stage 2 one epoch at its published batch of 4 (2 steps)
 # and one validation batch; the alliance serves PROTOCOL_FRAMES frames
-PROTOCOL_SCENES = {"stage1": (4, 4), "stage2": (8, 4),
+PROTOCOL_SCENES = {"stage1": (4, 4), "stage2": (8, 4), "stage2_m2": (8, 4),
                    "final": (4, PROTOCOL_FRAMES)}
 STAGE1_BATCH = 2  # published 4: two f32 steps are enough for a base
 STAGE1_STEPS = 2
@@ -112,6 +130,10 @@ STAGE2_STEPS = 4  # timed stage-2 steps after a warm one
 # launches of each kernel a served alliance frame: kernel 1 once per
 # PointPillars branch (m1, m4); kernel 2 in weighted_fuse (3 levels x 5)
 ALLIANCE_LAUNCHES = {"pillar_tables": 2, "shift_rows": 15}
+# phase 7: the published demo config's first PIPELINE_SCENES train scenes
+# (of 384) at its batch of 2
+PIPELINE_CFG = "demo_heal_full/stage2_m2.yaml"
+PIPELINE_SCENES = 24
 
 
 def rel_err(a: torch.Tensor, b: torch.Tensor) -> tuple[float, float]:
@@ -174,10 +196,11 @@ def flagship_cfg():
 
 
 def protocol_cfgs() -> dict:
-    """The protocol phase's three published configs at full width, read
+    """The protocol phase's published configs at full width, read
     through the port's loader: the synthetic backend with the flagship's
     scene arguments (4 agents, 14 vehicles) and PROTOCOL_SCENES scenes;
-    stage 1 at STAGE1_BATCH; the final config cut to m1 and m4."""
+    stage 1 at STAGE1_BATCH; the camera's stage 2 with its batches cached
+    on the card; the final config cut to ALLIANCE."""
     from heal_tpu_torch.config import keep_modalities
     from heal_tpu_torch.tools.train import load_config
 
@@ -193,7 +216,8 @@ def protocol_cfgs() -> dict:
                                      num_scenes_test=n_test)
         out[name] = cfg
     out["stage1"]["train_params"]["batch_size"] = STAGE1_BATCH
-    keep_modalities(out["final"], ("m1", "m4"))
+    out["stage2_m2"]["train_params"]["cache_device_batches"] = True
+    keep_modalities(out["final"], ALLIANCE)
     return out
 
 
@@ -328,10 +352,16 @@ def pillar_case(name, args, dt) -> dict:
     d, r = rel_err(got, want)
     if not r <= KERNEL_TOL[dt]:
         raise AssertionError(f"pillar_tables {name} {dt} disagrees: {r}")
-    launched = device_kernels(lambda: pillar.pillar_tables(*args))
+    # CUPTI now and then hands back an empty trace for a whole session
+    # (PERF.md §7): trace again then; a trace that holds anything must
+    # hold exactly the one kernel
+    for traces in range(1, TRACE_TRIES + 1):
+        launched = device_kernels(lambda: pillar.pillar_tables(*args))
+        if launched:
+            break
     if len(launched) != 1 or "pillar_tables" not in launched[0]:
         raise AssertionError(f"pillar_tables {name} {dt}: one call put "
-                             f"{launched} on the card")
+                             f"{launched} on the card ({traces} traces)")
     ms = device_ms(lambda: pillar.pillar_tables(*args))
     plain_ms = device_ms(lambda: pillar.pillar_tables_plain(*args))
     # the floor of any version: filling the same canvas with zeros
@@ -343,7 +373,8 @@ def pillar_case(name, args, dt) -> dict:
           f"({work['landed']} points in {work['runs']} pillars land) canvas "
           f"{tuple(got.shape)}: max_abs_err {d:.3e} (rel {r:.3e}, tol "
           f"{KERNEL_TOL[dt]}), {ms:.4f} ms vs plain {plain_ms:.4f} ms; one "
-          f"kernel, no sync; {work['bytes']} bytes, bound {b_ms:.4f} ms "
+          f"kernel, no sync ({traces} trace{'s' if traces > 1 else ''}); "
+          f"{work['bytes']} bytes, bound {b_ms:.4f} ms "
           f"({b_by}), {100 * b_ms / ms:.1f}% of bound; library call: none; "
           f"the canvas's fill by zero_ {fill_ms:.4f} ms")
     return dict(
@@ -668,7 +699,7 @@ def phase_protocol(cfgs: dict) -> dict:
     from heal_tpu_torch.models import build_model
     from heal_tpu_torch.tools import checkpoint as ckpt_lib
     from heal_tpu_torch.tools import train as train_tool
-    from heal_tpu_torch.tools.inference import build_weights, run_inference
+    from heal_tpu_torch.tools.inference import run_inference
     from heal_tpu_torch.tools.inference_heter_in_order import run_in_order
     from heal_tpu_torch.tools.inference_w_noise import run_noise_sweep
     from heal_tpu_torch.tools.merge import merge_final
@@ -697,125 +728,121 @@ def phase_protocol(cfgs: dict) -> dict:
         del tr
         torch.cuda.empty_cache()
 
-        # stage 2 through the CLI: m4 against the frozen base
-        s2cfg = cfgs["stage2"]
-        s2yaml = os.path.join(tmp, "m4_alignto_m1.yaml")
-        save_yaml(s2cfg, s2yaml)
-        left = ckpt_lib.loose_load(build_model(s2cfg["model"]), s1_path,
-                                   verbose=False)
-        if _shared({k.split(" ")[0]: None for k in left}):
-            raise AssertionError(f"stage 2 left frozen keys out: {left}")
-        s2dir = os.path.join(tmp, "stage2_m4")
-        _zero_counts()
-        train_tool.main(["-y", s2yaml, "--model_dir", s2dir, "--init_from",
-                         s1_path, "--epochs", "1", "--no_final_inference",
-                         "--device", "cuda"])
-        out["stage2_launches"] = _counts()
-        s2 = ckpt_lib.load_state_dict(ckpt_lib.find_checkpoint(s2dir)[1])
-        n_shared = _same_shared(s2, base, "stage 2")
-        init = build_weights(s2cfg, seed=0)
-        names = [n for n, _ in init.named_parameters()
-                 if n.startswith("branch_m4.")]
-        init = init.state_dict()
-        moved = [n for n in names if not torch.equal(s2[n], init[n])]
-        with open(os.path.join(s2dir, "train_log.jsonl")) as f:
-            s2loss = json.loads(f.read().splitlines()[-1])["total_loss"]
-        print(f"[protocol] stage 2 ({PROTOCOL_CFGS['stage2']}): "
-              f"{len(left)} base keys left out, none of the frozen modules;"
-              f" {n_shared} pyramid/shrink/heads entries bit-equal to stage "
-              f"1; {len(moved)} of {len(names)} branch_m4 parameters moved;"
-              f" loss {s2loss:.4f}; launches {out['stage2_launches']}")
-        if len(moved) < 0.9 * len(names) or not math.isfinite(s2loss):
-            raise AssertionError("stage 2 did not train branch_m4")
-
-        # the stage-2 step, f32 and bf16, on one device batch
-        bs = s2cfg["train_params"]["batch_size"]
-        batch, _ = next(train_tool.device_batches(s2cfg, bs, dev))
-        _zero_counts()
-        for name in ("f32", "bf16"):
-            tr = train_tool.build_trainer(s2cfg, dev, 1, init_from=s1_path)
-            tr.bf16 = name == "bf16"
-            tr.train_step(batch)
-            torch.cuda.synchronize()
-            torch.cuda.reset_peak_memory_stats()
-            times = []
-            for _ in range(STAGE2_STEPS):
-                t0 = time.perf_counter()
-                aux = tr.train_step(batch)
-                torch.cuda.synchronize()
-                times.append(time.perf_counter() - t0)
-            peak = torch.cuda.max_memory_allocated() / 2**30
-            _same_shared(tr.model.state_dict(), base, f"stage-2 {name} steps")
-            ms = 1e3 * sum(times) / len(times)
-            out[f"stage2_ms_{name}"], out[f"stage2_peak_{name}"] = ms, peak
-            print(f"[protocol] stage-2 step {name}: {ms:.3f} ms/step "
-                  f"({bs / ms * 1e3:.3f} samples/s; mean of {STAGE2_STEPS} "
-                  f"after a warm one), peak memory {peak:.3f} GiB, loss "
-                  f"{float(aux['total_loss']):.4f}; base unchanged")
-            if not math.isfinite(float(aux["total_loss"])):
-                raise AssertionError(f"stage-2 {name} loss is not finite")
-            del tr
-        steps = _counts()
-        print(f"[protocol] launches over {2 * (STAGE2_STEPS + 1)} stage-2 "
-              f"steps: {steps}")
-        if any(steps.values()):
-            raise AssertionError("a stage-2 train step launched a kernel")
+        # stage 2 through the CLI: each new type against the frozen base
+        s2dirs = []
+        launches = {}
+        for key, m in STAGE2_TYPES.items():
+            s2dirs.append(os.path.join(tmp, f"stage2_{m}"))
+            out.update(_stage2(cfgs[key], key, s2dirs[-1], s1_path, base))
+            launches = {k: launches.get(k, 0) + out[f"stage2_{m}_launches"][k]
+                        for k in out[f"stage2_{m}_launches"]}
         torch.cuda.empty_cache()
 
-        # stage 3: the merge, served as the m1+m4 alliance
+        # stage 3: the merge, served as the m1+m2+m4 alliance
         merged = os.path.join(tmp, "merged")
-        merge_final([s2dir], s1dir, merged)
+        merge_final(s2dirs, s1dir, merged)
         final = cfgs["final"]
         save_yaml(final, os.path.join(merged, "config.yaml"))
-        msd = ckpt_lib.load_state_dict(
-            ckpt_lib.find_checkpoint(merged, best=True)[1])
+        msd = ckpt_lib.load_state_dict(ckpt_lib.find_checkpoint(merged)[1])
         alliance = build_model(final["model"])
         if set(msd) != set(alliance.state_dict()):
             raise AssertionError("the merge's keys are not the alliance's")
         alliance.load_state_dict(msd, strict=True)
         _same_shared(msd, base, "the merge")
-        print(f"[protocol] merge: {len(msd)} entries, exactly the m1+m4 "
-              f"alliance's (strict load); shared modules bit-equal to stage 1")
+        print(f"[protocol] merge: {len(msd)} entries, exactly the "
+              f"{'+'.join(ALLIANCE)} alliance's (strict load); shared "
+              "modules bit-equal to stage 1")
 
+        models = {dt: copy.deepcopy(alliance).to(device=dev, dtype=dt).to(
+            memory_format=torch.channels_last)
+            for dt in (torch.float32, torch.bfloat16)}
         _zero_counts()
-        r32 = run_inference(merged, final, device="cuda",
-                            dtype=torch.float32, collect_heads=True)
-        r16 = run_inference(merged, final, device="cuda",
-                            dtype=torch.bfloat16, collect_heads=True)
+        stages = {}
+        runs = {}
+        for name, dt in (("f32", torch.float32), ("bf16", torch.bfloat16)):
+            with camera_stages(models[dt], "m2") as stages[name]:
+                runs[name] = run_inference(merged, final, device="cuda",
+                                           dtype=dt, model=models[dt],
+                                           collect_heads=True)
+        r32, r16 = runs["f32"], runs["bf16"]
         serve = _counts()
         frames = r32["frames"] + r16["frames"]
         want = {k: n * frames for k, n in ALLIANCE_LAUNCHES.items()}
         print(f"[protocol] alliance launches over {frames} frames: {serve}")
         if {k: serve[k] for k in want} != want:
             raise AssertionError(f"alliance launches {serve}, want {want}")
-        with plain_kernels():
-            ref = run_inference(merged, final, device="cuda",
-                                dtype=torch.float32, collect_heads=True)
-        if _counts() != serve:
+        # kernels vs plain versions on the same frames: the synthetic
+        # rig draws its images from id(scene) (ROADMAP §3), so every
+        # run_inference call serves other camera images. Both runs with
+        # deterministic algorithms: the camera splat's index_add_
+        # otherwise sums in atomic order (the information line below)
+        frames = [b for b, _ in itertools.islice(train_tool.device_batches(
+            final, 1, dev, train=False), PROTOCOL_FRAMES)]
+        model = models[torch.float32]
+
+        def heads():
+            with torch.inference_mode():
+                return [{k: v.float() for k, v in model(b).items()
+                         if k in ("cls_preds", "reg_preds", "dir_preds")}
+                        for b in frames]
+
+        atomic = heads()
+        torch.use_deterministic_algorithms(True, warn_only=True)
+        try:
+            det = heads()
+            compared = _counts()
+            with plain_kernels():
+                ref = heads()
+        finally:
+            torch.use_deterministic_algorithms(False)
+        if _counts() != compared:
             raise AssertionError("the plain alliance run launched a kernel")
-        worst = 0.0
-        for i, (a, b, h16) in enumerate(zip(r32["heads"], ref["heads"],
-                                            r16["heads"])):
-            for k in ("cls_preds", "reg_preds", "dir_preds"):
-                for t in (a[k], b[k], h16[k]):
+        del models, model, frames
+        worst = noise = 0.0
+        for i, (a, b, c) in enumerate(zip(det, ref, atomic)):
+            for k in a:
+                for t in (a[k], b[k], c[k]):
                     if t.shape[:3] != (1, 128, 256) or not torch.isfinite(
                             t).all():
                         raise AssertionError(f"alliance frame {i} {k}: bad")
                 worst = max(worst, rel_err(a[k], b[k])[1])
-        print(f"[protocol] alliance f32 heads, kernels vs plain, "
-              f"{r32['frames']} frames: max rel err {worst:.3e} (tol "
-              f"{HEADS_TOL})")
+                noise = max(noise, rel_err(c[k], a[k])[1])
+        for i, (h32, h16) in enumerate(zip(r32["heads"], r16["heads"])):
+            for k, t in (*h32.items(), *h16.items()):
+                if t.shape[:3] != (1, 128, 256) or not torch.isfinite(
+                        t).all():
+                    raise AssertionError(f"served alliance frame {i} {k}: "
+                                         "bad")
+        print(f"[protocol] alliance f32 heads, kernels vs plain on the same "
+              f"{len(det)} frames, both with deterministic algorithms: max "
+              f"rel err {worst:.3e} (tol {HEADS_TOL}); atomic vs "
+              f"deterministic splat sums (information): {noise:.3e}")
         if not worst <= HEADS_TOL:
             raise AssertionError(f"alliance heads disagree: {worst}")
-        for name, r in (("f32", r32), ("bf16", r16), ("f32 plain", ref)):
+        for name, r in (("f32", r32), ("bf16", r16)):
             steady = r["serve_s"][1:]
             fps = len(steady) / sum(steady)
             out[f"alliance_fps_{name}"] = fps
+            rmse = r.get("depth_rmse_m2", float("nan"))
+            if not math.isfinite(rmse):
+                raise AssertionError(f"alliance {name}: no depth RMSE")
             print(f"[protocol] alliance serve {name}: {fps:.3f} frames/s "
                   f"over {len(steady)} frames after the first "
                   f"({np.mean(steady) * 1e3:.3f} ms/frame; host data "
                   f"{np.mean(r['data_s']) * 1e3:.1f} ms/frame not included);"
-                  f" ap_30 {r['ap_30']:.4f}")
+                  f" ap_30 {r['ap_30']:.4f}; m2 depth RMSE {rmse:.4f} m")
+        for name, st in stages.items():
+            serve_ms = 1e3 * float(np.mean(runs[name]["serve_s"][1:]))
+            print(f"[protocol] camera branch {name}, mean of "
+                  f"{runs[name]['frames'] - 1} frames after the first (CUDA "
+                  "events): "
+                  + ", ".join(f"{k} {v:.3f} ms" for k, v in st.items()
+                              if k != "frame")
+                  + f"; the model's forward {st['frame']:.3f} ms; the splat "
+                  f"{100 * st['splat'] / st['frame']:.1f}% of the forward, "
+                  f"{100 * st['splat'] / serve_ms:.1f}% of the served frame "
+                  f"({serve_ms:.3f} ms)")
+            out[f"splat_share_{name}"] = st["splat"] / st["frame"]
 
         _zero_counts()
         order = run_in_order(merged, max_batches=2, device="cuda")
@@ -826,11 +853,194 @@ def phase_protocol(cfgs: dict) -> dict:
                for v in r.values()]
         print(f"[protocol] in-order {order}; noise 0.2 {noise[0.2]}; "
               f"launches {evals}")
-        if list(order) != ["m1", "m1m4"] or not all(0 <= v <= 1 for v in aps):
+        tags = ["".join(ALLIANCE[:k]) for k in range(1, len(ALLIANCE) + 1)]
+        if list(order) != tags or not all(0 <= v <= 1 for v in aps):
             raise AssertionError("the in-order / noise evaluations failed")
-        out["launches"] = {k: out["stage2_launches"][k] + serve[k] + evals[k]
+        out["launches"] = {k: launches[k] + serve[k] + evals[k]
                            for k in serve}
     return out
+
+
+def _stage2(cfg, key, s2dir, s1_path, base) -> dict:
+    """Stage 2 of the agent type of PROTOCOL_CFGS[key] through the CLI
+    against the frozen base at ``s1_path``, its checks, then its step
+    timed in f32 and bf16."""
+    from heal_tpu_torch.config import save_yaml
+    from heal_tpu_torch.models import build_model
+    from heal_tpu_torch.tools import checkpoint as ckpt_lib
+    from heal_tpu_torch.tools import train as train_tool
+    from heal_tpu_torch.tools.inference import build_weights
+
+    dev = torch.device("cuda")
+    m = STAGE2_TYPES[key]
+    out = {}
+    yaml = s2dir + ".yaml"
+    save_yaml(cfg, yaml)
+    left = ckpt_lib.loose_load(build_model(cfg["model"]), s1_path,
+                               verbose=False)
+    if _shared({k.split(" ")[0]: None for k in left}):
+        raise AssertionError(f"stage 2 {m} left frozen keys out: {left}")
+    _zero_counts()
+    t0 = time.perf_counter()
+    train_tool.main(["-y", yaml, "--model_dir", s2dir, "--init_from",
+                     s1_path, "--epochs", "1", "--no_final_inference",
+                     "--device", "cuda"])
+    cli_s = time.perf_counter() - t0
+    out[f"stage2_{m}_launches"] = _counts()
+    s2 = ckpt_lib.load_state_dict(ckpt_lib.find_checkpoint(s2dir)[1])
+    n_shared = _same_shared(s2, base, f"stage 2 {m}")
+    init = build_weights(cfg, seed=0)
+    names = [n for n, _ in init.named_parameters()
+             if n.startswith(f"branch_{m}.")]
+    init = init.state_dict()
+    moved = [n for n in names if not torch.equal(s2[n], init[n])]
+    with open(os.path.join(s2dir, "train_log.jsonl")) as f:
+        log = json.loads(f.read().splitlines()[-1])
+    depth = log.get("depth_loss")
+    print(f"[protocol] stage 2 {m} ({PROTOCOL_CFGS[key]}): "
+          f"{len(left)} base keys left out, none of the frozen modules;"
+          f" {n_shared} pyramid/shrink/heads entries bit-equal to stage "
+          f"1; {len(moved)} of {len(names)} branch_{m} parameters moved;"
+          f" loss {log['total_loss']:.4f}"
+          + (f", depth loss {depth:.4f}" if depth is not None else "")
+          + f"; the CLI run {cli_s:.1f} s (epoch {log['epoch_s']:.3f} s);"
+          f" launches {out[f'stage2_{m}_launches']}")
+    if len(moved) < 0.9 * len(names) or not math.isfinite(log["total_loss"]):
+        raise AssertionError(f"stage 2 did not train branch_{m}")
+    if m == "m2" and not (depth is not None and math.isfinite(depth)):
+        raise AssertionError(f"stage 2 m2: no finite depth loss ({depth})")
+
+    # the stage-2 step, f32 and bf16, on one device batch
+    bs = cfg["train_params"]["batch_size"]
+    batch, _ = next(train_tool.device_batches(cfg, bs, dev))
+    _zero_counts()
+    for name in ("f32", "bf16"):
+        tr = train_tool.build_trainer(cfg, dev, 1, init_from=s1_path)
+        tr.bf16 = name == "bf16"
+        tr.train_step(batch)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        times = []
+        for _ in range(STAGE2_STEPS):
+            t0 = time.perf_counter()
+            aux = tr.train_step(batch)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        _same_shared(tr.model.state_dict(), base,
+                     f"stage-2 {m} {name} steps")
+        ms = 1e3 * sum(times) / len(times)
+        out[f"stage2_{m}_ms_{name}"] = ms
+        out[f"stage2_{m}_peak_{name}"] = peak
+        print(f"[protocol] stage-2 {m} step {name}: {ms:.3f} ms/step "
+              f"({bs / ms * 1e3:.3f} samples/s; mean of {STAGE2_STEPS} "
+              f"after a warm one), peak memory {peak:.3f} GiB, loss "
+              f"{float(aux['total_loss']):.4f}; base unchanged")
+        if not math.isfinite(float(aux["total_loss"])):
+            raise AssertionError(f"stage-2 {m} {name} loss is not finite")
+        del tr
+    steps = _counts()
+    print(f"[protocol] launches over {2 * (STAGE2_STEPS + 1)} stage-2 {m} "
+          f"steps: {steps}")
+    if any(steps.values()):
+        raise AssertionError("a stage-2 train step launched a kernel")
+    return out
+
+
+@contextlib.contextmanager
+def camera_stages(model, m: str):
+    """CUDA events around camera type ``m``'s stages in every forward of
+    ``model`` while the block runs (forward hooks); yields a dict filled
+    at the end with the mean ms, over the forwards after the first, of
+    the image CNN, the splat (the depth softmax, the layout and the
+    segment sum), the branch's backbone + aligner, and the whole forward
+    (``frame``)."""
+    branch = getattr(model, f"branch_{m}")
+    marks: dict = {}
+
+    def mark(name):
+        def hook(*_):
+            ev = torch.cuda.Event(enable_timing=True)
+            ev.record()
+            marks.setdefault(name, []).append(ev)
+        return hook
+
+    hooks = [model.register_forward_pre_hook(mark("frame0")),
+             model.register_forward_hook(mark("frame1")),
+             branch.encoder.cam_encoder.register_forward_pre_hook(
+                 mark("cnn0")),
+             branch.encoder.cam_encoder.register_forward_hook(mark("cnn1")),
+             branch.encoder.register_forward_hook(mark("splat1")),
+             branch.backbone.register_forward_pre_hook(mark("bb0")),
+             branch.aligner.register_forward_hook(mark("bb1"))]
+    result: dict = {}
+    try:
+        yield result
+    finally:
+        for h in hooks:
+            h.remove()
+    torch.cuda.synchronize()
+    for name, (a, b) in (("image CNN", ("cnn0", "cnn1")),
+                         ("splat", ("cnn1", "splat1")),
+                         ("backbone + aligner", ("bb0", "bb1")),
+                         ("frame", ("frame0", "frame1"))):
+        times = [s.elapsed_time(e) for s, e in zip(marks[a], marks[b])][1:]
+        result[name] = sum(times) / len(times)
+
+
+def phase_pipeline() -> None:
+    """Epochs of the demo stage-2 m2 config on the host clock: batches
+    assembled serially, through the prefetch pipeline, and from the
+    device cache; turns serial, pipeline, pipeline, serial, then the
+    cache (its build timed apart)."""
+    from heal_tpu_torch.data import build_dataset
+    from heal_tpu_torch.tools import train as train_tool
+
+    dev = torch.device("cuda")
+    root = os.path.dirname(os.path.abspath(__file__))
+    cfg = train_tool.load_config(os.path.join(root, "heal_tpu", "configs",
+                                              PIPELINE_CFG))
+    cfg["fusion"]["args"]["num_scenes_train"] = PIPELINE_SCENES
+    bs = cfg["train_params"]["batch_size"]
+    ds = build_dataset(cfg, train=True)
+    steps = len(ds) // bs
+    tr = train_tool.build_trainer(cfg, dev, steps)
+    tr.train_step(next(train_tool.device_batches(cfg, bs, dev,
+                                                 dataset=ds))[0])
+
+    def epoch(batches) -> float:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        n = 0
+        for b in batches:
+            tr.train_step(b)
+            n += 1
+        torch.cuda.synchronize()
+        if n != steps:
+            raise AssertionError(f"an epoch of {n} steps, want {steps}")
+        return time.perf_counter() - t0
+
+    out = {"serial": [], "prefetch": []}
+    for turn, name in enumerate(("serial", "prefetch", "prefetch",
+                                 "serial")):
+        out[name].append(epoch(
+            (b for b, _ in train_tool.device_batches(
+                cfg, bs, dev, shuffle=True, seed=turn, dataset=ds))
+            if name == "serial" else
+            train_tool.epoch_batches(ds, bs, turn, dev)))
+    t0 = time.perf_counter()
+    cached = train_tool.cache_batches(ds, bs, dev)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    out["cached"] = [epoch(train_tool.epoch_batches(ds, bs, 4, dev, cached))]
+    print(f"[pipeline] {PIPELINE_CFG}, an epoch of {steps} steps of {bs} "
+          f"({PIPELINE_SCENES} scenes of 384), host clock: serial "
+          + ", ".join(f"{t:.3f}" for t in out["serial"])
+          + " s; prefetch pipeline (depth "
+          f"{train_tool.PREFETCH_DEPTH}) "
+          + ", ".join(f"{t:.3f}" for t in out["prefetch"])
+          + f" s; from the device cache {out['cached'][0]:.3f} s (built in "
+          f"{build_s:.3f} s)")
 
 
 def main() -> int:
@@ -858,6 +1068,7 @@ def main() -> int:
     del model32
     torch.cuda.empty_cache()
     protocol = phase_protocol(pcfgs)
+    phase_pipeline()
     for name in rows:
         rows[name]["protocol_launches"] = protocol["launches"][name]
         rows[name]["alliance_launches_per_frame"] = ALLIANCE_LAUNCHES[name]

@@ -1,10 +1,10 @@
 """heal_tpu_torch — the PyTorch / CUDA port of heal_tpu.
 
-Serves and trains the HEAL Pyramid-collaboration model (m1 PointPillars
-agents) on one NVIDIA GPU: pillar encoder -> m1 backbone -> pyramid
-fusion with the ego warp -> shrink -> heads -> decode + rotated NMS -> AP
-(tools/inference.py), and losses -> Trainer -> optimizer
-(tools/train.py).
+Serves and trains the HEAL Pyramid-collaboration model on one NVIDIA
+GPU: pillar encoder -> m1 backbone -> pyramid fusion with the ego warp ->
+shrink -> heads -> decode + rotated NMS -> AP (tools/inference.py), and
+losses -> Trainer -> optimizer (tools/train.py); and HEAL's stages 2 and
+3 for new agent types, lidar (m4) and camera (m2, Lift-Splat-Shoot).
 
 Layout of the package mirrors ``heal_tpu/`` module for module, so each
 counterpart is easy to find. The numpy host side (configs, the synthetic

@@ -1,22 +1,28 @@
 """Scene -> fixed-shape samples for intermediate fusion (host side, numpy).
 
-The port's copy of heal_tpu/data/scene.py, lidar path: ``assemble``
-takes a raw scene (agent poses, lidar points, world-frame object boxes)
-to the static-shape arrays the model consumes, with the same
-mask/padding conventions:
+The port's copy of heal_tpu/data/scene.py: ``assemble`` takes a raw
+scene (agent poses, lidar points, world-frame object boxes) to the
+static-shape arrays the model consumes, with the same mask/padding
+conventions:
 
   * agents padded to ``max_cav`` (slot 0 = ego), ``agent_mask`` marks real
     slots; per-modality packing uses flat ``slots_mX`` indices into the
     (B*L + 1) scatter space (last slot = dump for padding);
   * per-agent point clouds padded to ``max_points``, presorted by pillar;
-  * GT boxes padded to ``max_num``.
+  * GT boxes padded to ``max_num``;
+  * camera agents (the synthetic rig) packed as images, calibration,
+    depth-bin targets and the host-presorted splat plans
+    (``_pack_cameras``); ``label_type: camera`` keeps the GT a camera rig
+    can see.
 
 The same scene (and numpy's global random state) gives the same arrays
-as the JAX package. Branches the slice does not run raise
-NotImplementedError and name the ROADMAP item (queue 1) that ports them:
-camera modalities and camera labels (item 10), SECOND voxel presort
-(item 11), CoAlign box alignment (item 9), CenterPoint targets and the
-distillation teacher view (item 13).
+as the JAX package, but for the synthetic rig's images: like JAX, they
+are drawn from a seed of ``id(scene)``, a memory address, so they differ
+between processes and packages (ROADMAP §3, known faults in the
+reference). Branches the slice does not run raise NotImplementedError and
+name the ROADMAP item (queue 1) that ports them: camera images from disk
+(item 16), SECOND voxel presort (item 11), CoAlign box alignment (item
+9), CenterPoint targets and the distillation teacher view (item 13).
 """
 from __future__ import annotations
 
@@ -25,6 +31,7 @@ import numpy as np
 from ..postprocess.anchors import generate_anchor_box
 from ..postprocess.targets import generate_targets
 from ..utils import box_np, transform_np
+from ..utils import camera as cam_utils
 from ..utils.common_np import limit_period
 from ..utils.pose_noise import add_pose_noise
 
@@ -32,7 +39,7 @@ MODALITY_KEYS = ("m1", "m2", "m3", "m4")
 
 
 class IntermediateAssembler:
-    """Heterogeneous intermediate-fusion sample assembly (lidar agents)."""
+    """Heterogeneous intermediate-fusion sample assembly."""
 
     def __init__(self, params: dict, train: bool = True):
         self.params = params
@@ -60,6 +67,9 @@ class IntermediateAssembler:
             "supervise_single", False
         )
         self.noise_setting = params.get("noise_setting", {"add_noise": False})
+        # label_type 'camera': GT supervised only on objects a camera rig
+        # can see, filtered by the ego's BEV visibility map
+        self.label_type = params.get("label_type", "lidar")
         heter = params.get("heter")
         self.modalities = (
             sorted(heter["modality_setting"].keys()) if heter else ["m1"]
@@ -74,11 +84,6 @@ class IntermediateAssembler:
             ))
             for m in self.modalities
         }
-        if params.get("label_type", "lidar") == "camera":
-            raise NotImplementedError(
-                "label_type 'camera' (camera-visible GT) is not ported: "
-                "ROADMAP queue 1, item 10 (m2 camera)"
-            )
         if params.get("kd_flag"):
             raise NotImplementedError(
                 "kd_flag (the early-fusion teacher view) is not ported: "
@@ -168,8 +173,14 @@ class IntermediateAssembler:
             pmask[slot, :n] = True
 
         # fused labels in (clean) ego frame
+        def vis_of(agent_idx):
+            if self.label_type != "camera":
+                return None
+            return agents[agent_idx].get("bev_visibility")
+
         gt_ego, gt_mask = self._gt_in_frame(
-            scene["objects"], clean_poses[0], self.gt_range
+            scene["objects"], clean_poses[0], self.gt_range,
+            visibility_map=vis_of(keep[0]),
         )
         label = generate_targets(
             gt_ego, gt_mask, self.anchors, self.pos_thr, self.neg_thr,
@@ -204,7 +215,7 @@ class IntermediateAssembler:
             "transformation_matrix": np.eye(4, dtype=np.float32),
         }
 
-        self._pack_modalities(sample, keep, modality)
+        self._pack_modalities(sample, scene, keep, modality)
 
         if self.supervise_single:
             pos_s, neg_s, tgt_s = [], [], []
@@ -212,7 +223,7 @@ class IntermediateAssembler:
                 if slot < n_valid:
                     gt_a, m_a = self._gt_in_frame(
                         scene["objects"], clean_poses[keep[slot]],
-                        self.gt_range,
+                        self.gt_range, visibility_map=vis_of(keep[slot]),
                     )
                     lab = generate_targets(
                         gt_a, m_a, self.anchors, self.pos_thr, self.neg_thr,
@@ -232,19 +243,16 @@ class IntermediateAssembler:
         return sample
 
     # ------------------------------------------------------------------
-    def _pack_modalities(self, sample, keep, modality):
+    def _pack_modalities(self, sample, scene, keep, modality):
         """Emit per-sample per-modality packed inputs + slot indices.
 
-        slots_mX: (cap,) agent slot per packed entry (dump slot = L);
-        inputs_mX: (points, point_mask) of those agents.
+        slots_mX: (cap,) agent slot per packed entry (dump slot = L).
+        Lidar modalities pack (points, point_mask); camera modalities pack
+        (imgs, intrins, rots, trans, post_rots, post_trans, depth_bins)
+        and the splat plans.
         """
         L = self.max_cav
         for m in self.modalities:
-            if self.sensor_type(m) != "lidar":
-                raise NotImplementedError(
-                    f"modality {m}: camera inputs are not ported: ROADMAP "
-                    "queue 1, item 10 (m2 camera, utils/camera.py)"
-                )
             cap = self.modality_cap[m]
             slots = np.full(cap, L, dtype=np.int32)
             all_entries = [
@@ -259,6 +267,11 @@ class IntermediateAssembler:
             for j, slot in enumerate(entries):
                 slots[j] = slot
             sample[f"slots_{m}"] = slots
+            if self.sensor_type(m) != "lidar":
+                sample[f"inputs_{m}"] = self._pack_cameras(
+                    scene, keep, entries, m, cap
+                )
+                continue
             if cap == L and entries == list(range(len(entries))):
                 # identity packing (single-modality case): ALIAS the
                 # top-level arrays; collate stacks them once per batch
@@ -273,6 +286,134 @@ class IntermediateAssembler:
                 pts[j] = sample["points"][slot]
                 msk[j] = sample["point_mask"][slot]
             sample[f"inputs_{m}"] = {"points": pts, "point_mask": msk}
+
+    def _pack_cameras(self, scene, keep, entries, m, L):
+        """Assemble fixed-shape camera arrays for modality m."""
+        setting = self.modality_setting[m]
+        aug = setting["data_aug_conf"]
+        ih, iw = aug["final_dim"]
+        ncam = aug.get("Ncams", 4)
+        gc = setting["grid_conf"]
+        d_min, d_max, n_bins = gc["ddiscr"]
+        ds = setting.get("img_downsample", 16)
+        fh, fw = ih // ds, iw // ds
+
+        depth_vals = cam_utils.depth_discretization(
+            d_min, d_max, n_bins, gc["mode"]
+        )
+        _, _, g_nx = cam_utils.gen_dx_bx(
+            gc["xbound"], gc["ybound"], gc["zbound"]
+        )
+        cells = int(g_nx[0]) * int(g_nx[1])
+        n_pts = ncam * fh * fw * n_bins
+        out = {
+            "imgs": np.zeros((L, ncam, ih, iw, 3), np.float32),
+            "intrins": np.tile(np.eye(3, dtype=np.float32), (L, ncam, 1, 1)),
+            "rots": np.tile(np.eye(3, dtype=np.float32), (L, ncam, 1, 1)),
+            "trans": np.zeros((L, ncam, 3), np.float32),
+            "post_rots": np.tile(np.eye(3, dtype=np.float32), (L, ncam, 1, 1)),
+            "post_trans": np.zeros((L, ncam, 3), np.float32),
+            "depth_bins": np.full((L, ncam, fh, fw), n_bins, np.int32),
+            # host-presorted splat plans (utils/camera): the port's splat
+            # reduces the flat plan (splat_ids, splat_widx); the W-matrix
+            # plan (splat_cell, splat_dperm) is JAX's sum-pool form, kept
+            # so that the batch is JAX's. Padded agent slots keep every
+            # point on the dump cell
+            "splat_ids": np.full((L, n_pts), cells, np.int32),
+            "splat_widx": np.zeros((L, n_pts), np.int32),
+            "splat_cell": np.full(
+                (L, ncam * fh * fw, n_bins), cells, np.int32
+            ),
+            "splat_dperm": np.tile(
+                np.arange(n_bins, dtype=np.int32),
+                (L, ncam * fh * fw, 1),
+            ),
+        }
+        for j, slot in enumerate(entries):
+            agent = scene["agents"][keep[slot]]
+            cams = agent.get("cameras")
+            if cams is None and agent.get("cameras_raw") is not None:
+                raise NotImplementedError(
+                    "camera images from disk (cameras_raw) are not ported: "
+                    "ROADMAP queue 1, item 16 (disk dataset backends)"
+                )
+            if cams is None:
+                # synthesize a rig: structured noise images + exact calib,
+                # depth maps rendered from the agent's own lidar geometry.
+                # The seed is JAX's formula: id(scene) is an address, so
+                # the images differ between runs and between packages
+                rng = np.random.default_rng(
+                    abs(hash((id(scene) % 997, slot))) % (2**31)
+                )
+                rig = cam_utils.default_camera_rig(ncam)
+                K = cam_utils.default_intrinsics(ih, iw)
+                imgs, intr, rots, trans = [], [], [], []
+                for rot, tr in rig:
+                    imgs.append(
+                        rng.normal(0.45, 0.2, (ih, iw, 3)).astype(np.float32)
+                    )
+                    intr.append(K)
+                    rots.append(rot)
+                    trans.append(tr)
+                cams = {
+                    "imgs": np.stack(imgs),
+                    "intrins": np.stack(intr).astype(np.float32),
+                    "rots": np.stack(rots).astype(np.float32),
+                    "trans": np.stack(trans).astype(np.float32),
+                }
+            for key in ("imgs", "intrins", "rots", "trans"):
+                out[key][j] = cams[key]
+            if "post_rots" in cams:
+                out["post_rots"][j] = cams["post_rots"]
+                out["post_trans"][j] = cams["post_trans"]
+            # splat plans from the FINAL calibration (aug folded in)
+            out["splat_ids"][j], out["splat_widx"][j] = (
+                cam_utils.frustum_splat_plan(
+                    out["rots"][j], out["trans"][j], out["intrins"][j],
+                    out["post_rots"][j], out["post_trans"][j],
+                    depth_vals, ih, iw, ds, gc,
+                )
+            )
+            out["splat_cell"][j], out["splat_dperm"][j] = (
+                cam_utils.frustum_splat_matrix_plan(
+                    out["rots"][j], out["trans"][j], out["intrins"][j],
+                    out["post_rots"][j], out["post_trans"][j],
+                    depth_vals, ih, iw, ds, gc,
+                    flat_plan=(out["splat_ids"][j], out["splat_widx"][j]),
+                )
+            )
+            # depth supervision from the agent's (simulated or real) lidar,
+            # rendered in FINAL image pixels: fold the aug homography into
+            # the intrinsics (u' = post_rot[:2,:2] @ u + post_tran[:2])
+            pts = np.asarray(agent.get("points"), np.float32)
+            if pts is not None and len(pts):
+                for ci in range(ncam):
+                    P = np.asarray(out["post_rots"][j, ci], np.float64).copy()
+                    P[:2, 2] += np.asarray(
+                        out["post_trans"][j, ci], np.float64
+                    )[:2]
+                    k_eff = P @ np.asarray(
+                        out["intrins"][j, ci], np.float64
+                    )
+                    depth = cam_utils.render_depth_map(
+                        pts,
+                        out["rots"][j, ci],
+                        out["trans"][j, ci],
+                        k_eff,
+                        ih,
+                        iw,
+                        ds,
+                    )
+                    bins, mask = cam_utils.bin_depths(
+                        np.where(depth > 0, depth, np.nan),
+                        gc["mode"],
+                        d_min,
+                        d_max,
+                        n_bins,
+                        target=True,
+                    )
+                    out["depth_bins"][j, ci] = bins
+        return out
 
     def _range_filter(self, points: np.ndarray) -> np.ndarray:
         r = self.cav_range
@@ -303,8 +444,14 @@ class IntermediateAssembler:
         ids = np.where(ok, yi * nx + xi, nx * ny)
         return points[np.argsort(ids, kind="stable")]
 
-    def _gt_in_frame(self, objects_world, pose, limit_range):
-        """World lwh boxes -> padded hwl boxes in the given agent frame."""
+    def _gt_in_frame(self, objects_world, pose, limit_range,
+                     visibility_map=None):
+        """World lwh boxes -> padded hwl boxes in the given agent frame.
+
+        visibility_map: optional (256, 256) ego BEV visibility raster
+        (label_type 'camera'): objects whose center falls on a zero cell
+        are dropped before the range mask.
+        """
         out = np.zeros((self.max_num, 7), dtype=np.float64)
         mask = np.zeros(self.max_num, dtype=np.float64)
         if objects_world is None or len(objects_world) == 0:
@@ -317,6 +464,10 @@ class IntermediateAssembler:
         boxes = np.concatenate(
             [centers, objs[:, 3:6], limit_period(objs[:, 6:7] + dyaw)], axis=1
         )
+        if visibility_map is not None:
+            boxes = boxes[box_np.camera_visible_mask(boxes, visibility_map)]
+            if len(boxes) == 0:
+                return out, mask
         _, m = box_np.mask_boxes_outside_range(
             boxes, limit_range, "lwh", min_num_corners=1, return_mask=True
         )

@@ -3,8 +3,8 @@
 The port's copy of heal_tpu/data/synthetic.py: procedurally generated
 worlds with vehicles (GT boxes) and agents whose "lidar" samples box
 surfaces and ground with distance-dependent density. The same seed gives
-the same scenes as the JAX package. The BEV visibility rasters of camera
-labels are not ported (the assembler refuses ``label_type: camera``).
+the same scenes as the JAX package, and with ``label_type: camera`` each
+agent's BEV visibility raster (``bev_visibility_map``).
 """
 from __future__ import annotations
 
@@ -151,4 +151,56 @@ class SyntheticDataset:
             modalities=tuple(self.modalities),
             lidar_channels=self.lidar_channels,
         )
+        if self.params.get("label_type") == "camera":
+            # camera-visible GT needs per-agent visibility rasters
+            # (ref ships bev_visibility.png per frame)
+            for agent in scene["agents"]:
+                agent["bev_visibility"] = bev_visibility_map(
+                    scene["objects"], agent["pose"]
+                )
         return scene
+
+
+def bev_visibility_map(objects, pose, max_range=50.0, size=256, res=0.39):
+    """Synthesize the ego-centered BEV visibility raster the reference
+    ships as bev_visibility.png (256x256 at 0.39 m/px, heading up:
+    py = 127 - x/res, px = 127 + y/res — box_utils.py:1236-1266).
+
+    Angular occlusion from a surround camera rig: the nearest object
+    along each viewing ray is visible; objects behind it, or beyond
+    max_range, are not. Visible objects paint a small disk at their
+    center (the reference's filter samples the map at box centers).
+    """
+    vis = np.zeros((size, size), np.uint8)
+    t = np.linalg.inv(transform_np.x_to_world(pose))
+    centers = (t[:3, :3] @ np.asarray(objects)[:, :3].T).T + t[:3, 3]
+    x, y = centers[:, 0], centers[:, 1]
+    r = np.hypot(x, y)
+    theta = np.arctan2(y, x)
+    half = np.arctan2(
+        np.maximum(objects[:, 3], objects[:, 4]) / 2.0, np.maximum(r, 1e-3)
+    )
+
+    def wrap(a):
+        return (a + np.pi) % (2 * np.pi) - np.pi
+
+    order = np.argsort(r)
+    blockers = []  # (theta, half_width, range) of every nearer object
+    for i in order:
+        if r[i] > max_range:
+            continue
+        occluded = any(
+            rb < r[i] and abs(wrap(theta[i] - tb)) < 0.8 * hb
+            for tb, hb, rb in blockers
+        )
+        if not occluded:
+            py = 127 - int(x[i] / res)
+            px = 127 + int(y[i] / res)
+            if 0 <= py < size and 0 <= px < size:
+                vis[
+                    max(py - 2, 0) : py + 3, max(px - 2, 0) : px + 3
+                ] = 255
+        blockers.append((theta[i], half[i], r[i]))
+    # the rig always sees its own immediate surroundings
+    vis[125:130, 125:130] = 255
+    return vis

@@ -3,12 +3,14 @@
 Counterpart of heal_tpu/losses/point_pillar_loss.py: sigmoid focal cls
 loss with pos_cls_weight and per-sample positive normalisation,
 smooth-L1 reg loss with the sin-difference yaw encoding, softmax
-direction-bin loss. All reductions are mask-based over fixed shapes.
+direction-bin loss, and the categorical focal depth loss of camera agent
+types (LSS depth supervision, ``depth`` in the config). All reductions
+are mask-based over fixed shapes.
 
 Prediction layout NHWC: cls (B, H, W, A), reg (B, H, W, A*7),
-dir (B, H, W, A*bins); targets from heal_tpu.postprocess.targets. The
-IoU-quality branch and the LSS depth branch are not ported: each raises
-when it would contribute.
+dir (B, H, W, A*bins), depth_items_mX (N, fH, fW, D); targets from
+postprocess/targets.py and the camera packing's ``depth_bins``. The
+IoU-quality branch is not ported: it raises when it would contribute.
 """
 from __future__ import annotations
 
@@ -73,6 +75,21 @@ def direction_targets(reg_targets, anchor_yaw_deg, dir_offset: float,
     return F.one_hot(bins, num_bins).to(reg_targets.dtype)
 
 
+def depth_focal_loss(logits, gt_bins, alpha: float = 0.25,
+                     gamma: float = 2.0):
+    """Categorical focal loss over depth bins; gt == num_bins means "no
+    lidar return" and is ignored. logits (N, fH, fW, D); gt_bins
+    (N, fH, fW) int."""
+    d = logits.shape[-1]
+    valid = (gt_bins < d).to(logits.dtype)
+    onehot = F.one_hot(torch.clamp(gt_bins.long(), 0, d - 1), d).to(
+        logits.dtype)
+    logp = F.log_softmax(logits, dim=-1)
+    focal = alpha * (1.0 - torch.exp(logp)) ** gamma * (-logp)
+    loss = (onehot * focal).sum(-1) * valid
+    return loss.sum() / torch.clamp(valid.sum(), min=1.0)
+
+
 @register_loss("point_pillar_loss")
 class PointPillarLoss:
     def __init__(self, args: dict):
@@ -127,11 +144,20 @@ class PointPillarLoss:
 
         if self.iou is not None and f"iou_preds{suffix}" in output_dict:
             raise NotImplementedError("the IoU loss branch is not ported yet")
-        if "depth" in self.args and any(
-                k.startswith("depth_items_")
-                and f"depth_bins_{k.rsplit('_', 1)[-1]}" in target_dict
-                for k in output_dict):
-            raise NotImplementedError("the depth loss is not ported yet")
+        # LSS depth supervision of every camera type present
+        if "depth" in self.args:
+            terms = [
+                depth_focal_loss(logits, target_dict[f"depth_bins_{m}"]
+                                 .reshape((-1,) + logits.shape[1:3]))
+                for key, logits in output_dict.items()
+                if key.startswith("depth_items_")
+                for m in [key.rsplit("_", 1)[-1]]
+                if f"depth_bins_{m}" in target_dict
+            ]
+            if terms:
+                dloss = sum(terms) * self.args["depth"]["weight"]
+                total = total + dloss
+                aux["depth_loss"] = dloss
 
         aux["total_loss"] = total
         return total, aux

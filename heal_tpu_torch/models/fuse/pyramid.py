@@ -81,8 +81,10 @@ class PyramidFusion(nn.Module):
         return self.backbone.decode(feats).permute(0, 2, 3, 1), occ
 
     def forward_collab(self, x: torch.Tensor, affine: torch.Tensor,
-                       agent_mask: torch.Tensor):
-        """x (B, L, H, W, C) per-agent features; affine (B, L, L, 2, 3).
+                       agent_mask: torch.Tensor, crop_mask_list=None):
+        """x (B, L, H, W, C) per-agent features; affine (B, L, L, 2, 3);
+        crop_mask_list: optional per-level (B, L, h, w, 1) multiplicative
+        score masks (the camera field of view, at eval).
 
         Returns (fused (B, H, W, C'), occ_map list at (B*L, h, w, 1)).
         """
@@ -91,10 +93,12 @@ class PyramidFusion(nn.Module):
         feats = self.backbone.encode(flat)
         fused_levels = []
         occ_maps = []
-        for head, f in zip(self._heads(), feats):
+        for i, (head, f) in enumerate(zip(self._heads(), feats)):
             occ = head(f).permute(0, 2, 3, 1)  # (B*L, h, w, 1)
             occ_maps.append(occ)
             score = torch.sigmoid(occ) + 1e-4
+            if crop_mask_list is not None:
+                score = score * crop_mask_list[i].reshape(score.shape)
             fl = f.permute(0, 2, 3, 1)
             fl = fl.reshape((b, l) + fl.shape[1:])
             sl = score.reshape((b, l) + score.shape[1:])

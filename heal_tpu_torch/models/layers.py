@@ -41,7 +41,7 @@ class Norm(nn.Module):
     """BatchNorm (heal_tpu/models/layers.py ``Norm``), or "none".
 
     Train mode normalises with the batch moments over N, H and W, taken
-    in f32 and kept in the graph (JAX differentiates through them):
+    in f32 (f64 for f64 inputs) and kept in the graph (JAX differentiates through them):
     m = mean(x), v = mean(x^2) - m^2, the biased variance. Padded agent
     slots count, as in JAX. The running buffers (f32 whatever the weights'
     dtype) then move as flax moves them, running = mom*running +
@@ -71,7 +71,7 @@ class Norm(nn.Module):
         if self.kind == "none":
             return x
         if self.training:
-            xf = x.float()
+            xf = x.to(torch.promote_types(x.dtype, torch.float32))
             axes = [0] + list(range(2, x.dim()))
             m = xf.mean(axes)
             v = (xf * xf).mean(axes) - m * m

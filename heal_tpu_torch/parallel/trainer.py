@@ -58,31 +58,55 @@ def _to_f32(tree):
     return tree
 
 
-def to_device(batch: dict, device) -> dict:
-    """numpy batch -> tensors on ``device`` (the host->device boundary).
-
-    Deduplicates by object id: collate aliases identical arrays (``points``
-    and ``inputs_m1/points``), so each buffer crosses once. CUDA copies go
-    from pinned memory without blocking the host.
-    """
-    device = torch.device(device)
+def _map_arrays(batch: dict, fn) -> dict:
+    """``fn`` over the numpy arrays and tensors of a nested batch, once per
+    object: collate aliases identical arrays (``points`` and
+    ``inputs_m1/points``), so each buffer is converted once."""
     memo: dict = {}
 
     def conv(x):
         if isinstance(x, dict):
             return {k: conv(v) for k, v in x.items()}
-        if not isinstance(x, np.ndarray):
+        if not isinstance(x, (np.ndarray, torch.Tensor)):
             return x
         if id(x) not in memo:
-            t = torch.from_numpy(np.ascontiguousarray(x))
-            if device.type == "cuda":
-                t = t.pin_memory().to(device, non_blocking=True)
-            else:
-                t = t.to(device)
-            memo[id(x)] = t
-        return memo[id(x)]
+            memo[id(x)] = (x, fn(x))  # keep x alive: its id stays unique
+        return memo[id(x)][1]
 
     return conv(batch)
+
+
+def _host_tensor(x) -> torch.Tensor:
+    if isinstance(x, torch.Tensor):
+        return x
+    return torch.from_numpy(np.ascontiguousarray(x))
+
+
+def pin(batch: dict, device) -> dict:
+    """numpy batch -> CPU tensors, page-locked when ``device`` is a CUDA
+    device (the host half of :func:`to_device`, which the input pipeline
+    runs in its worker thread, data/prefetch.py)."""
+    cuda = torch.device(device).type == "cuda"
+    return _map_arrays(batch, lambda x: (_host_tensor(x).pin_memory() if cuda
+                                         else _host_tensor(x)))
+
+
+def to_device(batch: dict, device) -> dict:
+    """numpy (or :func:`pin`\\ ned) batch -> tensors on ``device`` (the
+    host->device boundary). Each buffer crosses once; CUDA copies go from
+    pinned memory without blocking the host, on the current stream, so the
+    steps queued after them see the data."""
+    device = torch.device(device)
+
+    def conv(x):
+        t = _host_tensor(x)
+        if device.type == "cuda":
+            if not t.is_pinned():
+                t = t.pin_memory()
+            return t.to(device, non_blocking=True)
+        return t.to(device)
+
+    return _map_arrays(batch, conv)
 
 
 @dataclasses.dataclass

@@ -40,19 +40,17 @@ def save_checkpoint(model_dir: str, model, epoch: int,
     return path
 
 
-def find_checkpoint(model_dir: str, best: bool = False):
-    """-> (epoch, path): with ``best`` the bestval checkpoint if there is
-    one (inference and merge, as JAX picks it), else the newest (resume);
-    (0, None) if the directory holds none. A port ``.pth`` wins over a
-    heal_tpu ``.ckpt`` of the same name."""
+def find_checkpoint(model_dir: str):
+    """-> (epoch, path): the bestval checkpoint if there is one, else the
+    newest epoch's; (0, None) if the directory holds none. JAX's
+    ``find_checkpoint`` picks so for resume, inference and merge alike. A
+    port ``.pth`` wins over a heal_tpu ``.ckpt`` of the same name."""
     found = []
     for name in os.listdir(model_dir):
         m = _NAME.fullmatch(name)
         if m:
             is_best, epoch = bool(m.group(1)), int(m.group(2))
-            pth = m.group(3) == "pth"
-            # resume: newest epoch, the regular file at a tie
-            key = (is_best, epoch, pth) if best else (epoch, not is_best, pth)
+            key = (is_best, epoch, m.group(3) == "pth")
             found.append((key, epoch, os.path.join(model_dir, name)))
     if not found:
         return 0, None

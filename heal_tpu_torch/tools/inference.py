@@ -3,9 +3,10 @@
 Counterpart of heal_tpu/tools/inference.py ``run_inference`` for the
 intermediate-fusion path: dataset (the port's numpy host side) -> model
 -> decode + rotated NMS -> AP@0.3/0.5/0.7 with the VOC matcher of
-utils/eval_np.py.
-Late fusion, two-stage models, depth metrics, comm rate and
-visualisation are not ported yet.
+utils/eval_np.py, and for each camera agent type its depth RMSE
+(``depth_rmse_mX``, utils/camera.depth_metric) beside the AP.
+Late fusion, two-stage models, comm rate and visualisation are not
+ported yet.
 
     python -m heal_tpu_torch.tools.inference --config heal_tpu/configs/opv2v_m1_pyramid.yaml \
         [--checkpoint net.pt | --seed 0] [--dtype bf16] [--max_batches 8]
@@ -34,7 +35,7 @@ from ..data import build_dataset
 from ..models import build_model
 from ..models.layers import init_weights
 from ..postprocess.decode import post_process_single, strip_padding
-from ..utils import box_np, eval_np
+from ..utils import box_np, camera, eval_np
 from ..utils.common_np import update_dict
 from . import checkpoint as ckpt_lib
 
@@ -116,6 +117,8 @@ def run_inference(
       * ``serve_s``: per-frame seconds from the host batch to the host
         detections (transfer, forward, decode, NMS), synchronised;
       * ``data_s``: per-frame seconds the host spent assembling the batch;
+      * ``depth_rmse_mX``: each camera type's depth RMSE in metres over
+        the pixels with a lidar return (JAX's ``depth_metric``);
       * ``heads`` (``collect_heads``): per-frame f32 CPU copies of the
         cls/reg/dir head outputs.
 
@@ -136,7 +139,7 @@ def run_inference(
     device = torch.device(device)
     dataset = build_dataset(cfg, train=False)
     if model is None and checkpoint is None and model_dir is not None:
-        checkpoint = ckpt_lib.find_checkpoint(model_dir, best=True)[1]
+        checkpoint = ckpt_lib.find_checkpoint(model_dir)[1]
         if checkpoint:
             print(f"[inference] loading {checkpoint}")
     if model is None:
@@ -151,6 +154,12 @@ def run_inference(
                             device=device)
     stat = eval_np.new_result_stat((0.3, 0.5, 0.7))
     serve_s, data_s, heads = [], [], []
+    # camera depth RMSE: each camera type's grid maps bins back to metres
+    depth_grids = {
+        m: s["grid_conf"] for m, s in
+        (cfg.get("heter") or {}).get("modality_setting", {}).items()
+        if s.get("sensor_type") == "camera" and "grid_conf" in s}
+    depth_sse = {m: [0.0, 0] for m in depth_grids}
 
     def sync():
         if device.type == "cuda":
@@ -183,6 +192,14 @@ def run_inference(
                 heads.append({k: out[k].float().cpu() for k in
                               ("cls_preds", "reg_preds", "dir_preds")
                               if k in out})
+            for m, gc in depth_grids.items():
+                if f"depth_items_{m}" in out:
+                    sse, n = camera.depth_metric(
+                        out[f"depth_items_{m}"].float().cpu().numpy(),
+                        batch[f"inputs_{m}"]["depth_bins"], gc["ddiscr"],
+                        gc["mode"])
+                    depth_sse[m][0] += sse
+                    depth_sse[m][1] += n
             gt_mask = batch["gt_mask"][0] > 0
             gt_corners = box_np.boxes_to_corners_3d(
                 batch["gt_boxes"][0][gt_mask], post["order"]
@@ -198,6 +215,11 @@ def run_inference(
     result = eval_np.eval_final_results(
         stat, save_path=model_dir, infer_info=note or "intermediate"
     )
+    for m, (sse, n) in sorted(depth_sse.items()):
+        if n:
+            result[f"depth_rmse_{m}"] = float(np.sqrt(sse / n))
+            print(f"[inference] depth_rmse_{m} "
+                  f"{result[f'depth_rmse_{m}']:.4f} m over {n} px")
     result["frames"] = len(serve_s)
     result["serve_s"] = serve_s
     result["data_s"] = data_s

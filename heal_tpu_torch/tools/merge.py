@@ -26,7 +26,7 @@ DROP_FROM_NEW_TYPES = ("pyramid_backbone", "shrink", "heads")
 
 
 def best_ckpt(model_dir: str) -> str:
-    _, path = ckpt_lib.find_checkpoint(model_dir, best=True)
+    _, path = ckpt_lib.find_checkpoint(model_dir)
     if not path:
         raise FileNotFoundError(f"no checkpoint under {model_dir}")
     return path

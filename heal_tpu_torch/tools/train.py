@@ -9,11 +9,24 @@ Counterpart of heal_tpu/tools/train.py on one device:
 The run dir gets ``config.yaml``, ``train_log.jsonl`` and the checkpoints
 of tools/checkpoint.py (every ``save_freq`` epochs, and the best
 validation loss every ``eval_freq`` epochs). With ``--model_dir`` holding
-a run, training resumes from its newest checkpoint: the weights and the
-running statistics, and the learning-rate schedule at that epoch's step;
-the Adam moments restart, as in JAX. ``train_params.bf16`` selects the
-bf16 compute policy (parallel/trainer.py). The final inference on the
-test split runs in-process unless ``--no_final_inference``.
+a run, training resumes as JAX's does: from the checkpoint
+``find_checkpoint`` picks (bestval while there is one) and at that file's
+epoch, with its weights and running statistics only, so the Adam moments
+AND the learning-rate schedule restart at update 0 (JAX replaces only
+params and batch_stats, so ``TrainState.step`` starts over).
+``train_params.bf16`` selects the bf16 compute policy
+(parallel/trainer.py). The final inference on the test split runs
+in-process unless ``--no_final_inference``.
+
+The input stream is JAX's (heal_tpu/tools/train.py:165-219): with
+``train_params.cache_device_batches`` every train and validation batch is
+assembled unshuffled and copied to the device ONCE, and each epoch takes
+the cached batches in the order ``np.random.default_rng(epoch)
+.permutation`` gives, with no backend reinitialisation; without it, the
+backend is reinitialised with ``seed=epoch`` (where it can be), the
+samples are shuffled with that seed, and a worker thread assembles and
+pins the next ``PREFETCH_DEPTH`` batches (data/prefetch.py) while the
+card runs the current step.
 
 HEAL stage 2: ``--init_from`` (a port ``.pth`` or a heal_tpu ``.ckpt``)
 is loaded loosely, the first 10 keys it leaves out are printed, and then
@@ -37,12 +50,15 @@ import torch
 
 from ..config import load_yaml, save_yaml
 from ..data import build_dataset
+from ..data.prefetch import prefetch
 from ..models import build_loss
-from ..parallel import Trainer, build_optimizer, to_device
+from ..parallel import Trainer, build_optimizer, pin, to_device
 from ..parallel.freezing import freeze, trainable_parameters
 from . import checkpoint as ckpt_lib
 from .inference import build_weights
 from .logging import MetricLogger
+
+PREFETCH_DEPTH = 3  # batches the worker runs ahead (JAX train.py:218)
 
 
 def load_config(path: str = "", model_dir: str | None = None) -> dict:
@@ -90,20 +106,60 @@ def setup_run_dir(cfg: dict, model_dir: str) -> str:
     return model_dir
 
 
+def epoch_batches(train_ds, batch_size: int, epoch: int, device,
+                  cached: list | None = None):
+    """The train batches of ``epoch`` on ``device``, in JAX's order:
+    ``cached`` (the device cache of ``cache_device_batches``) permuted by
+    ``default_rng(epoch)``; else the backend reinitialised and the samples
+    shuffled with ``seed=epoch``, assembled and pinned in the prefetch
+    worker, and copied here, on the consumer's stream."""
+    if cached is not None:
+        for i in np.random.default_rng(epoch).permutation(len(cached)):
+            yield cached[i]
+        return
+    if hasattr(train_ds.backend, "reinitialize"):
+        train_ds.backend.reinitialize(seed=epoch)
+    host = train_ds.batches(batch_size, shuffle=True, seed=epoch)
+    for batch in prefetch(host, lambda b: pin(b, device),
+                          depth=PREFETCH_DEPTH):
+        yield to_device(batch, device)
+
+
+def cache_batches(dataset, batch_size: int, device) -> list:
+    """Every batch of ``dataset``, unshuffled, on ``device``."""
+    return [to_device(b, device)
+            for b in dataset.batches(batch_size, shuffle=False)]
+
+
+def _nbytes(batches: list) -> int:
+    seen: dict = {}
+
+    def walk(x):
+        if isinstance(x, dict):
+            for v in x.values():
+                walk(v)
+        elif isinstance(x, torch.Tensor):
+            seen[id(x)] = x.nbytes
+
+    for b in batches:
+        walk(b)
+    return sum(seen.values())
+
+
 def build_trainer(cfg: dict, device, steps_per_epoch: int, *,
-                  init_from: str | None = None, resume: str | None = None,
-                  start_epoch: int = 0) -> Trainer:
+                  init_from: str | None = None,
+                  resume: str | None = None) -> Trainer:
     """The ``Trainer`` of ``cfg`` on ``device``: the seeded init (seed 0),
     ``init_from`` loaded loosely (its left-out keys printed), ``resume``
     loaded strictly, then the model's ``fix_modules`` frozen and the
-    optimizer built from the parameters left to train."""
+    optimizer built from the parameters left to train. Its update count
+    starts at 0 whatever is loaded, as JAX's ``TrainState.step`` does."""
     model = build_weights(cfg, seed=0)
     if init_from:
         left = ckpt_lib.loose_load(model, init_from)
         print(f"[train] loaded {init_from}; {len(left)} keys left out")
     if resume:
         model.load_state_dict(ckpt_lib.load_state_dict(resume))
-        print(f"[train] resumed from {resume} (epoch {start_epoch})")
     device = torch.device(device)
     model = model.to(device)
     if device.type == "cuda":
@@ -122,7 +178,6 @@ def build_trainer(cfg: dict, device, steps_per_epoch: int, *,
         supervise_single=cfg["model"]["args"].get("supervise_single", False),
         single_weight=cfg["loss"]["args"].get("single_weight", 1.0),
         bf16=bool(cfg["train_params"].get("bf16", False)),
-        step=start_epoch * steps_per_epoch,
         fix_modules=fix_modules,
     )
 
@@ -147,42 +202,52 @@ def main(argv=None) -> str:
     start_epoch, path = (ckpt_lib.find_checkpoint(model_dir)
                          if args.model_dir else (0, None))
     trainer = build_trainer(cfg, device, steps_per_epoch,
-                            init_from=args.init_from, resume=path,
-                            start_epoch=start_epoch)
+                            init_from=args.init_from, resume=path)
+    if path:
+        print(f"[train] resumed from {path} (epoch {start_epoch}; the "
+              "learning-rate schedule restarts at update 0, as in JAX)")
     model = trainer.model
+
+    cached_train = cached_val = None
+    if tp.get("cache_device_batches"):
+        cached_train = cache_batches(train_ds, batch_size, device)
+        cached_val = cache_batches(val_ds, batch_size, device)
+        print(f"[train] cached {len(cached_train)} train batches on device "
+              f"({_nbytes(cached_train) / 1e9:.2f} GB)")
 
     logger = MetricLogger(model_dir)
     best_val = float("inf")
     for epoch in range(start_epoch, epochs):
-        if hasattr(train_ds.backend, "reinitialize"):
-            train_ds.backend.reinitialize(seed=epoch)
-        losses, data_s = [], 0.0
+        batches = epoch_batches(train_ds, batch_size, epoch, device,
+                                cached_train)
+        losses, wait_s = [], 0.0
         t0 = time.time()
-        for batch, host_s in device_batches(cfg, batch_size, device,
-                                            shuffle=True, seed=epoch,
-                                            dataset=train_ds):
-            data_s += host_s
+        while True:
+            tw = time.perf_counter()
+            batch = next(batches, None)
+            wait_s += time.perf_counter() - tw
+            if batch is None:
+                break
             aux = trainer.train_step(batch)
-            # device scalars; one sync at the epoch's end
             losses.append({k: v for k, v in aux.items() if v.dim() == 0})
-        dt = time.time() - t0
         mean_aux = {k: float(torch.stack([x[k] for x in losses]).mean())
-                    for k in losses[0]}
+                    for k in losses[0]}  # the epoch's one sync
+        dt = time.time() - t0
         rate = len(losses) * batch_size / dt
         logger.log(epoch, dict(mean_aux, samples_per_sec=rate,
-                               host_data_s=data_s))
+                               input_wait_s=wait_s, epoch_s=dt))
         print(f"[epoch {epoch}] loss {mean_aux['total_loss']:.4f} "
-              f"({rate:.2f} samples/s; host data {data_s:.2f} s of "
-              f"{dt:.2f} s)")
+              f"({rate:.2f} samples/s; {dt:.2f} s, of which {wait_s:.2f} s "
+              "waiting for input)")
 
         if (epoch + 1) % save_freq == 0 or epoch == epochs - 1:
             ckpt_lib.save_checkpoint(model_dir, model, epoch + 1)
         if (epoch + 1) % eval_freq == 0 or epoch == epochs - 1:
-            vlosses = [
-                float(trainer.eval_step(b)["total_loss"])
-                for b, _ in device_batches(cfg, batch_size, device,
-                                           dataset=val_ds)
-            ]
+            val = cached_val if cached_val is not None else (
+                b for b, _ in device_batches(cfg, batch_size, device,
+                                             dataset=val_ds))
+            vlosses = [float(trainer.eval_step(b)["total_loss"])
+                       for b in val]
             vloss = float(np.mean(vlosses)) if vlosses else float("inf")
             print(f"[epoch {epoch}] val loss {vloss:.4f}")
             if vloss < best_val:

@@ -2,8 +2,8 @@
 
 The port's copy of heal_tpu/utils/box_np.py, trimmed to what the host
 side of intermediate fusion uses: corners, standup boxes and their "+1"
-IoU (anchor targets), rotated polygon IoU (AP matching), range masks and
-point projection. Same numerical conventions, so labels and AP match the
+IoU (anchor targets), rotated polygon IoU (AP matching), range masks,
+point projection and the camera-visibility filter of camera labels. Same numerical conventions, so labels and AP match the
 JAX package's exactly.
 
 Box parameterization: ``(x, y, z, d1, d2, d3, yaw)`` with ``order``:
@@ -134,3 +134,25 @@ def project_points(points: np.ndarray, tfm: np.ndarray) -> np.ndarray:
     """Apply a 4x4 homogeneous transform to (N, 3) points."""
     homo = np.concatenate([points, np.ones((points.shape[0], 1))], axis=1)
     return (homo @ tfm.T)[:, :3]
+
+
+def camera_visible_mask(boxes: np.ndarray, visibility_map: np.ndarray):
+    """Which boxes a camera rig can see, per the ego BEV visibility map.
+
+    Vectorization of the reference's box_is_visible
+    (box_utils.py:1236-1266): the map is 256x256 at 0.39 m/pixel,
+    ego-centered, heading up (py = 127 - x/0.39, px = 127 + y/0.39);
+    a box is visible iff the map is non-zero at its center cell.
+    boxes: (N, >=2) with ego-frame x, y in the first two columns.
+    """
+    if len(boxes) == 0:
+        return np.zeros(0, dtype=bool)
+    x = boxes[:, 0]
+    y = boxes[:, 1]
+    py = 127 - (x / 0.39).astype(np.int64)
+    px = 127 + (y / 0.39).astype(np.int64)
+    h, w = visibility_map.shape[:2]
+    inside = (py >= 0) & (py < h) & (px >= 0) & (px < w)
+    vis = np.zeros(len(boxes), dtype=bool)
+    vis[inside] = visibility_map[py[inside], px[inside]] > 0
+    return vis

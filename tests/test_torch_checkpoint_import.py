@@ -105,22 +105,24 @@ def test_bridged_checkpoint_heads_match_jax(tiny_ckpt):
         assert _rel(got[k].numpy(), want[k]) <= 1e-5, k
     # the run dir's .ckpt is found (inference and merge take it)
     assert ckpt_lib.find_checkpoint(run) == (3, path)
-    assert ckpt_lib.find_checkpoint(run, best=True) == (3, path)
     # a loose load of the same file leaves nothing out
     assert ckpt_lib.loose_load(build_model(cfg["model"]), path) == []
 
 
 def test_find_checkpoint_names(tmp_path):
-    """``net_epoch*.ckpt`` names count as the port's own: bestval for
-    inference, the newest for resume; a ``.pth`` wins a tie."""
+    """``net_epoch*.ckpt`` names count as the port's own, and the port
+    picks the file and epoch JAX's ``find_checkpoint`` picks on the same
+    listing: bestval while there is one (resume, inference and merge
+    alike), else the newest; a ``.pth`` wins a tie."""
     d = str(tmp_path)
     for name in ("net_epoch2.ckpt", "net_epoch_bestval_at1.ckpt",
                  "net_epoch4.ckpt", "other.ckpt"):
         (tmp_path / name).touch()
-    assert ckpt_lib.find_checkpoint(d) == (4, os.path.join(
-        d, "net_epoch4.ckpt"))
-    assert ckpt_lib.find_checkpoint(d, best=True) == (1, os.path.join(
-        d, "net_epoch_bestval_at1.ckpt"))
+    assert ckpt_lib.find_checkpoint(d) == jax_ckpt.find_checkpoint(d) == (
+        1, os.path.join(d, "net_epoch_bestval_at1.ckpt"))
+    (tmp_path / "net_epoch_bestval_at1.ckpt").unlink()
+    assert ckpt_lib.find_checkpoint(d) == jax_ckpt.find_checkpoint(d) == (
+        4, os.path.join(d, "net_epoch4.ckpt"))
     (tmp_path / "net_epoch4.pth").touch()
     assert ckpt_lib.find_checkpoint(d)[1].endswith("net_epoch4.pth")
 

@@ -118,6 +118,42 @@ def test_native_anchor_iou_label_differences(path, train, tmp_path,
     assert diff == NATIVE_DIFF.get((name, train), {})
 
 
+CAMERA_KEYS = ("intrins", "rots", "trans", "post_rots", "post_trans",
+               "depth_bins", "splat_ids", "splat_widx", "splat_cell",
+               "splat_dperm")
+
+
+@pytest.mark.parametrize("labels", ["lidar", "camera"])
+@pytest.mark.parametrize("train", [True, False], ids=["train", "test"])
+def test_camera_batches_equal_heal_tpu(train, labels, monkeypatch):
+    """tests/configs/tiny_heter_m1m2.yaml (an m1 ego and an m2 camera
+    agent): every key equal to heal_tpu's, the camera calibration, depth
+    targets and splat plans exactly; the images by shape, dtype, padding
+    and moments only, since both packages seed the synthetic rig from
+    ``id(scene)`` (ROADMAP §3). ``label_type: camera`` keeps the GT the
+    rig can see (the visibility rasters, equal)."""
+    monkeypatch.setattr(heal_tpu.native, "load", lambda: None)
+    cfg = load_yaml("tests/configs/tiny_heter_m1m2.yaml")
+    cfg["label_type"] = labels
+    got, _ = _first_batch(build_dataset, cfg, train)
+    want, _ = _first_batch(jax_build_dataset, cfg, train,
+                           process_split=False)
+    imgs, want_imgs = got["inputs_m2"].pop("imgs"), want["inputs_m2"].pop(
+        "imgs")
+    _assert_same(got, want)
+    assert sorted(got["inputs_m2"]) == sorted(CAMERA_KEYS)
+    assert imgs.dtype == want_imgs.dtype and imgs.shape == want_imgs.shape
+    real = want_imgs.reshape(want_imgs.shape[:2] + (-1,)).any(-1)
+    np.testing.assert_array_equal(
+        imgs.reshape(imgs.shape[:2] + (-1,)).any(-1), real)
+    assert real.sum() >= 2  # a camera agent in each sample
+    for a, b in ((imgs[real], want_imgs[real]),):
+        assert abs(a.mean() - b.mean()) < 5e-3
+        assert abs(a.std() - b.std()) < 5e-3
+    assert not np.array_equal(imgs, want_imgs)  # the id(scene) seed
+    assert (got["inputs_m2"]["depth_bins"] < 8).any()  # depth targets
+
+
 @pytest.mark.parametrize("path", CONFIGS, ids=["entry_tiny", "flagship"])
 def test_load_config_equals_heal_tpu(path):
     assert load_config(path) == load_yaml(path)
@@ -183,10 +219,10 @@ def _set(key, value):
     _set("fusion.core_method", "late"),
     _set("fusion.core_method", "early"),
     _set("fusion.core_method", "intermediate2stage"),
-    _set("label_type", "camera"),
+    _set("kd_flag", True),
     _set("box_align", {"precalc_path": "stage1.json"}),
 ], ids=["opv2v", "v2xset", "dairv2x", "v2xsim", "late", "early",
-        "two_stage", "camera_labels", "box_align"])
+        "two_stage", "kd_teacher", "box_align"])
 def test_unported_host_paths_raise(edit):
     cfg = load_config(CONFIGS[0])
     edit(cfg)

@@ -125,11 +125,18 @@ def test_unported_branches_raise(tiny):
     loss = build_loss(dict(cfg["loss"], args=args))
     with pytest.raises(NotImplementedError, match="IoU"):
         loss(dict(preds, iou_preds=preds["cls_preds"]), targets)
-    # depth logits with their targets: the LSS depth loss would contribute
-    loss = build_loss(cfg["loss"])
-    with pytest.raises(NotImplementedError, match="depth"):
-        loss(dict(preds, depth_items_m2=preds["cls_preds"]),
-             dict(targets, depth_bins_m2=targets["pos_equal_one"]))
+    # depth logits with their targets: the LSS depth term joins, as JAX's
+    rng = np.random.RandomState(1)
+    depth = {"depth_items_m2": rng.normal(size=(4, 3, 5, 8)).astype(
+        np.float32) * 2}
+    bins = {"depth_bins_m2": rng.randint(0, 9, (2, 2, 3, 5)).astype(
+        np.int32)}
+    want, got = _run_both(cfg["loss"], dict(_preds(
+        cfg, batch, "collab", np.random.RandomState(0)), **depth),
+        dict(_label_targets(batch), **bins), "", "collab")
+    _compare(want, got)
+    assert "depth_loss" in got[1] and got[1]["depth_loss"].item() > 0
     # the flagship case: "depth" configured, no depth logits -> no term
+    loss = build_loss(cfg["loss"])
     total, aux = loss(preds, targets)
     assert "depth_loss" not in aux and torch.isfinite(total)

@@ -7,9 +7,14 @@ second run, a heal_tpu ``.ckpt`` of the same weights (written by
 them; the alliance (entry_m1m2m3m4_final.yaml cut to m1 and m4) is served
 by ``run_inference``, ``run_in_order`` (m1, then m1m4) and the noise
 sweep; ``run_demo_full`` drives the same phases from a config dir.
+The camera agent type m2 goes the same way: ``_camera_configs`` makes
+entry_m4_single.yaml a Lift-Splat-Shoot m2 on the same grid (with
+``cache_device_batches``, as heal_tpu's demo configs set it) and the
+alliance m1 + m2 + m4, and run_demo_full's m2 leg trains it.
 Checked: the frozen modules equal the stage-1 values bit for bit, no
-frozen key is left out at load, ``branch_m4`` moved, the merged
-checkpoint loads strictly into the alliance, and the tools' outputs.
+frozen key is left out at load, the new branch moved, the depth loss
+trained it, the merged checkpoint loads strictly into the alliance, and
+the tools' outputs (the camera's depth RMSE among them).
 """
 import json
 import os
@@ -42,8 +47,41 @@ FINAL = "tests/configs/entry_m1m2m3m4_final.yaml"
 FROZEN = ("pyramid_backbone", "shrink", "heads")
 
 
-def _stage2(run, init_from, capsys):
-    train_tool.main(["-y", M4, "--model_dir", run, "--epochs", "1",
+def _camera_configs(tmp_path) -> tuple[str, str]:
+    """-> (the m2 stage-2 yaml, the m1 + m2 + m4 alliance yaml): a camera
+    m2 (4 cameras at 64x96, 8 LID bins, 16 features; a 32x32 grid of
+    1.2 m, the pyramid's input grid) in place of the lidar ones."""
+    grid = {"xbound": [-19.2, 19.2, 1.2], "ybound": [-19.2, 19.2, 1.2],
+            "zbound": [-10, 10, 20.0], "ddiscr": [2, 30, 8], "mode": "LID"}
+    aug = {"final_dim": [64, 96], "Ncams": 4}
+    setting = {"sensor_type": "camera", "core_method": "lift_splat_shoot",
+               "grid_conf": grid, "data_aug_conf": aug, "img_downsample": 16}
+    branch = {"core_method": "lift_splat_shoot", "sensor_type": "camera",
+              "encoder_args": {"grid_conf": grid, "data_aug_conf": aug,
+                               "img_downsample": 16, "img_features": 16,
+                               "depth_supervision": True},
+              "backbone_args": {"layer_nums": [1], "layer_strides": [1],
+                                "num_filters": [16]},
+              "aligner_args": {"core_method": "res1x1"}}
+    single = load_yaml(M4)
+    single["name"] = "entry_m2_camera_single"
+    single["train_params"]["cache_device_batches"] = True
+    single["heter"].update(ego_modality="m2", modality_setting={
+        "m2": setting}, mapping_dict={m: "m2" for m in
+                                     ("m1", "m2", "m3", "m4")})
+    del single["model"]["args"]["m4"]
+    single["model"]["args"]["m2"] = branch
+    final = keep_modalities(load_yaml(FINAL), ("m1", "m2", "m4"))
+    final["heter"]["modality_setting"]["m2"] = setting
+    final["model"]["args"]["m2"] = branch
+    paths = (str(tmp_path / "m2_single.yaml"), str(tmp_path / "m1m2m4.yaml"))
+    for cfg, path in zip((single, final), paths):
+        save_yaml(cfg, path)
+    return paths
+
+
+def _stage2(run, init_from, capsys, cfg=M4, branch="m4"):
+    train_tool.main(["-y", cfg, "--model_dir", run, "--epochs", "1",
                      "--device", "cpu", "--no_final_inference",
                      "--init_from", init_from])
     out = capsys.readouterr().out
@@ -54,14 +92,16 @@ def _stage2(run, init_from, capsys):
             if line.startswith("    ")]
     assert len(left) == 10 and all(k.startswith("branch_m1.") for k in left)
     assert "20 source keys not loaded" in out
-    return ckpt_lib.load_state_dict(ckpt_lib.find_checkpoint(run)[1])
+    sd = ckpt_lib.load_state_dict(ckpt_lib.find_checkpoint(run)[1])
+    assert {k.split(".")[0] for k in sd} == {f"branch_{branch}", *FROZEN}
+    return sd
 
 
 def test_protocol_through_the_clis(tmp_path, capsys):
     s1 = str(tmp_path / "stage1")
     train_tool.main(["-y", TINY, "--model_dir", s1, "--epochs", "1",
                      "--device", "cpu", "--no_final_inference"])
-    s1_path = ckpt_lib.find_checkpoint(s1, best=True)[1]
+    s1_path = ckpt_lib.find_checkpoint(s1)[1]
     base = ckpt_lib.load_state_dict(s1_path)
     # the same weights as a heal_tpu checkpoint
     params, stats = to_flax(base)
@@ -113,27 +153,72 @@ def test_protocol_through_the_clis(tmp_path, capsys):
                         device="cpu")
 
 
+def test_camera_protocol_through_the_clis(tmp_path, capsys):
+    """m2 (camera) against the m1 base: stage 2 from the device cache,
+    the merge with the m4 run, the m1 + m2 + m4 alliance served with its
+    depth RMSE, the in-order table."""
+    m2_yaml, final_yaml = _camera_configs(tmp_path)
+    s1 = str(tmp_path / "stage1")
+    train_tool.main(["-y", TINY, "--model_dir", s1, "--epochs", "1",
+                     "--device", "cpu", "--no_final_inference"])
+    s1_path = ckpt_lib.find_checkpoint(s1)[1]
+    base = ckpt_lib.load_state_dict(s1_path)
+    capsys.readouterr()
+    s2 = _stage2(str(tmp_path / "stage2_m2"), s1_path, capsys, m2_yaml, "m2")
+    for k in s2:
+        if k.split(".")[0] in FROZEN:
+            assert torch.equal(s2[k], base[k]), k
+    init = build_model(load_yaml(m2_yaml)["model"]).state_dict()
+    assert s2.keys() == init.keys()
+    with open(str(tmp_path / "stage2_m2" / "train_log.jsonl")) as f:
+        log = json.loads(f.read().splitlines()[-1])
+    assert log["depth_loss"] > 0 and np.isfinite(log["total_loss"])
+    s2_m4 = _stage2(str(tmp_path / "stage2_m4"), s1_path, capsys)
+
+    merged = str(tmp_path / "merged")
+    merge_main(["merge_final", str(tmp_path / "stage2_m4"),
+                str(tmp_path / "stage2_m2"), s1, merged])
+    final = load_yaml(final_yaml)
+    save_yaml(final, os.path.join(merged, "config.yaml"))
+    sd = ckpt_lib.load_state_dict(os.path.join(merged,
+                                               "net_epoch_bestval_at0.pth"))
+    build_model(final["model"]).load_state_dict(sd, strict=True)
+    for k, v in sd.items():
+        top = k.split(".")[0]
+        src = {"branch_m2": s2, "branch_m4": s2_m4}.get(top, base)
+        assert torch.equal(v, src[k]), k
+    res = run_inference(merged, device="cpu", max_batches=2, note="merged")
+    assert res["frames"] == 2 and 0.0 <= res["ap_50"] <= 1.0
+    assert 0.0 < res["depth_rmse_m2"] < 30.0
+    order = run_in_order(merged, device="cpu", max_batches=1)
+    assert list(order) == ["m1", "m1m2", "m1m2m4"]
+
+
 def test_run_demo_full_tiny(tmp_path, capsys):
-    """``run_demo_full`` on a config dir of the tiny configs: every
-    phase, the box-align leg recorded as failed, and a second call that
-    finds every artifact and trains nothing."""
+    """``run_demo_full`` on a config dir of the tiny configs, with an m4
+    and an m2 (camera) leg: every phase, the box-align leg recorded as
+    failed, and a second call that finds every artifact and trains
+    nothing."""
     cfg_dir = tmp_path / "cfgs"
     cfg_dir.mkdir()
-    for name, src in (("stage1_m1", TINY), ("stage2_m4", M4)):
+    m2_yaml, final_yaml = _camera_configs(tmp_path)
+    for name, src in (("stage1_m1", TINY), ("stage2_m4", M4),
+                      ("stage2_m2", m2_yaml)):
         cfg = load_yaml(src)
         cfg["train_params"]["epoches"] = 1
         save_yaml(cfg, str(cfg_dir / f"{name}.yaml"))
     argv = ["--out", str(tmp_path / "demo"), "--cfg_dir", str(cfg_dir),
-            "--final_cfg", os.path.abspath(FINAL), "--max_batches", "1",
-            "--device", "cpu"]
+            "--modalities", "m4,m2", "--final_cfg", final_yaml,
+            "--max_batches", "1", "--device", "cpu"]
     out = run_demo_full.main(argv)
     assert set(out) == {"merged", "in_order", "noise", "noise_boxalign"}
-    assert list(out["in_order"]) == ["m1", "m1m4"]
+    assert list(out["in_order"]) == ["m1", "m1m2", "m1m2m4"]
     assert sorted(out["noise"]) == ["0.0", "0.2", "0.4", "0.6"]
     assert "NotImplementedError" in out["noise_boxalign"]["error"]
+    assert out["merged"]["depth_rmse_m2"] > 0
     merged = load_yaml("", model_dir=str(tmp_path / "demo" /
                                          "merged_alliance"))
-    assert sorted(merged["heter"]["modality_setting"]) == ["m1", "m4"]
+    assert sorted(merged["heter"]["modality_setting"]) == ["m1", "m2", "m4"]
     capsys.readouterr()
     again = run_demo_full.main(argv)
     printed = capsys.readouterr().out

@@ -130,8 +130,15 @@ from heal_tpu_torch.parallel import freezing
 from heal_tpu_torch.tools import (inference_heter_in_order, inference_w_noise,
                                   merge, run_demo_full)
 from heal_tpu_torch.utils import flax_msgpack
+# the camera agent type and the input pipeline: one camera batch
+from heal_tpu_torch.data import build_dataset
+from heal_tpu_torch.data.prefetch import prefetch
+from heal_tpu_torch.models import lift_splat_shoot
+from heal_tpu_torch.utils import camera
 import torch
 torch.set_num_threads(1)
+cam_cfg = load_config(sys.argv[3])
+cam = next(prefetch(build_dataset(cam_cfg, train=False).batches(1, False)))
 cfg = load_config(sys.argv[1])
 r = run_inference(cfg=cfg, device="cpu", max_batches=1)
 model = build_weights(cfg, seed=0)
@@ -145,7 +152,9 @@ from heal_tpu_torch.tools import checkpoint
 build_weights(cfg, checkpoint=sys.argv[2])  # a heal_tpu .ckpt, strictly
 """ + _LOADED + """
 print(json.dumps({"frames": r["frames"], "steps": len(losses),
-                  "falling": losses[1] < losses[0], "loaded": loaded}))
+                  "falling": losses[1] < losses[0],
+                  "camera": list(cam["inputs_m2"]["imgs"].shape),
+                  "loaded": loaded}))
 """
 
 # chip_smoke.py's host side: the flagship config and one test batch, and
@@ -160,13 +169,17 @@ cfg = chip_smoke.flagship_cfg()
 batch, _ = next(device_batches(cfg, 1, "cpu", train=False))
 cfgs = chip_smoke.protocol_cfgs()
 final, _ = next(device_batches(cfgs["final"], 1, "cpu", train=False))
-single = build_model(cfgs["stage2"]["model"])
+singles = [build_model(cfgs[k]["model"]) for k in ("stage2", "stage2_m2")]
 """ + _LOADED + """
 print(json.dumps({"points": list(batch["inputs_m1"]["points"].shape),
                   "agents": int(batch["agent_mask"].sum()),
-                  "alliance": [list(final[f"inputs_{m}"]["points"].shape)
-                               for m in ("m1", "m4")],
-                  "stage2": [type(single).__name__, single.fix_modules],
+                  "alliance": [list(final[f"inputs_{m}"][k].shape)
+                               for m, k in (("m1", "points"), ("m2", "imgs"),
+                                            ("m4", "points"))],
+                  "stage2": [[type(m).__name__, m.modality, m.fix_modules]
+                             for m in singles],
+                  "cached": cfgs["stage2_m2"]["train_params"][
+                      "cache_device_batches"],
                   "loaded": loaded}))
 """
 
@@ -191,14 +204,18 @@ def test_port_never_imports_jax(tmp_path):
     params, stats = to_flax(model.state_dict())
     ckpt = save_checkpoint(str(tmp_path), {"params": params,
                                            "batch_stats": stats}, 1)
-    out = _run_blocked(_NO_JAX, os.path.join(REPO, TINY), ckpt)
-    assert out == {"frames": 1, "steps": 2, "falling": True, "loaded": []}
+    out = _run_blocked(_NO_JAX, os.path.join(REPO, TINY), ckpt,
+                       os.path.join(REPO, "tests/configs/tiny_heter_m1m2.yaml"))
+    assert out == {"frames": 1, "steps": 2, "falling": True,
+                   "camera": [1, 3, 4, 128, 192, 3], "loaded": []}
 
 
 def test_chip_smoke_never_imports_jax():
     out = _run_blocked(_CHIP_SMOKE)
+    frozen = ["pyramid_backbone", "shrink", "heads"]
     assert out == {"points": [1, 5, 30000, 4], "agents": 4,
-                   "alliance": [[1, 5, 30000, 4]] * 2,
-                   "stage2": ["HeterPyramidSingle",
-                              ["pyramid_backbone", "shrink", "heads"]],
-                   "loaded": []}
+                   "alliance": [[1, 5, 30000, 4], [1, 5, 4, 384, 512, 3],
+                                [1, 5, 30000, 4]],
+                   "stage2": [["HeterPyramidSingle", "m4", frozen],
+                              ["HeterPyramidSingle", "m2", frozen]],
+                   "cached": True, "loaded": []}

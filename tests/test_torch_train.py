@@ -180,8 +180,8 @@ def test_port_gradients_hold_to_the_f64_step(tiny):
     ill conditioned, see the module docstring), bridged into both:
       * the port's f64 step against JAX's: loss terms 1e-5 relative
         (measured 2.1e-7), every gradient leaf 1e-5 (measured 7.1e-7).
-        Not closer: the port keeps its BN moments and the shift's blend in
-        f32 by design, and the bridge rounds the leaves to f32;
+        Not closer: the port keeps the PFN's moments and the shift's blend
+        in f32 by design, and the bridge rounds the leaves to f32;
       * the port's f32 gradients within 1e-4 of JAX's f64 ones (measured
         7.4e-6) and of the port's own f64 ones."""
     cfg, batch, _, jt, _ = tiny
@@ -296,10 +296,10 @@ def test_train_tool_one_epoch_checkpoint_inference_resume(tmp_path):
                      "--device", "cpu"])
     assert os.path.exists(os.path.join(run, "config.yaml"))
     assert os.path.exists(os.path.join(run, "eval_intermediate.yaml"))
+    # the bestval checkpoint is what resume, inference and merge take
     epoch, path = ckpt_lib.find_checkpoint(run)
-    assert (epoch, os.path.basename(path)) == (1, "net_epoch1.pth")
-    assert ckpt_lib.find_checkpoint(run, best=True)[1].endswith(
-        "net_epoch_bestval_at1.pth")
+    assert (epoch, os.path.basename(path)) == (1, "net_epoch_bestval_at1.pth")
+    assert os.path.exists(os.path.join(run, "net_epoch1.pth"))
     sd = torch.load(path, weights_only=True)
     assert sd.keys() == build_model(load_yaml(TINY)["model"]).state_dict(
         ).keys()
@@ -309,7 +309,9 @@ def test_train_tool_one_epoch_checkpoint_inference_resume(tmp_path):
     train_tool.main(["--model_dir", run, "--epochs", "2", "--device", "cpu",
                      "--no_final_inference"])
     epoch, path2 = ckpt_lib.find_checkpoint(run)
-    assert (epoch, os.path.basename(path2)) == (2, "net_epoch2.pth")
+    assert (epoch, os.path.basename(path2)) == (2,
+                                                "net_epoch_bestval_at2.pth")
+    assert os.path.exists(os.path.join(run, "net_epoch2.pth"))
     sd2 = torch.load(path2, weights_only=True)
     assert any(not torch.equal(sd[k], sd2[k]) for k in sd)
 
