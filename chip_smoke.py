@@ -31,9 +31,10 @@ Phases, in order; any failure raises and the exit code is non-zero:
      move (it is eval-only); ms/step, samples/s and peak memory;
   6. HEAL's protocol (stages 2 and 3) on the published configs at full
      width (heal_tpu/configs/opv2v/heal/: stage1/m1_pyramid,
-     stage2/m4_alignto_m1, stage2/m2_alignto_m1, final_infer/m1m2m3m4
-     cut to m1, m2 and m4), on synthetic scenes with the flagship's scene
-     arguments: a stage-1 m1 base (seeded init, two f32 steps, saved);
+     stage2/m4_alignto_m1, stage2/m2_alignto_m1, stage2/m3_alignto_m1,
+     final_infer/m1m2m3m4 uncut), on synthetic scenes with the flagship's
+     scene arguments: a stage-1 m1 base (seeded init, two f32 steps,
+     saved);
      stage 2 of each new agent type through
      heal_tpu_torch.tools.train.main with --init_from the base (no
      frozen key left out at load; the pyramid, shrink and heads bit-equal
@@ -42,17 +43,23 @@ Phases, in order; any failure raises and the exit code is non-zero:
      agent (4 cameras at 384x512, 48 depth bins, its 128x128 grid padded
      to the 128x256 canvas; the batches cached on the card, as
      train_params.cache_device_batches asks; the depth loss finite), each
-     stage-2 step timed in f32 and bf16 with its peak memory; the merge
-     (heal_tpu_torch.tools.merge.merge_final: strict load into the
-     alliance, shared modules bit-equal to the base); the m1+m2+m4
-     alliance served in f32 and bf16 (2 launches of kernel 1 and 15 of
-     kernel 2 a frame; f32 heads against the plain kernel versions; the
-     camera's depth RMSE; the camera branch's stages timed with CUDA
-     events: image CNN, splat, backbone + aligner, and the splat's share
-     of the frame), the in-order evaluation (m1, m1m2, m1m2m4) and one
-     pose-noise level. Phase 3 also holds kernel 1 on the alliance's
-     first m4 frame (16-line, sorted on the card) against its plain
-     version;
+     stage-2 step timed in f32 and bf16 with its peak memory; and m3, the
+     SECOND sparse-conv agent (a (40, 1024, 2048) voxel grid, column
+     capacities 24000 / 16000 / 12000 / 8000), whose encoder is also held
+     on one frame against the same module on the CPU (integer tables
+     equal, f32 features within 1e-5) and whose active columns at each
+     level are counted against the capacities (with the count dropped by
+     overflow); the merge (heal_tpu_torch.tools.merge.merge_final: strict
+     load into the alliance, shared modules bit-equal to the base); the
+     m1+m2+m3+m4 alliance served in f32 and bf16 (2 launches of kernel 1
+     and 15 of kernel 2 a frame; f32 heads against the plain kernel
+     versions; the camera's depth RMSE; the camera branch's stages and
+     the SECOND branch's (voxelize, rank maps and tables, the convs of
+     each level, to_dense_bev, backbone + aligner) timed with CUDA events,
+     with each branch's share of the frame), the in-order evaluation (m1,
+     m1m2, m1m2m3, m1m2m3m4) and one pose-noise level. Phase 3 also holds
+     kernel 1 on the alliance's first m4 frame (16-line, sorted on the
+     card) against its plain version;
   7. the input pipeline: epochs of heal_tpu/configs/demo_heal_full/
      stage2_m2.yaml (PIPELINE_SCENES train scenes) timed on the host
      clock, batches assembled serially, through the prefetch pipeline
@@ -66,6 +73,7 @@ from __future__ import annotations
 
 import contextlib
 import copy
+import functools
 import itertools
 import json
 import math
@@ -114,22 +122,29 @@ TRACE_TRIES = 3  # torch.profiler sessions to find kernel 1's one launch
 PROTOCOL_CFGS = {"stage1": "stage1/m1_pyramid.yaml",
                  "stage2": "stage2/m4_alignto_m1.yaml",
                  "stage2_m2": "stage2/m2_alignto_m1.yaml",
+                 "stage2_m3": "stage2/m3_alignto_m1.yaml",
                  "final": "final_infer/m1m2m3m4.yaml"}
 # the new agent types of stage 2: config key -> branch
-STAGE2_TYPES = {"stage2": "m4", "stage2_m2": "m2"}
-ALLIANCE = ("m1", "m2", "m4")
+STAGE2_TYPES = {"stage2": "m4", "stage2_m2": "m2", "stage2_m3": "m3"}
+# the served alliance: every agent type of the final config (the cut,
+# config.keep_modalities, serves fewer)
+ALLIANCE = ("m1", "m2", "m3", "m4")
 PROTOCOL_FRAMES = 6
 # synthetic scenes (train, test): stage 1 takes STAGE1_STEPS steps of
 # STAGE1_BATCH; stage 2 one epoch at its published batch of 4 (2 steps)
 # and one validation batch; the alliance serves PROTOCOL_FRAMES frames
 PROTOCOL_SCENES = {"stage1": (4, 4), "stage2": (8, 4), "stage2_m2": (8, 4),
-                   "final": (4, PROTOCOL_FRAMES)}
+                   "stage2_m3": (8, 4), "final": (4, PROTOCOL_FRAMES)}
 STAGE1_BATCH = 2  # published 4: two f32 steps are enough for a base
 STAGE1_STEPS = 2
 STAGE2_STEPS = 4  # timed stage-2 steps after a warm one
 # launches of each kernel a served alliance frame: kernel 1 once per
-# PointPillars branch (m1, m4); kernel 2 in weighted_fuse (3 levels x 5)
+# PointPillars branch (m1, m4); kernel 2 in weighted_fuse (3 levels x 5);
+# the SECOND (m3) and camera (m2) branches launch neither
 ALLIANCE_LAUNCHES = {"pillar_tables": 2, "shift_rows": 15}
+# the SECOND encoder on the card vs on the CPU, one frame: f32 features
+# as max |d| / (1 + max |cpu|) (GEMMs and segment sums in another order)
+SECOND_CPU_TOL = 1e-5
 # phase 7: the published demo config's first PIPELINE_SCENES train scenes
 # (of 384) at its batch of 2
 PIPELINE_CFG = "demo_heal_full/stage2_m2.yaml"
@@ -200,7 +215,7 @@ def protocol_cfgs() -> dict:
     through the port's loader: the synthetic backend with the flagship's
     scene arguments (4 agents, 14 vehicles) and PROTOCOL_SCENES scenes;
     stage 1 at STAGE1_BATCH; the camera's stage 2 with its batches cached
-    on the card; the final config cut to ALLIANCE."""
+    on the card; the final config with the ALLIANCE types."""
     from heal_tpu_torch.config import keep_modalities
     from heal_tpu_torch.tools.train import load_config
 
@@ -352,13 +367,17 @@ def pillar_case(name, args, dt) -> dict:
     d, r = rel_err(got, want)
     if not r <= KERNEL_TOL[dt]:
         raise AssertionError(f"pillar_tables {name} {dt} disagrees: {r}")
-    # CUPTI now and then hands back an empty trace for a whole session
-    # (PERF.md §7): trace again then; a trace that holds anything must
-    # hold exactly the one kernel
+    # CUPTI now and then hands back empty traces for the rest of a
+    # session (PERF.md §7): trace again then, and after TRACE_TRIES empty
+    # ones in a fresh process; a trace that holds anything must hold
+    # exactly the one kernel
     for traces in range(1, TRACE_TRIES + 1):
         launched = device_kernels(lambda: pillar.pillar_tables(*args))
         if launched:
             break
+    else:
+        launched = trace_in_fresh_process(args)
+        traces = f"{TRACE_TRIES} empty, then one in a fresh process"
     if len(launched) != 1 or "pillar_tables" not in launched[0]:
         raise AssertionError(f"pillar_tables {name} {dt}: one call put "
                              f"{launched} on the card ({traces} traces)")
@@ -373,7 +392,7 @@ def pillar_case(name, args, dt) -> dict:
           f"({work['landed']} points in {work['runs']} pillars land) canvas "
           f"{tuple(got.shape)}: max_abs_err {d:.3e} (rel {r:.3e}, tol "
           f"{KERNEL_TOL[dt]}), {ms:.4f} ms vs plain {plain_ms:.4f} ms; one "
-          f"kernel, no sync ({traces} trace{'s' if traces > 1 else ''}); "
+          f"kernel, no sync ({traces} trace{'' if traces == 1 else 's'}); "
           f"{work['bytes']} bytes, bound {b_ms:.4f} ms "
           f"({b_by}), {100 * b_ms / ms:.1f}% of bound; library call: none; "
           f"the canvas's fill by zero_ {fill_ms:.4f} ms")
@@ -382,6 +401,30 @@ def pillar_case(name, args, dt) -> dict:
         runs=work["runs"], max_abs_err=d, ms=ms, plain_ms=plain_ms,
         fill_ms=fill_ms, bytes=work["bytes"], bytes_all=work["bytes_all"],
         bound_ms=b_ms, bound_by=b_by, pct_of_bound=100 * b_ms / ms)
+
+
+_TRACE = """
+import json, sys, torch
+from heal_tpu_torch.kernels.measure import device_kernels
+from heal_tpu_torch.ops import pillar
+args = torch.load(sys.argv[1], weights_only=False)
+print(json.dumps(device_kernels(lambda: pillar.pillar_tables(*args))))
+"""
+
+
+def trace_in_fresh_process(args) -> list[str]:
+    """``device_kernels`` of one kernel-1 call on ``args`` (saved to a
+    temporary file) in a new Python process with its own CUPTI session."""
+    root = os.path.dirname(os.path.abspath(__file__))
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "args.pt")
+        torch.save(list(args), path)
+        proc = subprocess.run([sys.executable, "-c", _TRACE, path], cwd=root,
+                              capture_output=True, text=True, timeout=300,
+                              env=dict(os.environ, PYTHONPATH=root))
+    if proc.returncode != 0:
+        raise AssertionError(f"the fresh trace failed: {proc.stderr[-2000:]}")
+    return json.loads(proc.stdout.strip().splitlines()[-1])
 
 
 def library_shift(x, s, axis, want) -> dict:
@@ -729,18 +772,22 @@ def phase_protocol(cfgs: dict) -> dict:
         torch.cuda.empty_cache()
 
         # stage 2 through the CLI: each new type against the frozen base
-        s2dirs = []
+        s2dirs = {}
         launches = {}
         for key, m in STAGE2_TYPES.items():
-            s2dirs.append(os.path.join(tmp, f"stage2_{m}"))
-            out.update(_stage2(cfgs[key], key, s2dirs[-1], s1_path, base))
+            s2dirs[m] = os.path.join(tmp, f"stage2_{m}")
+            out.update(_stage2(cfgs[key], key, s2dirs[m], s1_path, base))
             launches = {k: launches.get(k, 0) + out[f"stage2_{m}_launches"][k]
                         for k in out[f"stage2_{m}_launches"]}
         torch.cuda.empty_cache()
+        _zero_counts()
+        out.update(phase_second(cfgs["stage2_m3"], s2dirs["m3"]))
+        if any(_counts().values()):
+            raise AssertionError("the SECOND checks launched a kernel")
 
-        # stage 3: the merge, served as the m1+m2+m4 alliance
+        # stage 3: the merge, served as the m1+m2+m3+m4 alliance
         merged = os.path.join(tmp, "merged")
-        merge_final(s2dirs, s1dir, merged)
+        merge_final(list(s2dirs.values()), s1dir, merged)
         final = cfgs["final"]
         save_yaml(final, os.path.join(merged, "config.yaml"))
         msd = ckpt_lib.load_state_dict(ckpt_lib.find_checkpoint(merged)[1])
@@ -757,10 +804,11 @@ def phase_protocol(cfgs: dict) -> dict:
             memory_format=torch.channels_last)
             for dt in (torch.float32, torch.bfloat16)}
         _zero_counts()
-        stages = {}
+        stages, sstages = {}, {}
         runs = {}
         for name, dt in (("f32", torch.float32), ("bf16", torch.bfloat16)):
-            with camera_stages(models[dt], "m2") as stages[name]:
+            with camera_stages(models[dt], "m2") as stages[name], \
+                    second_stages(models[dt], "m3") as sstages[name]:
                 runs[name] = run_inference(merged, final, device="cuda",
                                            dtype=dt, model=models[dt],
                                            collect_heads=True)
@@ -843,6 +891,19 @@ def phase_protocol(cfgs: dict) -> dict:
                   f"{100 * st['splat'] / serve_ms:.1f}% of the served frame "
                   f"({serve_ms:.3f} ms)")
             out[f"splat_share_{name}"] = st["splat"] / st["frame"]
+        for name, st in sstages.items():
+            serve_ms = 1e3 * float(np.mean(runs[name]["serve_s"][1:]))
+            share = st["branch"] / st["frame"]
+            print(f"[protocol] SECOND branch {name}, mean of "
+                  f"{runs[name]['frames'] - 1} frames after the first (CUDA "
+                  "events): "
+                  + ", ".join(f"{k} {v:.3f} ms" for k, v in st.items()
+                              if k not in ("frame", "branch"))
+                  + f"; the m3 branch {st['branch']:.3f} ms = "
+                  f"{100 * share:.1f}% of the forward ({st['frame']:.3f} ms),"
+                  f" {100 * st['branch'] / serve_ms:.1f}% of the served frame"
+                  f" ({serve_ms:.3f} ms)")
+            out[f"second_share_{name}"] = share
 
         _zero_counts()
         order = run_in_order(merged, max_batches=2, device="cuda")
@@ -986,6 +1047,199 @@ def camera_stages(model, m: str):
                          ("frame", ("frame0", "frame1"))):
         times = [s.elapsed_time(e) for s, e in zip(marks[a], marks[b])][1:]
         result[name] = sum(times) / len(times)
+
+
+# the column-engine functions the SECOND stack calls, and the stage each
+# one counts to
+ENGINE_STAGES = {"voxelize_columns": "voxelize", "rank_map": "tables",
+                 "column_table": "tables", "downsample_columns": "tables",
+                 "strided_table": "tables", "to_dense_bev": "to_dense_bev"}
+
+
+@contextlib.contextmanager
+def column_engine(on_call):
+    """Route the column-engine functions of ENGINE_STAGES through
+    ``on_call(name, fn, *args, **kwargs)`` while the block runs (the
+    SECOND stack looks them up in ops/column_conv.py at each call)."""
+    from heal_tpu_torch.ops import column_conv as cc
+
+    saved = {name: getattr(cc, name) for name in ENGINE_STAGES}
+    for name, fn in saved.items():
+        setattr(cc, name, functools.partial(on_call, name, fn))
+    try:
+        yield
+    finally:
+        for name, fn in saved.items():
+            setattr(cc, name, fn)
+
+
+def _second_layers(stack):
+    """(level, layer) of each conv layer of a SecondStack."""
+    for name, layer in stack.named_children():
+        level = 0 if name == "conv_input" else int(
+            name.split("_")[1] if name.startswith("down") else name[5])
+        yield level, layer
+
+
+def second_columns(stack, points, mask) -> list:
+    """Active columns at each level of ``stack`` on these agents against
+    the level's capacity: [(level, max active over the agents, capacity,
+    columns dropped by overflow over the agents)]. The active count comes
+    from the same functions at a capacity that drops nothing."""
+    from heal_tpu_torch.ops import column_conv as cc
+
+    def level(i, full, kept, cap):
+        act = full["cvalid"].sum(1)
+        return (i, int(act.max()), cap,
+                int((act - kept["cvalid"].sum(1)).sum()))
+
+    cols = cc.voxelize_columns(points, mask, stack.lidar_range,
+                               stack.voxel_size, stack.max_voxels[0])
+    rows = [level(0, cc.voxelize_columns(
+        points, mask, stack.lidar_range, stack.voxel_size,
+        points.shape[1]), cols, stack.max_voxels[0])]
+    for si in range(1, len(stack.channels)):
+        _, h, w = cols["grid"]
+        cells = ((h - 1) // 2 + 1) * ((w - 1) // 2 + 1)
+        full = cc.downsample_columns(cols, cells)
+        cols = cc.downsample_columns(cols, stack.max_voxels[si])
+        rows.append(level(si, full, cols, stack.max_voxels[si]))
+    return rows
+
+
+def phase_second(cfg, s2dir) -> dict:
+    """The stage-2 m3 encoder (its trained weights) on the first test
+    batch of ``cfg``: the active columns of each level against the
+    capacities, then the first agent's frame on the card against the same
+    module on the CPU, every column-engine output and every conv layer's
+    features compared (integer outputs equal, f32 within SECOND_CPU_TOL).
+    """
+    from heal_tpu_torch.tools import checkpoint as ckpt_lib
+    from heal_tpu_torch.tools import train as train_tool
+    from heal_tpu_torch.tools.inference import build_weights
+
+    dev = torch.device("cuda")
+    model = build_weights(cfg, checkpoint=ckpt_lib.find_checkpoint(s2dir)[1])
+    enc = model.branch_m3.encoder.to(dev).eval()
+    stack = enc.VmapSecondStack_0
+    batch, _ = next(train_tool.device_batches(
+        cfg, cfg["train_params"]["batch_size"], dev, train=False))
+    pts = batch["inputs_m3"]["points"].flatten(0, 1)
+    mask = batch["inputs_m3"]["point_mask"].flatten(0, 1)
+    with torch.no_grad():
+        rows = second_columns(stack, pts, mask)
+    print(f"[second] active columns of {pts.shape[0]} m3 agents "
+          f"({int(mask.sum())} points) per level, the most of any agent "
+          "against the capacity, and the columns dropped by overflow: "
+          + "; ".join(f"level {i} {a} of {c}, dropped {d}"
+                      for i, a, c, d in rows))
+
+    seen: dict = {"cuda": [], "cpu": []}
+
+    def record(where):
+        def on_call(name, fn, *args, **kwargs):
+            got = fn(*args, **kwargs)
+            seen[where].append((name, got))
+            return got
+        return on_call
+
+    def run(module, where, *inputs):
+        hooks = [layer.register_forward_hook(
+            lambda mod, i, o, where=where: seen[where].append(
+                ("layer", o if torch.is_tensor(o) else o["feats"])))
+            for _, layer in _second_layers(module.VmapSecondStack_0)]
+        try:
+            with torch.no_grad(), column_engine(record(where)):
+                return module(*inputs)
+        finally:
+            for h in hooks:
+                h.remove()
+
+    run(enc, "cuda", pts[:1], mask[:1])
+    run(copy.deepcopy(enc).cpu(), "cpu", pts[:1].cpu(), mask[:1].cpu())
+    worst, n_int = 0.0, 0
+    for (name, got), (name_c, want) in zip(seen["cuda"], seen["cpu"],
+                                           strict=True):
+        if name != name_c:
+            raise AssertionError(f"SECOND call order: {name} vs {name_c}")
+        if name == "rank_map":  # the dump slot is written, never read
+            got, want = got[:, :-1], want[:, :-1]
+        pairs = ([(k, got[k], want[k]) for k in got if k != "grid"]
+                 if isinstance(got, dict) else [(name, got, want)])
+        for key, a, b in pairs:
+            a = a.cpu()
+            if a.is_floating_point():
+                worst = max(worst, rel_err(a, b)[1])
+            elif not torch.equal(a, b):
+                raise AssertionError(f"SECOND {name} {key}: card and CPU "
+                                     "disagree")
+            else:
+                n_int += 1
+    print(f"[second] one m3 frame, the card vs the CPU: {len(seen['cpu'])} "
+          f"outputs of the column engine and the conv layers, {n_int} "
+          f"integer arrays equal; f32 features max rel err {worst:.3e} "
+          f"(tol {SECOND_CPU_TOL})")
+    if not worst <= SECOND_CPU_TOL:
+        raise AssertionError(f"SECOND features, card vs CPU: {worst}")
+    return {"second_columns": rows, "second_cpu_rel": worst}
+
+
+@contextlib.contextmanager
+def second_stages(model, m: str):
+    """CUDA events around SECOND type ``m``'s stages in every forward of
+    ``model`` while the block runs; yields a dict filled at the end with
+    the mean ms, over the forwards after the first, of: voxelize, the rank
+    maps and tables (column_table, downsample_columns, strided_table),
+    each level's conv layers (conv + LayerNorm + ReLU), to_dense_bev, the
+    branch's backbone + aligner, the whole branch and the whole forward
+    (``frame``)."""
+    branch = getattr(model, f"branch_{m}")
+    stack = branch.encoder.VmapSecondStack_0
+    forwards: list = []
+
+    def event():
+        ev = torch.cuda.Event(enable_timing=True)
+        ev.record()
+        return ev
+
+    def span(name, start):
+        forwards[-1].setdefault(name, []).append((start, event()))
+
+    def timed(name, fn, *args, **kwargs):
+        start = event()
+        got = fn(*args, **kwargs)
+        span(ENGINE_STAGES[name], start)
+        return got
+
+    def around(module, name):
+        starts = []
+        return [module.register_forward_pre_hook(
+                    lambda *_: starts.append(event())),
+                module.register_forward_hook(
+                    lambda *_: span(name, starts.pop()))]
+
+    hooks = [model.register_forward_pre_hook(
+        lambda *_: forwards.append({}))]
+    hooks += around(model, "frame") + around(branch, "branch")
+    for level, layer in _second_layers(stack):
+        hooks += around(layer, f"level {level} convs")
+    bb0 = []
+    hooks += [branch.backbone.register_forward_pre_hook(
+                  lambda *_: bb0.append(event())),
+              branch.aligner.register_forward_hook(
+                  lambda *_: span("backbone + aligner", bb0.pop()))]
+    result: dict = {}
+    try:
+        with column_engine(timed):
+            yield result
+    finally:
+        for h in hooks:
+            h.remove()
+    torch.cuda.synchronize()
+    for f in forwards[1:]:
+        for name, pairs in f.items():
+            result[name] = result.get(name, 0.0) + sum(
+                a.elapsed_time(b) for a, b in pairs) / (len(forwards) - 1)
 
 
 def phase_pipeline() -> None:

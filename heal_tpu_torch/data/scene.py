@@ -19,10 +19,12 @@ The same scene (and numpy's global random state) gives the same arrays
 as the JAX package, but for the synthetic rig's images: like JAX, they
 are drawn from a seed of ``id(scene)``, a memory address, so they differ
 between processes and packages (ROADMAP §3, known faults in the
-reference). Branches the slice does not run raise NotImplementedError and
-name the ROADMAP item (queue 1) that ports them: camera images from disk
-(item 16), SECOND voxel presort (item 11), CoAlign box alignment (item
-9), CenterPoint targets and the distillation teacher view (item 13).
+reference). SECOND agents (m3) get their points in their own order, by
+the encoder's full voxel key (``_presort_voxel``). Branches the slice
+does not run raise NotImplementedError and name the ROADMAP item (queue
+1) that ports them: camera images from disk (item 16), CoAlign box
+alignment (item 9), CenterPoint targets and the distillation teacher
+view (item 13).
 """
 from __future__ import annotations
 
@@ -89,13 +91,6 @@ class IntermediateAssembler:
                 "kd_flag (the early-fusion teacher view) is not ported: "
                 "ROADMAP queue 1, item 13 (tools/train_w_kd.py)"
             )
-        for m in self.modalities:
-            setting = self.modality_setting.get(m, {})
-            if self.presort and setting.get("core_method") == "second":
-                raise NotImplementedError(
-                    f"modality {m}: the SECOND voxel presort is not ported: "
-                    "ROADMAP queue 1, item 11 (m3 SECOND)"
-                )
 
     def sensor_type(self, modality: str) -> str:
         return self.modality_setting.get(modality, {}).get(
@@ -272,7 +267,16 @@ class IntermediateAssembler:
                     scene, keep, entries, m, cap
                 )
                 continue
-            if cap == L and entries == list(range(len(entries))):
+            # SECOND agents sort by the encoder's full voxel key at the
+            # modality's voxel size (the encoder's ``presorted``), so their
+            # points never alias the top-level arrays
+            setting = self.modality_setting.get(m, {})
+            second_vs = None
+            if self.presort and setting.get("core_method") == "second":
+                second_vs = (setting.get("preprocess", {}).get("args", {})
+                             .get("voxel_size"))
+            if (second_vs is None and cap == L
+                    and entries == list(range(len(entries)))):
                 # identity packing (single-modality case): ALIAS the
                 # top-level arrays; collate stacks them once per batch
                 sample[f"inputs_{m}"] = {
@@ -285,6 +289,9 @@ class IntermediateAssembler:
             for j, slot in enumerate(entries):
                 pts[j] = sample["points"][slot]
                 msk[j] = sample["point_mask"][slot]
+                if second_vs is not None:
+                    n = int(msk[j].sum())
+                    pts[j, :n] = self._presort_voxel(pts[j, :n], second_vs)
             sample[f"inputs_{m}"] = {"points": pts, "point_mask": msk}
 
     def _pack_cameras(self, scene, keep, entries, m, L):
@@ -443,6 +450,26 @@ class IntermediateAssembler:
         ok = (xi >= 0) & (xi < nx) & (yi >= 0) & (yi < ny)
         ids = np.where(ok, yi * nx + xi, nx * ny)
         return points[np.argsort(ids, kind="stable")]
+
+    def _presort_voxel(self, points: np.ndarray, voxel_size) -> np.ndarray:
+        """Order points by the SECOND engine's full voxel key
+        ((y*nx + x) * nz + z at ``voxel_size``) on the host, so that the
+        encoder (``presorted``) skips its device sort. Out-of-range points
+        sort last under INT32_MAX, the engine's INVALID."""
+        if len(points) == 0:
+            return points
+        vx, vy, vz = voxel_size
+        r = self.cav_range
+        nx = int(round((r[3] - r[0]) / vx))
+        ny = int(round((r[4] - r[1]) / vy))
+        nz = int(round((r[5] - r[2]) / vz))
+        xi = np.floor((points[:, 0] - r[0]) / vx).astype(np.int64)
+        yi = np.floor((points[:, 1] - r[1]) / vy).astype(np.int64)
+        zi = np.floor((points[:, 2] - r[2]) / vz).astype(np.int64)
+        ok = ((xi >= 0) & (xi < nx) & (yi >= 0) & (yi < ny)
+              & (zi >= 0) & (zi < nz))
+        key = np.where(ok, (yi * nx + xi) * nz + zi, np.int64(2**31 - 1))
+        return points[np.argsort(key, kind="stable")]
 
     def _gt_in_frame(self, objects_world, pose, limit_range,
                      visibility_map=None):

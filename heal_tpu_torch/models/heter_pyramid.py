@@ -1,8 +1,9 @@
 """HEAL heterogeneous pyramid models (torch), train and eval.
 
 Counterparts of heal_tpu/models/heter_pyramid.py for lidar agents with
-the PointPillars encoder (m1, and the 16-line m4) and camera agents with
-the Lift-Splat-Shoot encoder (m2):
+the PointPillars encoder (m1, and the 16-line m4) or the SECOND sparse
+conv encoder (m3), and camera agents with the Lift-Splat-Shoot encoder
+(m2):
 
   * ``HeterPyramidCollab`` (stages 1 and 3): per-modality encoder -> BEV
     backbone -> aligner -> slot scatter into the (B, L) agent axis ->
@@ -22,8 +23,7 @@ eval mode its pyramid scores are masked to the camera's field of view
 Train mode follows ``module.train()``: batch-statistics BN everywhere in
 the collab model (nothing is frozen, as in JAX without a compressor); in
 the single model the frozen pyramid and shrink stay in eval mode. The
-SECOND encoder, the compressor and the IoU head are not ported yet and
-raise.
+compressor and the IoU head are not ported yet and raise.
 """
 from __future__ import annotations
 
@@ -40,6 +40,7 @@ from .lift_splat_shoot import LiftSplatShootEncoder
 from .point_pillar import _shrink_from_args
 from .registry import register_model
 from .resnet_bev import ResNetBEVBackbone
+from .second import SecondEncoder
 
 MODALITY_KEYS = ("m1", "m2", "m3", "m4")
 
@@ -114,10 +115,20 @@ class ModalityBranch(nn.Module):
         self.camera = is_camera(cfg)
         if self.camera:
             self.encoder = LiftSplatShootEncoder(enc, norm=norm)
-        elif cfg["core_method"] != "point_pillar":
-            raise NotImplementedError(
-                f"lidar encoder {cfg['core_method']!r} is not ported yet"
+        elif cfg["core_method"] == "second":
+            sec = enc.get("second", {})
+            kw = {k: tuple(sec[k]) for k in ("channels", "max_voxels")
+                  if k in sec}
+            self.encoder = SecondEncoder(
+                voxel_size=tuple(enc["voxel_size"]),
+                lidar_range=tuple(enc["lidar_range"]),
+                norm=norm,
+                presorted=enc.get("presorted", False),
+                dense_tail=sec.get("dense_tail", False),
+                **kw,
             )
+        elif cfg["core_method"] != "point_pillar":
+            raise KeyError(f"unknown lidar encoder {cfg['core_method']!r}")
         else:
             self.encoder = PointPillarEncoder(
                 voxel_size=tuple(enc["voxel_size"]),

@@ -291,7 +291,8 @@ class DownsampleConv(nn.Module):
 
 def init_weights(model: nn.Module, generator: torch.Generator) -> nn.Module:
     """Seeded random init in flax's defaults: lecun-normal kernels
-    (truncated at 2 std), zero biases, unit BN and LayerNorm scales,
+    (truncated at 2 std; SECOND's (27, Cin, Cout) kernels he-normal, as
+    heal_tpu second.py:49), zero biases, unit BN and LayerNorm scales,
     ConvNeXt's layer scale ``gamma`` 1e-6 (heal_tpu aligner.py:52-54; zero
     would make each block the identity and stop its gradient); running
     mean 0 and variance 1. Every kernel is a parameter named ``*kernel``."""
@@ -299,13 +300,16 @@ def init_weights(model: nn.Module, generator: torch.Generator) -> nn.Module:
         for name, p in model.named_parameters():
             leaf = name.rsplit(".", 1)[-1]
             if leaf.endswith("kernel"):
+                gain = 1.0
                 if p.dim() == 2:  # (in, out) dense kernel
                     fan_in = p.shape[0]
+                elif p.dim() == 3:  # SECOND's (27, Cin, Cout): he-normal
+                    fan_in, gain = p.shape[0] * p.shape[1], 2.0
                 elif name.endswith("ConvTranspose_0.kernel"):  # (I, O, s, s)
                     fan_in = p.shape[0] * p.shape[2] * p.shape[3]
                 else:  # (O, I, kh, kw)
                     fan_in = p.shape[1] * p.shape[2] * p.shape[3]
-                std = (1.0 / fan_in) ** 0.5 / 0.87962566103423978
+                std = (gain / fan_in) ** 0.5 / 0.87962566103423978
                 nn.init.trunc_normal_(p, 0.0, std, -2 * std, 2 * std,
                                       generator=generator)
             elif leaf in ("scale", "bn_scale"):

@@ -2,14 +2,15 @@
 
 Counterpart of heal_tpu/tools/inference_heter_in_order.py: the merged
 alliance of ``model_dir`` is evaluated with the first k agents
-collaborating, k = 1 .. the number of agent types (m1 -> m1m4 ...):
-``mapping_dict`` forced to the identity, ``comm_range`` 180 m,
-``heter.use_cav`` = k (the ground truth still comes from the whole
-scene), and optionally fewer lidar lines (``--degrade m1:32,m4:16``).
+collaborating, k = 1 .. the number of agent types (m1 -> m1m2 ->
+m1m2m3 -> m1m2m3m4 for the full alliance): ``mapping_dict`` forced to
+the identity, ``comm_range`` 180 m, ``heter.use_cav`` = k (the ground
+truth still comes from the whole scene), and optionally fewer lidar
+lines for any lidar type (``--degrade m1:32,m3:16``).
 The AP of each k goes to ``<model_dir>/ap_in_order.json``.
 
     python -m heal_tpu_torch.tools.inference_heter_in_order --model_dir runs/merged \\
-        [--degrade m1:32] [--max_batches N] [--device cuda]
+        [--degrade m1:32,m3:16] [--max_batches N] [--device cuda]
 """
 from __future__ import annotations
 
@@ -27,7 +28,7 @@ def run_in_order(model_dir: str, lidar_degrade: dict | None = None,
                  comm_range: float = 180.0, max_batches: int | None = None,
                  *, cfg: dict | None = None, device="cuda",
                  dtype=torch.float32) -> dict:
-    """-> {tag: {ap_30, ap_50, ap_70}} with tags "m1", "m1m4", ...
+    """-> {tag: {ap_30, ap_50, ap_70}} with tags "m1", "m1m2", ...
     ``cfg``: the alliance config (default: ``model_dir``'s config.yaml)."""
     if cfg is None:
         cfg = load_yaml("", model_dir=model_dir)
@@ -57,7 +58,7 @@ def main(argv=None):
     p = argparse.ArgumentParser("heal_tpu_torch inference_heter_in_order")
     p.add_argument("--model_dir", required=True)
     p.add_argument("--degrade", default=None,
-                   help="e.g. 'm1:32,m4:16' lidar line degradation")
+                   help="e.g. 'm1:32,m3:16' lidar line degradation")
     p.add_argument("--max_batches", type=int, default=None)
     p.add_argument("--device", default="cuda")
     args = p.parse_args(argv)

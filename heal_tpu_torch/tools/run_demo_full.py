@@ -13,13 +13,13 @@ recorded in the results as JAX records a failed leg.
 Each phase is skipped when its artifact exists, so the run resumes.
 
     python -m heal_tpu_torch.tools.run_demo_full --out runs/demo_full \\
-        [--modalities m2,m4] [--cfg_dir DIR] [--final_cfg NAME|PATH] \\
+        [--modalities m2,m3,m4] [--cfg_dir DIR] [--final_cfg NAME|PATH] \\
         [--stage1_epochs N] [--stage2_epochs N] [--max_batches N] \\
         [--skip_noise] [--device cuda]
 
-The PointPillars agent types (m1 and the 16-line m4) and the camera type
-(m2, Lift-Splat-Shoot) are ported; m3 (SECOND) raises
-NotImplementedError when built.
+Every agent type of HEAL's alliance is ported: the PointPillars types
+(m1 and the 16-line m4), the camera type (m2, Lift-Splat-Shoot) and the
+SECOND sparse-conv type (m3).
 """
 from __future__ import annotations
 
@@ -63,9 +63,8 @@ def main(argv=None):
     p.add_argument("--cfg_dir", default=CFG,
                    help="directory of stage1_m1.yaml, stage2_mX.yaml and "
                         "the final config")
-    p.add_argument("--modalities", default="m2,m4",
-                   help="stage-2 agent types to train (csv; JAX's default "
-                        "m2,m3,m4 less m3, which is not ported)")
+    p.add_argument("--modalities", default="m2,m3,m4",
+                   help="stage-2 agent types to train (csv)")
     p.add_argument("--final_cfg", default="final_m1m2m3m4",
                    help="merged-alliance config: a name in cfg_dir or a path")
     p.add_argument("--skip_noise", action="store_true",

@@ -171,3 +171,40 @@ def test_msgpack_scalars_and_containers():
         flax_msgpack.restore(data[:-3])
     assert from_flax({"k": flax_msgpack.restore(data)["a"]})["k"].dtype == \
         torch.float32
+
+
+def test_heal_tpu_m3_checkpoint_loads_strictly_and_merges(tiny_ckpt,
+                                                          tmp_path):
+    """A heal_tpu ``.ckpt`` of the SECOND single model
+    (tests/configs/entry_m3_single.yaml) loads strictly into the port:
+    the (27, Cin, Cout) kernels as they are, the LayerNorm leaves by
+    their flax names. ``merge_checkpoints`` of it with the m1 base keeps
+    ``branch_m3`` as JAX's merge does."""
+    from heal_tpu_torch.tools.inference import build_weights
+    from heal_tpu_torch.tools.merge import DROP_FROM_NEW_TYPES
+
+    cfg = load_yaml("tests/configs/entry_m3_single.yaml")
+    batch = next(build_dataset(cfg, train=False).batches(
+        1, shuffle=False, process_split=False))
+    jm = build_flax(cfg["model"])
+    v = jax.device_get(jax.jit(lambda b: jm.init(
+        jax.random.PRNGKey(5), b, train=False))(jax.tree.map(jnp.asarray,
+                                                             batch)))
+    path = jax_ckpt.save_checkpoint(str(tmp_path / "m3"), dict(v), 1)
+    sd = build_weights(cfg, checkpoint=path).state_dict()  # strict
+    stack = "branch_m3.encoder.VmapSecondStack_0"
+    assert sd[f"{stack}.conv_input.kernel"].shape == (27, 4, 8)
+    assert sd[f"{stack}.down_3.kernel"].shape == (27, 16, 16)
+    assert f"{stack}.stage3_subm1.LayerNorm_0.scale" in sd
+    want = from_flax(v["params"], v["batch_stats"])
+    for k, t in sd.items():
+        assert torch.equal(t, want[k]), k
+    paths = [path, tiny_ckpt[-1]]
+    got = ckpt_lib.merge_checkpoints(paths, DROP_FROM_NEW_TYPES)
+    jwant = jax_ckpt.merge_checkpoints(paths, DROP_FROM_NEW_TYPES)
+    jwant = from_flax(jwant["params"], jwant["batch_stats"])
+    assert got.keys() == jwant.keys()
+    assert {k.split(".")[0] for k in got} == {
+        "branch_m1", "branch_m3", "pyramid_backbone", "shrink", "heads"}
+    for k, t in jwant.items():
+        assert torch.equal(got[k], t), k

@@ -154,6 +154,39 @@ def test_camera_batches_equal_heal_tpu(train, labels, monkeypatch):
     assert (got["inputs_m2"]["depth_bins"] < 8).any()  # depth targets
 
 
+@pytest.mark.parametrize("train", [True, False], ids=["train", "test"])
+@pytest.mark.parametrize("path", ["tests/configs/entry_m3_single.yaml",
+                                  "tests/configs/entry_m1m2m3m4_final.yaml"],
+                         ids=["m3_single", "m1m2m3m4"])
+def test_second_batches_equal_heal_tpu(path, train, monkeypatch):
+    """SECOND agents (m3): their points sorted by the full voxel key at the
+    modality's voxel size, never aliased to the top-level arrays, every
+    key equal to heal_tpu's; ``_presort_voxel`` itself equal on points
+    with some out of range."""
+    from heal_tpu.data.scene import IntermediateAssembler as JaxAssembler
+    from heal_tpu_torch.data.scene import IntermediateAssembler
+
+    monkeypatch.setattr(heal_tpu.native, "load", lambda: None)
+    cfg = load_yaml(path)
+    got, _ = _first_batch(build_dataset, cfg, train)
+    want, _ = _first_batch(jax_build_dataset, cfg, train,
+                           process_split=False)
+    _assert_same(got, want)
+    m3 = got["inputs_m3"]
+    assert m3["points"] is not got["points"] and m3["point_mask"].any()
+    vs = cfg["heter"]["modality_setting"]["m3"]["preprocess"]["args"][
+        "voxel_size"]
+    ours, theirs = (cls(cfg, train=train) for cls in (IntermediateAssembler,
+                                                      JaxAssembler))
+    rng = np.random.default_rng(0)
+    r = np.array(cfg["preprocess"]["cav_lidar_range"], np.float32)
+    pts = rng.uniform(r[:3] - 1, r[3:] + 1, (500, 3)).astype(np.float32)
+    pts = np.concatenate([pts, rng.uniform(0, 1, (500, 1))], 1).astype(
+        np.float32)
+    _assert_same(ours._presort_voxel(pts, vs), theirs._presort_voxel(pts, vs))
+    assert not np.array_equal(ours._presort_voxel(pts, vs), ours._presort(pts))
+
+
 @pytest.mark.parametrize("path", CONFIGS, ids=["entry_tiny", "flagship"])
 def test_load_config_equals_heal_tpu(path):
     assert load_config(path) == load_yaml(path)

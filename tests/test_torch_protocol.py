@@ -3,8 +3,10 @@
 Stage 1 is tests/configs/entry_tiny.yaml (m1 collab base), stage 2
 entry_m4_single.yaml (a 16-line PointPillars agent with a res3x3 aligner,
 ``heter_pyramid_single``), stage 3 the alliance entry_m1m2m3m4_final.yaml
-with m2 and m3 dropped in code (``config.keep_modalities``; the YAML is
-not edited). Stated tolerances:
+cut in code (``config.keep_modalities``; the YAML is not edited) to the
+types a test trains: m1 + m4, and m1 + m3 + m4 with the SECOND agent
+(the uncut four-type alliance is in tests/test_torch_second_slice.py).
+Stated tolerances:
 
   * heads 1e-5 of 1 + max |JAX| (max |d| / (1 + max |ref|)): f32
     convolutions summed in another order;
@@ -108,6 +110,20 @@ def test_m1m4_alliance_heads_match_jax():
     _heads_match(cfg, batch, ("inputs_m1", "slots_m1", "inputs_m4",
                               "slots_m4", "agent_mask", "pairwise_affine"),
                  seed=2)
+
+
+def test_m1m3m4_alliance_heads_match_jax():
+    cfg = keep_modalities(jax_load_yaml(FINAL), ("m1", "m3", "m4"))
+    assert {"m1", "m3", "m4"} <= set(cfg["model"]["args"])
+    assert "m2" not in cfg["model"]["args"]
+    batch = next(build_dataset(cfg, train=False).batches(
+        1, shuffle=False, process_split=False))
+    # every branch carries an agent, the ego an m1
+    assert batch["slots_m1"][0, 0] == 0
+    assert all(batch[f"slots_{m}"][0, 0] < 4 for m in ("m3", "m4"))
+    _heads_match(cfg, batch, ("inputs_m1", "slots_m1", "inputs_m3",
+                              "slots_m3", "inputs_m4", "slots_m4",
+                              "agent_mask", "pairwise_affine"), seed=4)
 
 
 @pytest.fixture(scope="module")

@@ -10,7 +10,11 @@ sweep; ``run_demo_full`` drives the same phases from a config dir.
 The camera agent type m2 goes the same way: ``_camera_configs`` makes
 entry_m4_single.yaml a Lift-Splat-Shoot m2 on the same grid (with
 ``cache_device_batches``, as heal_tpu's demo configs set it) and the
-alliance m1 + m2 + m4, and run_demo_full's m2 leg trains it.
+alliance m1 + m2 + m4, and run_demo_full's m2 leg trains it. So does
+the SECOND type m3 (entry_m3_single.yaml): its stage 2 from the
+``.pth``, the merge with m4, the m1 + m3 + m4 alliance and its in-order
+table with ``--degrade m3:16``; run_demo_full trains m4, m2 and m3 and
+serves all four types.
 Checked: the frozen modules equal the stage-1 values bit for bit, no
 frozen key is left out at load, the new branch moved, the depth loss
 trained it, the merged checkpoint loads strictly into the alliance, and
@@ -34,6 +38,8 @@ from heal_tpu_torch.tools import checkpoint as ckpt_lib
 from heal_tpu_torch.tools import run_demo_full
 from heal_tpu_torch.tools import train as train_tool
 from heal_tpu_torch.tools.inference import apply_overrides, run_inference
+from heal_tpu_torch.tools.inference_heter_in_order import main as \
+    in_order_main
 from heal_tpu_torch.tools.inference_heter_in_order import run_in_order
 from heal_tpu_torch.tools.inference_w_noise import run_noise_sweep
 from heal_tpu_torch.tools.merge import main as merge_main
@@ -43,14 +49,15 @@ from heal_tpu_torch.utils.bridge import from_flax, to_flax
 torch.set_num_threads(1)
 TINY = "tests/configs/entry_tiny.yaml"
 M4 = "tests/configs/entry_m4_single.yaml"
+M3 = "tests/configs/entry_m3_single.yaml"
 FINAL = "tests/configs/entry_m1m2m3m4_final.yaml"
 FROZEN = ("pyramid_backbone", "shrink", "heads")
 
 
-def _camera_configs(tmp_path) -> tuple[str, str]:
-    """-> (the m2 stage-2 yaml, the m1 + m2 + m4 alliance yaml): a camera
-    m2 (4 cameras at 64x96, 8 LID bins, 16 features; a 32x32 grid of
-    1.2 m, the pyramid's input grid) in place of the lidar ones."""
+def _camera_configs(tmp_path, keep=("m1", "m2", "m4")) -> tuple[str, str]:
+    """-> (the m2 stage-2 yaml, the alliance yaml of the types ``keep``):
+    a camera m2 (4 cameras at 64x96, 8 LID bins, 16 features; a 32x32
+    grid of 1.2 m, the pyramid's input grid) in place of the lidar ones."""
     grid = {"xbound": [-19.2, 19.2, 1.2], "ybound": [-19.2, 19.2, 1.2],
             "zbound": [-10, 10, 20.0], "ddiscr": [2, 30, 8], "mode": "LID"}
     aug = {"final_dim": [64, 96], "Ncams": 4}
@@ -71,10 +78,11 @@ def _camera_configs(tmp_path) -> tuple[str, str]:
                                      ("m1", "m2", "m3", "m4")})
     del single["model"]["args"]["m4"]
     single["model"]["args"]["m2"] = branch
-    final = keep_modalities(load_yaml(FINAL), ("m1", "m2", "m4"))
+    final = keep_modalities(load_yaml(FINAL), keep)
     final["heter"]["modality_setting"]["m2"] = setting
     final["model"]["args"]["m2"] = branch
-    paths = (str(tmp_path / "m2_single.yaml"), str(tmp_path / "m1m2m4.yaml"))
+    paths = (str(tmp_path / "m2_single.yaml"),
+             str(tmp_path / f"{''.join(keep)}.yaml"))
     for cfg, path in zip((single, final), paths):
         save_yaml(cfg, path)
     return paths
@@ -194,31 +202,73 @@ def test_camera_protocol_through_the_clis(tmp_path, capsys):
     assert list(order) == ["m1", "m1m2", "m1m2m4"]
 
 
+def test_second_protocol_through_the_clis(tmp_path, capsys):
+    """m3 (SECOND) against the m1 base: stage 2 through the CLI from the
+    stage-1 ``.pth``, the merge with the m4 run, the m1 + m3 + m4
+    alliance served, the in-order table (m1, m1m3, m1m3m4) with the m3
+    lidar cut to 16 lines (``--degrade m3:16``)."""
+    s1 = str(tmp_path / "stage1")
+    train_tool.main(["-y", TINY, "--model_dir", s1, "--epochs", "1",
+                     "--device", "cpu", "--no_final_inference"])
+    s1_path = ckpt_lib.find_checkpoint(s1)[1]
+    base = ckpt_lib.load_state_dict(s1_path)
+    capsys.readouterr()
+    s2 = _stage2(str(tmp_path / "stage2_m3"), s1_path, capsys, M3, "m3")
+    init = build_model(load_yaml(M3)["model"]).state_dict()
+    assert s2.keys() == init.keys()
+    stack = "branch_m3.encoder.VmapSecondStack_0."
+    assert sum(k.startswith(stack) for k in s2) == 30
+    for k in s2:
+        if k.split(".")[0] in FROZEN:
+            assert torch.equal(s2[k], base[k]), k
+    s2_m4 = _stage2(str(tmp_path / "stage2_m4"), s1_path, capsys)
+
+    merged = str(tmp_path / "merged")
+    merge_main(["merge_final", str(tmp_path / "stage2_m4"),
+                str(tmp_path / "stage2_m3"), s1, merged])
+    final = keep_modalities(load_yaml(FINAL), ("m1", "m3", "m4"))
+    save_yaml(final, os.path.join(merged, "config.yaml"))
+    sd = ckpt_lib.load_state_dict(os.path.join(merged,
+                                               "net_epoch_bestval_at0.pth"))
+    build_model(final["model"]).load_state_dict(sd, strict=True)
+    for k, v in sd.items():
+        top = k.split(".")[0]
+        src = {"branch_m3": s2, "branch_m4": s2_m4}.get(top, base)
+        assert torch.equal(v, src[k]), k
+    res = run_inference(merged, device="cpu", max_batches=2, note="merged")
+    assert res["frames"] == 2 and 0.0 <= res["ap_50"] <= 1.0
+    order = in_order_main(["--model_dir", merged, "--degrade", "m3:16",
+                           "--max_batches", "1", "--device", "cpu"])
+    assert list(order) == ["m1", "m1m3", "m1m3m4"]
+
+
 def test_run_demo_full_tiny(tmp_path, capsys):
-    """``run_demo_full`` on a config dir of the tiny configs, with an m4
-    and an m2 (camera) leg: every phase, the box-align leg recorded as
-    failed, and a second call that finds every artifact and trains
-    nothing."""
+    """``run_demo_full`` on a config dir of the tiny configs, with an m4,
+    an m2 (camera) and an m3 (SECOND) leg: every phase, the box-align leg
+    recorded as failed, and a second call that finds every artifact and
+    trains nothing."""
     cfg_dir = tmp_path / "cfgs"
     cfg_dir.mkdir()
-    m2_yaml, final_yaml = _camera_configs(tmp_path)
+    m2_yaml, final_yaml = _camera_configs(tmp_path,
+                                          ("m1", "m2", "m3", "m4"))
     for name, src in (("stage1_m1", TINY), ("stage2_m4", M4),
-                      ("stage2_m2", m2_yaml)):
+                      ("stage2_m2", m2_yaml), ("stage2_m3", M3)):
         cfg = load_yaml(src)
         cfg["train_params"]["epoches"] = 1
         save_yaml(cfg, str(cfg_dir / f"{name}.yaml"))
     argv = ["--out", str(tmp_path / "demo"), "--cfg_dir", str(cfg_dir),
-            "--modalities", "m4,m2", "--final_cfg", final_yaml,
+            "--modalities", "m4,m2,m3", "--final_cfg", final_yaml,
             "--max_batches", "1", "--device", "cpu"]
     out = run_demo_full.main(argv)
     assert set(out) == {"merged", "in_order", "noise", "noise_boxalign"}
-    assert list(out["in_order"]) == ["m1", "m1m2", "m1m2m4"]
+    assert list(out["in_order"]) == ["m1", "m1m2", "m1m2m3", "m1m2m3m4"]
     assert sorted(out["noise"]) == ["0.0", "0.2", "0.4", "0.6"]
     assert "NotImplementedError" in out["noise_boxalign"]["error"]
     assert out["merged"]["depth_rmse_m2"] > 0
     merged = load_yaml("", model_dir=str(tmp_path / "demo" /
                                          "merged_alliance"))
-    assert sorted(merged["heter"]["modality_setting"]) == ["m1", "m2", "m4"]
+    assert sorted(merged["heter"]["modality_setting"]) == ["m1", "m2", "m3",
+                                                           "m4"]
     capsys.readouterr()
     again = run_demo_full.main(argv)
     printed = capsys.readouterr().out

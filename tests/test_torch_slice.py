@@ -135,10 +135,17 @@ from heal_tpu_torch.data import build_dataset
 from heal_tpu_torch.data.prefetch import prefetch
 from heal_tpu_torch.models import lift_splat_shoot
 from heal_tpu_torch.utils import camera
+# the SECOND agent type: one m3 stage-2 model's forward
+from heal_tpu_torch.models import second
+from heal_tpu_torch.ops import column_conv, sparse_conv
 import torch
 torch.set_num_threads(1)
 cam_cfg = load_config(sys.argv[3])
 cam = next(prefetch(build_dataset(cam_cfg, train=False).batches(1, False)))
+m3_cfg = load_config(sys.argv[4])
+m3_batch, _ = next(device_batches(m3_cfg, 1, "cpu", train=False))
+with torch.no_grad():
+    m3_heads = build_weights(m3_cfg, seed=0).eval()(m3_batch)["cls_preds"]
 cfg = load_config(sys.argv[1])
 r = run_inference(cfg=cfg, device="cpu", max_batches=1)
 model = build_weights(cfg, seed=0)
@@ -154,6 +161,7 @@ build_weights(cfg, checkpoint=sys.argv[2])  # a heal_tpu .ckpt, strictly
 print(json.dumps({"frames": r["frames"], "steps": len(losses),
                   "falling": losses[1] < losses[0],
                   "camera": list(cam["inputs_m2"]["imgs"].shape),
+                  "second": list(m3_heads.shape),
                   "loaded": loaded}))
 """
 
@@ -169,12 +177,14 @@ cfg = chip_smoke.flagship_cfg()
 batch, _ = next(device_batches(cfg, 1, "cpu", train=False))
 cfgs = chip_smoke.protocol_cfgs()
 final, _ = next(device_batches(cfgs["final"], 1, "cpu", train=False))
-singles = [build_model(cfgs[k]["model"]) for k in ("stage2", "stage2_m2")]
+singles = [build_model(cfgs[k]["model"])
+           for k in ("stage2", "stage2_m2", "stage2_m3")]
 """ + _LOADED + """
 print(json.dumps({"points": list(batch["inputs_m1"]["points"].shape),
                   "agents": int(batch["agent_mask"].sum()),
                   "alliance": [list(final[f"inputs_{m}"][k].shape)
                                for m, k in (("m1", "points"), ("m2", "imgs"),
+                                            ("m3", "points"),
                                             ("m4", "points"))],
                   "stage2": [[type(m).__name__, m.modality, m.fix_modules]
                              for m in singles],
@@ -205,9 +215,11 @@ def test_port_never_imports_jax(tmp_path):
     ckpt = save_checkpoint(str(tmp_path), {"params": params,
                                            "batch_stats": stats}, 1)
     out = _run_blocked(_NO_JAX, os.path.join(REPO, TINY), ckpt,
-                       os.path.join(REPO, "tests/configs/tiny_heter_m1m2.yaml"))
+                       os.path.join(REPO, "tests/configs/tiny_heter_m1m2.yaml"),
+                       os.path.join(REPO, "tests/configs/entry_m3_single.yaml"))
     assert out == {"frames": 1, "steps": 2, "falling": True,
-                   "camera": [1, 3, 4, 128, 192, 3], "loaded": []}
+                   "camera": [1, 3, 4, 128, 192, 3], "second": [1, 32, 32, 2],
+                   "loaded": []}
 
 
 def test_chip_smoke_never_imports_jax():
@@ -215,7 +227,8 @@ def test_chip_smoke_never_imports_jax():
     frozen = ["pyramid_backbone", "shrink", "heads"]
     assert out == {"points": [1, 5, 30000, 4], "agents": 4,
                    "alliance": [[1, 5, 30000, 4], [1, 5, 4, 384, 512, 3],
-                                [1, 5, 30000, 4]],
+                                [1, 5, 30000, 4], [1, 5, 30000, 4]],
                    "stage2": [["HeterPyramidSingle", "m4", frozen],
-                              ["HeterPyramidSingle", "m2", frozen]],
+                              ["HeterPyramidSingle", "m2", frozen],
+                              ["HeterPyramidSingle", "m3", frozen]],
                    "cached": True, "loaded": []}
