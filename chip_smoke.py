@@ -60,7 +60,26 @@ Phases, in order; any failure raises and the exit code is non-zero:
      m1m2, m1m2m3, m1m2m3m4) and one pose-noise level. Phase 3 also holds
      kernel 1 on the alliance's first m4 frame (16-line, sorted on the
      card) against its plain version;
-  7. the input pipeline: epochs of heal_tpu/configs/demo_heal_full/
+  7. HEAL's heterogeneous baselines: the eight published
+     heal_tpu/configs/opv2v/more_modality/m1m2m3m4_{fcooper, att,
+     disconet, v2vnet, where2comm, cobevt, v2xvit, coalign}.yaml at full
+     width with seeded random weights (heter_model_baseline with max,
+     att, disconet, v2vnet, where2comm, cobevt and v2xvit fusion; coalign
+     is heter_model_baseline_ms with att at two levels), on synthetic
+     scenes with the flagship's scene arguments; cut to BASELINE_FRAMES
+     test frames and one train batch of BASELINE_BATCH scenes (published
+     4). The frames are assembled and copied to the card once and every
+     model serves the same device frames through
+     tools.inference.run_inference, f32 and bf16: the heads finite, the
+     f32 heads within HEADS_TOL of the plain kernel versions on those
+     frames (deterministic algorithms), kernel 1 launched 2 times a frame
+     and kernel 2 BASELINE_LAUNCHES times, Where2comm's comm_rate in
+     (0, 1]; the fusion module's own time (CUDA events) and its share of
+     the forward; then one warm and two timed f32 train steps through
+     parallel.Trainer and a warm and a timed bf16 step (finite loss, a
+     nonzero gradient in every fusion parameter, kernel 2's backward
+     counter rising, kernel 1's not moving), ms/step and peak memory;
+  8. the input pipeline: epochs of heal_tpu/configs/demo_heal_full/
      stage2_m2.yaml (PIPELINE_SCENES train scenes) timed on the host
      clock, batches assembled serially, through the prefetch pipeline
      (tools/train.py, data/prefetch.py), and from the device cache of
@@ -145,7 +164,22 @@ ALLIANCE_LAUNCHES = {"pillar_tables": 2, "shift_rows": 15}
 # the SECOND encoder on the card vs on the CPU, one frame: f32 features
 # as max |d| / (1 + max |cpu|) (GEMMs and segment sums in another order)
 SECOND_CPU_TOL = 1e-5
-# phase 7: the published demo config's first PIPELINE_SCENES train scenes
+# the baselines phase: the published heterogeneous baselines
+# (heal_tpu/configs/opv2v/more_modality/m1m2m3m4_<name>.yaml)
+BASELINES = ("fcooper", "att", "disconet", "v2vnet", "where2comm", "cobevt",
+             "v2xvit", "coalign")
+BASELINE_FRAMES = 4
+BASELINE_BATCH = 2  # published 4
+BASELINE_STEPS = 2  # timed f32 steps after a warm one
+# kernel-2 launches a served baseline frame: each warp call is one
+# 3-shear warp of all its maps, 5 launches (3 shears and 2 remainder
+# shifts); one ego warp per fusion call, V2VNet's field-of-view warp and
+# num_iteration 2 pairwise warps, CoAlign's two fused levels. Kernel 1
+# runs once per PointPillars branch (m1, m4)
+BASELINE_LAUNCHES = {"fcooper": 5, "att": 5, "disconet": 5, "v2vnet": 15,
+                     "where2comm": 5, "cobevt": 5, "v2xvit": 5, "coalign": 10}
+BASELINE_PILLAR_LAUNCHES = 2
+# phase 8: the published demo config's first PIPELINE_SCENES train scenes
 # (of 384) at its batch of 2
 PIPELINE_CFG = "demo_heal_full/stage2_m2.yaml"
 PIPELINE_SCENES = 24
@@ -1242,6 +1276,240 @@ def second_stages(model, m: str):
                 a.elapsed_time(b) for a, b in pairs) / (len(forwards) - 1)
 
 
+def baseline_cfgs() -> dict:
+    """The baselines phase's published configs at full width, read through
+    the port's loader: the synthetic backend with the flagship's scene
+    arguments, BASELINE_BATCH train scenes at that batch and
+    BASELINE_FRAMES test scenes."""
+    from heal_tpu_torch.tools.train import load_config
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    scene_args = flagship_cfg()["fusion"]["args"]
+    out = {}
+    for name in BASELINES:
+        cfg = load_config(os.path.join(root, "heal_tpu", "configs", "opv2v",
+                                       "more_modality",
+                                       f"m1m2m3m4_{name}.yaml"))
+        cfg["fusion"]["dataset"] = "synthetic"
+        cfg["fusion"]["args"] = dict(scene_args,
+                                     num_scenes_train=BASELINE_BATCH,
+                                     num_scenes_test=BASELINE_FRAMES)
+        cfg["train_params"]["batch_size"] = BASELINE_BATCH
+        out[name] = cfg
+    return out
+
+
+def _fusions(model) -> list:
+    """The fusion modules of a baseline model (one, or one a level)."""
+    return [m for n, m in model.named_children()
+            if n == "fusion" or n.startswith("fusions_")]
+
+
+@contextlib.contextmanager
+def fusion_time(model):
+    """CUDA events around the model's forward and its fusion modules in
+    every forward while the block runs; yields a dict filled at the end
+    with the mean ms over the forwards after the first of the fusion
+    calls (summed over the levels) and of the whole forward."""
+    marks: dict = {"frame": [], "fusion": []}
+    starts: list = []
+
+    def start(*_):
+        ev = torch.cuda.Event(enable_timing=True)
+        ev.record()
+        starts.append(ev)
+
+    def stop(name):
+        def hook(*_):
+            ev = torch.cuda.Event(enable_timing=True)
+            ev.record()
+            marks[name].append((starts.pop(), ev))
+        return hook
+
+    hooks = [model.register_forward_pre_hook(start),
+             model.register_forward_hook(stop("frame"))]
+    for f in _fusions(model):
+        hooks += [f.register_forward_pre_hook(start),
+                  f.register_forward_hook(stop("fusion"))]
+    result: dict = {}
+    try:
+        yield result
+    finally:
+        for h in hooks:
+            h.remove()
+    torch.cuda.synchronize()
+    per = len(marks["fusion"]) // max(len(marks["frame"]), 1)
+    frames = [a.elapsed_time(b) for a, b in marks["frame"]][1:]
+    fusion = [a.elapsed_time(b) for a, b in marks["fusion"]][per:]
+    result["frame"] = sum(frames) / len(frames)
+    result["fusion"] = sum(fusion) / len(frames)
+
+
+def phase_baselines(cfgs: dict) -> dict:
+    """The eight published baselines served and trained on one set of
+    device frames and one train batch (module docstring, phase 7);
+    returns each kernel's launches over the phase and the measurements."""
+    import numpy as np
+
+    from heal_tpu_torch.models.layers import channels_last
+    from heal_tpu_torch.tools import train as train_tool
+    from heal_tpu_torch.tools.inference import (build_weights, device_frames,
+                                                run_inference)
+
+    dev = torch.device("cuda")
+    t_phase = time.perf_counter()
+    first = cfgs[BASELINES[0]]
+    t0 = time.perf_counter()
+    frames = device_frames(first, dev, BASELINE_FRAMES)
+    batch, _ = next(train_tool.device_batches(first, BASELINE_BATCH, dev))
+    torch.cuda.synchronize()
+    print(f"[baselines] {len(frames)} test frames and one train batch of "
+          f"{BASELINE_BATCH} assembled and copied to the card once in "
+          f"{time.perf_counter() - t0:.2f} s")
+    if len(frames) != BASELINE_FRAMES:
+        raise AssertionError(f"{len(frames)} baseline frames")
+    total = {k: 0 for k in _counts()}
+    out = {}
+    for name, cfg in cfgs.items():
+        torch.cuda.empty_cache()
+        model32 = channels_last(build_weights(cfg, seed=SEED).to(dev))
+        model16 = copy.deepcopy(model32).to(torch.bfloat16)
+        runs, timing = {}, {}
+        _zero_counts()
+        for dname, model, dt in (("f32", model32, torch.float32),
+                                 ("bf16", model16, torch.bfloat16)):
+            with fusion_time(model) as timing[dname]:
+                runs[dname] = run_inference(cfg=cfg, device="cuda", dtype=dt,
+                                            model=model, collect_heads=True,
+                                            frames=frames)
+        served = _counts()
+        n = runs["f32"]["frames"] + runs["bf16"]["frames"]
+        want = {"pillar_tables": BASELINE_PILLAR_LAUNCHES * n,
+                "shift_rows": BASELINE_LAUNCHES[name] * n,
+                "shift_rows_backward": 0}
+        if served != want:
+            raise AssertionError(f"{name}: launches {served}, want {want}")
+        for dname, r in runs.items():
+            for i, h in enumerate(r["heads"]):
+                for k, t in h.items():
+                    if t.shape[:3] != (1, 128, 256) or not torch.isfinite(
+                            t).all():
+                        raise AssertionError(f"{name} {dname} frame {i} {k}:"
+                                             " bad output")
+        comm = runs["f32"].get("comm_rate")
+        if name == "where2comm" and not (comm is not None and 0 < comm <= 1):
+            raise AssertionError(f"where2comm comm_rate {comm}")
+
+        # kernels vs plain versions on the same device frames
+        def heads():
+            with torch.inference_mode():
+                return [{k: v.float() for k, v in model32(f).items()
+                         if k in ("cls_preds", "reg_preds", "dir_preds")}
+                        for _, f in frames]
+
+        torch.use_deterministic_algorithms(True, warn_only=True)
+        try:
+            det = heads()
+            compared = _counts()
+            with plain_kernels():
+                ref = heads()
+        finally:
+            torch.use_deterministic_algorithms(False)
+        if _counts() != compared:
+            raise AssertionError(f"{name}: the plain run launched a kernel")
+        worst = max(rel_err(a[k], b[k])[1] for a, b in zip(det, ref)
+                    for k in a)
+        if not worst <= HEADS_TOL:
+            raise AssertionError(f"{name} heads, kernels vs plain: {worst}")
+        del model16
+        for k in total:  # the comparison's launches do not count
+            total[k] += served[k]
+
+        # training: one warm and BASELINE_STEPS timed f32 steps, one bf16
+        model32.cpu()
+        del model32
+        torch.cuda.empty_cache()
+        _zero_counts()
+        tr = train_tool.build_trainer(cfg, dev, 1)
+        fusion_params = {n: p for n, p in tr.model.named_parameters()
+                         if n.split(".")[0] == "fusion"
+                         or n.startswith("fusions_")}
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        losses, times = [], []
+        for step in range(1 + BASELINE_STEPS):
+            t0 = time.perf_counter()
+            aux = tr.train_step(batch)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+            losses.append(float(aux["total_loss"]))
+        peak32 = torch.cuda.max_memory_allocated() / 2**30
+        dead = [n for n, p in fusion_params.items()
+                if p.grad is None or not bool(p.grad.abs().max() > 0)]
+        # the bf16 policy: a warm step (its first call picks the bf16
+        # convolution algorithms), then one timed
+        tr.bf16 = True
+        tr.train_step(batch)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        aux16 = tr.train_step(batch)
+        torch.cuda.synchronize()
+        ms16 = 1e3 * (time.perf_counter() - t0)
+        peak16 = torch.cuda.max_memory_allocated() / 2**30
+        losses.append(float(aux16["total_loss"]))
+        trained = _counts()
+        del tr
+        if not all(map(math.isfinite, losses)):
+            raise AssertionError(f"{name} train losses {losses}")
+        if dead:
+            raise AssertionError(f"{name}: fusion parameters without a "
+                                 f"gradient: {dead[:5]}")
+        if trained["pillar_tables"] != 0 or trained["shift_rows"] <= 0 \
+                or trained["shift_rows_backward"] <= 0:
+            raise AssertionError(f"{name} training launches {trained}")
+        for k in total:
+            total[k] += trained[k]
+
+        ms32 = 1e3 * sum(times[1:]) / BASELINE_STEPS
+        row = {"launches_per_frame": {k: served[k] // n for k in served},
+               "heads_rel": worst, "train_launches": trained,
+               "ms_step_f32": ms32, "ms_step_bf16": ms16,
+               "peak_gib_f32": peak32, "peak_gib_bf16": peak16,
+               "losses": losses, "comm_rate": comm,
+               "fusion_params": len(fusion_params)}
+        for dname, r in runs.items():
+            steady = r["serve_s"][1:]
+            row[f"ms_frame_{dname}"] = 1e3 * float(np.mean(steady))
+            row[f"fps_{dname}"] = len(steady) / sum(steady)
+            row[f"fusion_ms_{dname}"] = timing[dname]["fusion"]
+            row[f"forward_ms_{dname}"] = timing[dname]["frame"]
+        out[name] = row
+        print(f"[baselines] {name} ({cfg['model']['core_method']}, fusion "
+              f"{cfg['model']['args']['fusion_method']}): launches a frame "
+              f"{row['launches_per_frame']}; f32 heads vs plain max rel err "
+              f"{worst:.3e} (tol {HEADS_TOL})"
+              + (f"; comm_rate {comm:.4f}" if comm is not None else ""))
+        for dname in ("f32", "bf16"):
+            fus, fwd = row[f"fusion_ms_{dname}"], row[f"forward_ms_{dname}"]
+            print(f"[baselines] {name} serve {dname}: "
+                  f"{row[f'ms_frame_{dname}']:.3f} ms/frame, "
+                  f"{row[f'fps_{dname}']:.3f} frames/s over "
+                  f"{BASELINE_FRAMES - 1} frames after the first; the fusion "
+                  f"{fus:.3f} ms = {100 * fus / fwd:.1f}% of the forward "
+                  f"({fwd:.3f} ms, CUDA events)")
+        print(f"[baselines] {name} train, batch {BASELINE_BATCH}: f32 "
+              f"{ms32:.3f} ms/step (mean of {BASELINE_STEPS} after a warm "
+              f"one), peak {peak32:.3f} GiB; bf16 {ms16:.3f} ms/step (after "
+              f"a warm one), peak {peak16:.3f} GiB; losses "
+              + ", ".join(f"{x:.4f}" for x in losses)
+              + f"; {len(fusion_params)} fusion parameters, each with a "
+              f"nonzero gradient; launches {trained}")
+    print(f"[baselines] phase {time.perf_counter() - t_phase:.1f} s; "
+          f"launches {total}")
+    return {"launches": total, "rows": out}
+
+
 def phase_pipeline() -> None:
     """Epochs of the demo stage-2 m2 config on the host clock: batches
     assembled serially, through the prefetch pipeline, and from the
@@ -1322,10 +1590,16 @@ def main() -> int:
     del model32
     torch.cuda.empty_cache()
     protocol = phase_protocol(pcfgs)
+    torch.cuda.empty_cache()
+    baselines = phase_baselines(baseline_cfgs())
     phase_pipeline()
     for name in rows:
         rows[name]["protocol_launches"] = protocol["launches"][name]
         rows[name]["alliance_launches_per_frame"] = ALLIANCE_LAUNCHES[name]
+        rows[name]["baselines_launches"] = baselines["launches"][name]
+        rows[name]["baseline_launches_per_frame"] = {
+            b: r["launches_per_frame"][name]
+            for b, r in baselines["rows"].items()}
     rows["pillar_tables"]["train_launches"] = trained["pillar_tables"]
     rows["shift_rows"]["train_launches"] = trained["shift_rows"]
     rows["shift_rows"]["backward_launches"] = trained["shift_rows_backward"]
@@ -1348,6 +1622,8 @@ def main() -> int:
                  if "backward_launches" in k else "")
               + f", {k['protocol_launches']} in the protocol phase "
               f"({k['alliance_launches_per_frame']} a served alliance frame)"
+              f", {k['baselines_launches']} in the baselines phase (a "
+              f"frame: {k['baseline_launches_per_frame']})"
               + f"; {k['bytes']} bytes, bound {k['bound_ms']:.4f} ms "
               f"({k['bound_by']}), {k['ms']:.4f} ms = {k['pct_of_bound']:.1f}%"
               f" of bound, plain {k['plain_ms']:.4f} ms, library call "

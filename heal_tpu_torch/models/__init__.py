@@ -1,4 +1,5 @@
-"""Model zoo (torch): the modules of the m1 Pyramid-collab path.
+"""Model zoo (torch): HEAL's pyramid models (collab and stage-2 single)
+and the heterogeneous baselines with the fusion zoo.
 
 Module and parameter names follow the flax paths of ``heal_tpu.models``,
 so utils/bridge.py maps flax variables onto them mechanically.

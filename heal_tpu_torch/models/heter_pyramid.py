@@ -53,6 +53,13 @@ def is_camera(cfg: dict) -> bool:
     return cfg.get("sensor_type", "lidar") == "camera"
 
 
+def lidar_first(modalities, args: dict):
+    """Lidar agent types before camera ones (heal_tpu heter_pyramid.py
+    :46-54): the lidar grid sets the canvas a camera BEV is cropped or
+    padded to."""
+    return sorted(modalities, key=lambda m: is_camera(args[m]))
+
+
 def center_crop_or_pad(feat: torch.Tensor, th: int, tw: int) -> torch.Tensor:
     """Center crop / zero-pad (N, H, W, C) to (N, th, tw, C): the
     reference's torchvision CenterCrop of camera BEV features, which pads

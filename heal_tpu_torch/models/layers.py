@@ -9,11 +9,16 @@ every constructor takes ``cin``.
 
 ``Norm`` follows ``module.train()``: batch statistics (and the flax
 running-average update) in train mode, running statistics in eval mode.
+The fusion zoo's flax primitives live here too: ``LayerNorm``, ``gelu``,
+``Dropout`` with its random stream (``rng_streams``), and
+``MultiHeadDotProductAttention`` with flax's projection layouts.
 The TPU-only s2d width pack of heal_tpu (layers.py:380-393) is not
 ported; the reference for it is the dense path JAX takes off the TPU.
 """
 from __future__ import annotations
 
+import contextlib
+import math
 from typing import Sequence
 
 import torch
@@ -85,6 +90,16 @@ class Norm(nn.Module):
         return (x * mul.reshape(shape) + add.reshape(shape)).to(x.dtype)
 
 
+def channels_last(model: nn.Module) -> nn.Module:
+    """``model.to(memory_format=torch.channels_last)`` for its 4-D
+    parameters and buffers (the convolution kernels), in place. torch's
+    own conversion refuses V2X-ViT's 5-D relation matrices."""
+    for t in (*model.parameters(), *model.buffers()):
+        if t.dim() == 4:
+            t.data = t.data.contiguous(memory_format=torch.channels_last)
+    return model
+
+
 def update_running(buf: torch.Tensor, batch: torch.Tensor, mom: float):
     """buf <- mom*buf + (1-mom)*batch, in place, outside the graph."""
     with torch.no_grad():
@@ -115,13 +130,197 @@ class Dense(nn.Module):
     """flax ``nn.Dense`` over the last axis; the kernel keeps flax's
     (in, out) layout, so the bridge copies it as it is."""
 
-    def __init__(self, cin: int, features: int):
+    def __init__(self, cin: int, features: int, use_bias: bool = True):
         super().__init__()
         self.kernel = nn.Parameter(torch.empty(cin, features))
-        self.bias = nn.Parameter(torch.zeros(features))
+        self.bias = nn.Parameter(torch.zeros(features)) if use_bias else None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return x @ self.kernel + self.bias
+        y = x @ self.kernel
+        return y if self.bias is None else y + self.bias
+
+
+def gelu(x: torch.Tensor) -> torch.Tensor:
+    """flax ``nn.gelu``: the tanh approximation."""
+    return F.gelu(x, approximate="tanh")
+
+
+@contextlib.contextmanager
+def rng_streams(model: nn.Module, **generators: torch.Generator):
+    """flax's ``rngs``: while the block runs, each module of ``model``
+    that draws from a named stream (its ``stream`` attribute: "dropout",
+    "comm") takes the generator of that name as its ``generator``; the
+    others, and all of them after the block, have none."""
+    takers = [m for m in model.modules()
+              if getattr(m, "stream", None) in generators]
+    for m in takers:
+        m.generator = generators[m.stream]
+    try:
+        yield
+    finally:
+        for m in takers:
+            m.generator = None
+
+
+class Dropout(nn.Module):
+    """flax ``nn.Dropout(rate, deterministic=not train)``: in train mode
+    it zeroes with probability ``rate`` and scales by 1/(1-rate), the keep
+    mask drawn from the ``dropout`` stream (:func:`rng_streams`); like
+    flax, it raises in train mode without one. The masks are not JAX's
+    bits."""
+
+    stream = "dropout"
+
+    def __init__(self, rate: float):
+        super().__init__()
+        self.rate = float(rate)
+        self.generator = None
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if not self.training or self.rate == 0.0:
+            return x
+        gen = self.generator
+        if gen is None:
+            raise RuntimeError("Dropout in train mode needs a 'dropout' "
+                               "stream (layers.rng_streams)")
+        keep = 1.0 - self.rate
+        mask = torch.rand(x.shape, generator=gen, device=x.device) < keep
+        return torch.where(mask, x / keep, torch.zeros((), dtype=x.dtype,
+                                                       device=x.device))
+
+
+class DenseGeneral(nn.Module):
+    """The query / key / value / out projections of flax's
+    ``MultiHeadDotProductAttention``, in flax's layouts: with ``cin`` it
+    maps (..., cin) -> (..., heads, dh), kernel (cin, heads, dh) and bias
+    (heads, dh); with ``cout`` it maps (..., heads, dh) -> (..., cout),
+    kernel (heads, dh, cout) and bias (cout,)."""
+
+    def __init__(self, heads: int, dh: int, *, cin: int | None = None,
+                 cout: int | None = None):
+        super().__init__()
+        if (cin is None) == (cout is None):
+            raise ValueError("give exactly one of cin and cout")
+        self.split = cin is not None
+        if self.split:
+            self.kernel = nn.Parameter(torch.empty(cin, heads, dh))
+            self.bias = nn.Parameter(torch.zeros(heads, dh))
+            self.flax_init = {"kernel": ("lecun", cin)}
+        else:
+            self.kernel = nn.Parameter(torch.empty(heads, dh, cout))
+            self.bias = nn.Parameter(torch.zeros(cout))
+            self.flax_init = {"kernel": ("lecun", heads * dh)}
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.split:
+            c, m, d = self.kernel.shape
+            return (x @ self.kernel.reshape(c, m * d)).unflatten(
+                -1, (m, d)) + self.bias
+        m, d, c = self.kernel.shape
+        return x.flatten(-2) @ self.kernel.reshape(m * d, c) + self.bias
+
+
+# logits of one chunk of _BiasedAttention: ~256 MB
+_ATTN_CHUNK_BYTES = 1 << 28
+
+
+class _BiasedAttention(torch.autograd.Function):
+    """softmax(q k^T + bias) v over chunks of the batch, keeping only its
+    inputs for the backward, which recomputes each chunk's probabilities
+    (the plain autograd graph keeps every pass's (N, M, T, T)
+    probabilities: CoBEVT's six window passes over a batch of 2 at the
+    published width would hold ~40 GB). q (N, M, Tq, dh), already scaled;
+    k, v (N, M, Tk, dh); bias (1 or N, M, Tq, Tk)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, bias):
+        n, m, tq, _ = q.shape
+        per = m * tq * k.shape[2] * q.element_size()
+        chunk = max(1, _ATTN_CHUNK_BYTES // per)
+        out = q.new_empty(q.shape[:3] + v.shape[3:])
+        for s in range(0, n, chunk):
+            sl = slice(s, s + chunk)
+            b = bias if bias.shape[0] == 1 else bias[sl]
+            attn = torch.softmax(q[sl] @ k[sl].transpose(-1, -2) + b, dim=-1)
+            out[sl] = attn @ v[sl]
+        ctx.save_for_backward(q, k, v, bias)
+        ctx.chunk = chunk
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        q, k, v, bias = ctx.saved_tensors
+        dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
+        dbias = torch.zeros(bias.shape, dtype=torch.float32,
+                            device=bias.device)
+        for s in range(0, q.shape[0], ctx.chunk):
+            sl = slice(s, s + ctx.chunk)
+            b = bias if bias.shape[0] == 1 else bias[sl]
+            attn = torch.softmax(q[sl] @ k[sl].transpose(-1, -2) + b, dim=-1)
+            dv[sl] = attn.transpose(-1, -2) @ g[sl]
+            da = g[sl] @ v[sl].transpose(-1, -2)
+            dl = attn * (da - (da * attn).sum(-1, keepdim=True))
+            dq[sl] = dl @ k[sl]
+            dk[sl] = dl.transpose(-1, -2) @ q[sl]
+            if bias.shape[0] == 1:
+                dbias += dl.sum(0, keepdim=True, dtype=torch.float32)
+            else:
+                dbias[sl] = dl
+        return dq, dk, dv, dbias.to(bias.dtype)
+
+
+def dot_product_attention(q, k, v, bias=None, mask=None):
+    """flax ``nn.dot_product_attention``: q (..., Tq, M, dh), k and v
+    (..., Tk, M, dh); q is scaled by 1/sqrt(dh) before the product, the
+    float ``bias`` (broadcast to (..., M, Tq, Tk)) added, logits where the
+    boolean ``mask`` is False set to the dtype's most negative value, a
+    softmax over Tk -> (..., Tq, M, dh). With a bias and no mask (the
+    window attentions of CoBEVT and V2X-ViT) it runs in chunks that keep
+    no probabilities for the backward (:class:`_BiasedAttention`)."""
+    q = q / math.sqrt(q.shape[-1])
+    if bias is not None and mask is None:
+        lead = q.shape[:-3]
+        qh, kh, vh = (t.reshape((-1,) + t.shape[-3:]).transpose(1, 2)
+                      for t in (q, k, v))
+        b = bias.reshape((-1,) + bias.shape[-3:]) if bias.dim() > 3 \
+            else bias[None]
+        out = _BiasedAttention.apply(qh, kh, vh, b.to(q.dtype))
+        return out.transpose(1, 2).reshape(lead + out.shape[2:3]
+                                           + out.shape[1:2] + out.shape[3:])
+    logits = torch.einsum("...qhd,...khd->...hqk", q, k)
+    if bias is not None:
+        logits = logits + bias
+    if mask is not None:
+        logits = logits.masked_fill(~mask, torch.finfo(logits.dtype).min)
+    attn = torch.softmax(logits, dim=-1)
+    return torch.einsum("...hqk,...khd->...qhd", attn, v)
+
+
+class MultiHeadDotProductAttention(nn.Module):
+    """flax ``nn.MultiHeadDotProductAttention(num_heads, qkv_features=dim)``
+    with the output width of the input: inputs (..., T, C), ``mask``
+    boolean broadcast to (..., M, Tq, Tk), ``bias`` float likewise (the
+    ``attention_fn`` with a bias of CoBEVT and V2X-ViT)."""
+
+    def __init__(self, cin: int, heads: int, dim: int | None = None):
+        super().__init__()
+        dim = cin if dim is None else dim
+        if dim % heads:
+            raise ValueError(f"qkv width {dim} is not a multiple of {heads} "
+                             "heads")
+        dh = dim // heads
+        self.query = DenseGeneral(heads, dh, cin=cin)
+        self.key = DenseGeneral(heads, dh, cin=cin)
+        self.value = DenseGeneral(heads, dh, cin=cin)
+        self.out = DenseGeneral(heads, dh, cout=cin)
+
+    def forward(self, inputs_q, inputs_k=None, inputs_v=None, mask=None,
+                bias=None):
+        inputs_k = inputs_q if inputs_k is None else inputs_k
+        inputs_v = inputs_k if inputs_v is None else inputs_v
+        x = dot_product_attention(self.query(inputs_q), self.key(inputs_k),
+                                  self.value(inputs_v), bias=bias, mask=mask)
+        return self.out(x)
 
 
 class LayerNorm(nn.Module):
@@ -289,35 +488,60 @@ class DownsampleConv(nn.Module):
         return x
 
 
+def _init_rule(p: torch.Tensor, rule: tuple, generator: torch.Generator):
+    """A module's own flax initializer for one parameter: ("lecun",
+    fan_in), ("xavier", fan_in, fan_out) or ("normal", std)."""
+    kind = rule[0]
+    if kind == "lecun":
+        std = (1.0 / rule[1]) ** 0.5 / 0.87962566103423978
+        nn.init.trunc_normal_(p, 0.0, std, -2 * std, 2 * std,
+                              generator=generator)
+    elif kind == "xavier":
+        limit = (6.0 / (rule[1] + rule[2])) ** 0.5
+        nn.init.uniform_(p, -limit, limit, generator=generator)
+    elif kind == "normal":
+        nn.init.normal_(p, 0.0, rule[1], generator=generator)
+    else:
+        raise ValueError(f"unknown init rule {rule!r}")
+
+
 def init_weights(model: nn.Module, generator: torch.Generator) -> nn.Module:
     """Seeded random init in flax's defaults: lecun-normal kernels
     (truncated at 2 std; SECOND's (27, Cin, Cout) kernels he-normal, as
     heal_tpu second.py:49), zero biases, unit BN and LayerNorm scales,
     ConvNeXt's layer scale ``gamma`` 1e-6 (heal_tpu aligner.py:52-54; zero
     would make each block the identity and stop its gradient); running
-    mean 0 and variance 1. Every kernel is a parameter named ``*kernel``."""
+    mean 0 and variance 1. Every kernel is a parameter named ``*kernel``.
+    A module's ``flax_init`` (leaf -> rule of :func:`_init_rule`) takes
+    precedence: the attention projections, typed denses, relation
+    matrices and relative-position tables of the fusion zoo."""
     with torch.no_grad():
-        for name, p in model.named_parameters():
-            leaf = name.rsplit(".", 1)[-1]
-            if leaf.endswith("kernel"):
-                gain = 1.0
-                if p.dim() == 2:  # (in, out) dense kernel
-                    fan_in = p.shape[0]
-                elif p.dim() == 3:  # SECOND's (27, Cin, Cout): he-normal
-                    fan_in, gain = p.shape[0] * p.shape[1], 2.0
-                elif name.endswith("ConvTranspose_0.kernel"):  # (I, O, s, s)
-                    fan_in = p.shape[0] * p.shape[2] * p.shape[3]
-                else:  # (O, I, kh, kw)
-                    fan_in = p.shape[1] * p.shape[2] * p.shape[3]
-                std = (gain / fan_in) ** 0.5 / 0.87962566103423978
-                nn.init.trunc_normal_(p, 0.0, std, -2 * std, 2 * std,
-                                      generator=generator)
-            elif leaf in ("scale", "bn_scale"):
-                p.fill_(1.0)
-            elif leaf == "gamma":
-                p.fill_(1e-6)
-            else:
-                p.zero_()
+        for mname, module in model.named_modules():
+            rules = getattr(module, "flax_init", {})
+            for leaf, p in module.named_parameters(recurse=False):
+                name = f"{mname}.{leaf}" if mname else leaf
+                if leaf in rules:
+                    _init_rule(p, rules[leaf], generator)
+                elif leaf.endswith("kernel"):
+                    gain = 1.0
+                    if p.dim() == 2:  # (in, out) dense kernel
+                        fan_in = p.shape[0]
+                    elif p.dim() == 3:  # SECOND's (27, Cin, Cout): he-normal
+                        fan_in, gain = p.shape[0] * p.shape[1], 2.0
+                    elif name.endswith("ConvTranspose_0.kernel"):
+                        # (I, O, s, s)
+                        fan_in = p.shape[0] * p.shape[2] * p.shape[3]
+                    else:  # (O, I, kh, kw)
+                        fan_in = p.shape[1] * p.shape[2] * p.shape[3]
+                    std = (gain / fan_in) ** 0.5 / 0.87962566103423978
+                    nn.init.trunc_normal_(p, 0.0, std, -2 * std, 2 * std,
+                                          generator=generator)
+                elif leaf in ("scale", "bn_scale"):
+                    p.fill_(1.0)
+                elif leaf == "gamma":
+                    p.fill_(1e-6)
+                else:
+                    p.zero_()
         for name, buf in model.named_buffers():
             leaf = name.rsplit(".", 1)[-1]
             buf.fill_(1.0 if leaf in ("var", "bn_var") else 0.0)

@@ -1,7 +1,8 @@
 """Model and loss registries (torch), keyed by the config's ``core_method``.
 
 Counterpart of heal_tpu/models/registry.py. Ported so far: the models
-``heter_pyramid_collab`` and ``heter_pyramid_single`` and the losses
+``heter_pyramid_collab``, ``heter_pyramid_single``,
+``heter_model_baseline`` and ``heter_model_baseline_ms``, and the losses
 ``point_pillar_loss`` and ``point_pillar_pyramid_loss``.
 """
 from __future__ import annotations
@@ -26,12 +27,16 @@ def register_loss(name: str):
     return deco
 
 
-def build_model(model_cfg: dict):
+def build_model(model_cfg: dict, max_cav: int | None = None):
     """Build the torch module of the config's ``model`` section, in eval
-    mode, parameters uninitialised (bridge or ``init_weights`` them)."""
+    mode, parameters uninitialised (bridge or ``init_weights`` them).
+    ``max_cav``: the agent axis L of the batches (``train_params.max_cav``)
+    for the models that size parameters by it (``needs_max_cav``: the
+    baselines, whose CoBEVT bias table spans the agents)."""
     name = model_cfg["core_method"]
     if name not in MODEL_REGISTRY:
-        from . import heter_pyramid  # noqa: F401  (registers its models)
+        # importing the model modules registers their models
+        from . import heter_baseline, heter_pyramid  # noqa: F401
     if name not in MODEL_REGISTRY:
         raise KeyError(
             f"model core_method {name!r} is not ported; ported: "
@@ -44,7 +49,10 @@ def build_model(model_cfg: dict):
         base = str(args.get("norm", "batch")).split("@")[0]
         if base == "batch":
             args = dict(args, norm=f"batch@{float(args['bn_momentum'])}")
-    return MODEL_REGISTRY[name](args).eval()
+    cls = MODEL_REGISTRY[name]
+    if getattr(cls, "needs_max_cav", False):
+        return cls(args, max_cav=max_cav).eval()
+    return cls(args).eval()
 
 
 def build_loss(loss_cfg: dict):

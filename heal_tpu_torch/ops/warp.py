@@ -140,6 +140,35 @@ def affine_warp_shear(src: torch.Tensor, M: torch.Tensor) -> torch.Tensor:
     )
 
 
+def _method(features: torch.Tensor, method: str) -> str:
+    if method == "auto":
+        method = "shear" if features.is_cuda else "exact"
+    if method not in ("shear", "exact"):
+        raise ValueError(f"unknown warp method {method!r}")
+    return method
+
+
+def warp_pairwise(
+    features: torch.Tensor, affine: torch.Tensor, method: str = "auto"
+) -> torch.Tensor:
+    """All-pairs warp: sender j's map into every receiver i's frame.
+
+    features (B, L, H, W, C); affine (B, I, J, 2, 3), where affine[b, i, j]
+    maps receiver i's pixel coords into sender j's frame. Returns
+    (B, I, J, H, W, C). All B·I·J maps warp in one call (one batch of
+    kernel-2 launches for "shear"); the diagonal is warped too, as in
+    JAX, where its identity affine makes the warp a copy.
+    """
+    method = _method(features, method)
+    b, l, h, w, c = features.shape
+    i = affine.shape[1]
+    x = features[:, None].expand(b, i, l, h, w, c).reshape(b * i * l, h, w, c)
+    m = affine.reshape(b * i * l, 2, 3)
+    moved = (affine_warp_shear(x, m) if method == "shear"
+             else affine_warp(x, m))
+    return moved.reshape(b, i, l, h, w, c)
+
+
 def warp_agents_to_ego(
     features: torch.Tensor,
     affine: torch.Tensor,
@@ -156,11 +185,7 @@ def warp_agents_to_ego(
     skip_ego: the ego->ego affine is the identity, so slot 0 passes
     through untouched.
     """
-    if method == "auto":
-        method = "shear" if features.is_cuda else "exact"
-    if method not in ("shear", "exact"):
-        raise ValueError(f"unknown warp method {method!r}")
-
+    method = _method(features, method)
     b, l, h, w, c = features.shape
     to_ego = affine[:, 0]  # (B, L, 2, 3)
     first = 1 if (skip_ego and l > 1) else 0

@@ -14,18 +14,42 @@ Counterpart of heal_tpu/parallel/trainer.py on one device:
   * frozen modules (``fix_modules``, HEAL stage 2; parallel/freezing.py):
     no gradient and no optimizer slot for their parameters, and eval mode
     in the train step, so their weights and running statistics keep the
-    loaded values bit for bit.
+    loaded values bit for bit;
+  * random streams (JAX trainer.py:86-92,119-126,171-172): each train
+    step opens a ``comm`` and a ``dropout`` torch.Generator on the
+    model's device, seeded by (``rng_seed``, step) alone
+    (:func:`step_streams`), so a step draws the same whatever ran before
+    it; Where2comm's threshold sampling and the fusion transformers'
+    dropout draw from them (models/layers.rng_streams). ``rng_seed=None``
+    opens none, as JAX's step without rngs.
 Steps return their aux dict as device scalars and never synchronise.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 from typing import Any, Callable
 
 import numpy as np
 import torch
 
+from ..models.layers import rng_streams
 from .freezing import freeze, frozen_eval
+
+STREAMS = ("comm", "dropout")
+
+
+def step_streams(seed: int, step: int, device) -> dict:
+    """The named generators of train step ``step``: each seeded from
+    (seed, step, its index in STREAMS) through numpy's SeedSequence."""
+    device = torch.device(device)
+    out = {}
+    for k, name in enumerate(STREAMS):
+        state = np.random.SeedSequence((seed, step, k)).generate_state(2)
+        gen = torch.Generator(device=device)
+        gen.manual_seed(int(state[0]) << 32 | int(state[1]))
+        out[name] = gen
+    return out
 
 
 def _label_targets(batch: dict) -> dict:
@@ -123,6 +147,9 @@ class Trainer:
     # top-level modules kept at their loaded values (the model's own
     # ``fix_modules`` in tools/train.py)
     fix_modules: tuple = ()
+    # base seed of the per-step ``comm`` and ``dropout`` streams; None
+    # opens no stream
+    rng_seed: int | None = 0
 
     def __post_init__(self):
         if self.fix_modules:
@@ -153,6 +180,8 @@ class Trainer:
         frozen_eval(self.model, self.fix_modules)
         out = self._forward(batch)
         loss, aux = self.criterion(out, _label_targets(batch))
+        if "comm_rate" in out:  # where2comm's bandwidth, as JAX logs it
+            aux = dict(aux, comm_rate=out["comm_rate"])
         if self.supervise_single:
             loss_s, aux_s = self.criterion(out, _single_targets(batch),
                                            "_single")
@@ -164,7 +193,8 @@ class Trainer:
         """One update on a device batch (see :func:`to_device`). After it,
         each parameter's ``.grad`` holds this step's gradient."""
         self.optimizer.zero_grad(set_to_none=True)
-        loss, aux = self.loss(batch)
+        with self.streams():
+            loss, aux = self.loss(batch)
         loss.backward()
         lr = self.schedule(self.step)
         for group in self.optimizer.param_groups:
@@ -172,6 +202,15 @@ class Trainer:
         self.optimizer.step()
         self.step += 1
         return {k: v.detach() for k, v in dict(aux, total_loss=loss).items()}
+
+    def streams(self):
+        """The context of this step's random streams (none without a
+        seed)."""
+        if self.rng_seed is None:
+            return contextlib.nullcontext()
+        device = next(self.model.parameters()).device
+        return rng_streams(self.model,
+                           **step_streams(self.rng_seed, self.step, device))
 
     @torch.no_grad()
     def eval_step(self, batch: dict) -> dict[str, Any]:

@@ -4,9 +4,9 @@ Counterpart of heal_tpu/tools/inference.py ``run_inference`` for the
 intermediate-fusion path: dataset (the port's numpy host side) -> model
 -> decode + rotated NMS -> AP@0.3/0.5/0.7 with the VOC matcher of
 utils/eval_np.py, and for each camera agent type its depth RMSE
-(``depth_rmse_mX``, utils/camera.depth_metric) beside the AP.
-Late fusion, two-stage models, comm rate and visualisation are not
-ported yet.
+(``depth_rmse_mX``, utils/camera.depth_metric) beside the AP, and for
+Where2comm the mean ``comm_rate`` over the frames. Late fusion,
+two-stage models and visualisation are not ported yet.
 
     python -m heal_tpu_torch.tools.inference --config heal_tpu/configs/opv2v_m1_pyramid.yaml \
         [--checkpoint net.pt | --seed 0] [--dtype bf16] [--max_batches 8]
@@ -33,7 +33,7 @@ import torch
 from ..config import load_yaml, reparse
 from ..data import build_dataset
 from ..models import build_model
-from ..models.layers import init_weights
+from ..models.layers import channels_last, init_weights
 from ..postprocess.decode import post_process_single, strip_padding
 from ..utils import box_np, camera, eval_np
 from ..utils.common_np import update_dict
@@ -44,7 +44,8 @@ _DTYPES = {"f32": torch.float32, "bf16": torch.bfloat16}
 
 def build_weights(cfg: dict, checkpoint: str | None = None, seed: int = 0):
     """The eval-mode model of ``cfg``, from a checkpoint or a seeded init."""
-    model = build_model(cfg["model"])
+    model = build_model(cfg["model"],
+                        max_cav=cfg["train_params"].get("max_cav", 5))
     if checkpoint is not None:
         model.load_state_dict(ckpt_lib.load_state_dict(checkpoint),
                               strict=True)
@@ -82,14 +83,30 @@ def apply_overrides(cfg: dict, *, noise_setting: dict | None = None,
 def _model_inputs(batch: dict, modalities, device) -> dict:
     """The arrays the model reads, as tensors on ``device``. Points,
     affines and labels stay f32 whatever the model's dtype."""
-    keys = ["agent_mask", "pairwise_affine"]
+    keys = ["agent_mask", "pairwise_affine", "agent_modality"]
     keys += [f"slots_{m}" for m in modalities]
-    out = {k: torch.from_numpy(np.asarray(batch[k])).to(device) for k in keys}
+    out = {k: torch.from_numpy(np.asarray(batch[k])).to(device) for k in keys
+           if k in batch}
     for m in modalities:
         out[f"inputs_{m}"] = {
             k: torch.from_numpy(np.asarray(v)).to(device)
             for k, v in batch[f"inputs_{m}"].items()
         }
+    return out
+
+
+def device_frames(cfg: dict, device, max_batches: int | None = None) -> list:
+    """The test split of ``cfg`` as (numpy batch, model inputs on
+    ``device``) pairs, one frame each: assembled and copied once, for
+    :func:`run_inference`'s ``frames`` (several models on one set of
+    frames)."""
+    dataset = build_dataset(cfg, train=False)
+    out = []
+    for batch in dataset.batches(1, shuffle=False):
+        out.append((batch, _model_inputs(batch, dataset.modalities,
+                                         torch.device(device))))
+        if max_batches and len(out) >= max_batches:
+            break
     return out
 
 
@@ -108,6 +125,7 @@ def run_inference(
     noise_setting: dict | None = None,
     cfg_override: dict | None = None,
     override_range=None,
+    frames: list | None = None,
 ) -> dict:
     """Serve the test split of ``cfg`` (or ``model_dir``'s config.yaml)
     and return the AP dict of utils/eval_np.py (written to
@@ -120,9 +138,12 @@ def run_inference(
       * ``depth_rmse_mX``: each camera type's depth RMSE in metres over
         the pixels with a lidar return (JAX's ``depth_metric``);
       * ``heads`` (``collect_heads``): per-frame f32 CPU copies of the
-        cls/reg/dir head outputs.
+        cls/reg/dir head outputs;
+      * ``comm_rate``: Where2comm's mean fraction of cells sent.
 
     ``model`` (already on ``device`` in ``dtype``) skips the weight setup.
+    ``frames`` (from :func:`device_frames`, on ``device``) are served
+    instead of assembling the test split; ``data_s`` is then 0.
     """
     if cfg is None:
         cfg = load_yaml("", model_dir=model_dir)
@@ -145,7 +166,7 @@ def run_inference(
     if model is None:
         model = build_weights(cfg, checkpoint, seed)
         model = model.to(device=device, dtype=dtype)
-        model = model.to(memory_format=torch.channels_last)
+        model = channels_last(model)
 
     post = cfg["postprocess"]
     anchors = torch.from_numpy(np.asarray(dataset.anchors, np.float32)).to(
@@ -153,7 +174,7 @@ def run_inference(
     gt_range = torch.tensor(post["gt_range"], dtype=torch.float32,
                             device=device)
     stat = eval_np.new_result_stat((0.3, 0.5, 0.7))
-    serve_s, data_s, heads = [], [], []
+    serve_s, data_s, heads, comm_rates = [], [], [], []
     # camera depth RMSE: each camera type's grid maps bins back to metres
     depth_grids = {
         m: s["grid_conf"] for m, s in
@@ -165,14 +186,18 @@ def run_inference(
         if device.type == "cuda":
             torch.cuda.synchronize(device)
 
-    batches = dataset.batches(1, shuffle=False)
+    if frames is None:
+        frames = ((b, None) for b in dataset.batches(1, shuffle=False))
     t_data = time.perf_counter()
     with torch.inference_mode():
-        for batch in batches:
-            data_s.append(time.perf_counter() - t_data)
+        for batch, inputs in frames:
+            data_s.append(0.0 if inputs is not None
+                          else time.perf_counter() - t_data)
             sync()
             t0 = time.perf_counter()
-            out = model(_model_inputs(batch, dataset.modalities, device))
+            if inputs is None:
+                inputs = _model_inputs(batch, dataset.modalities, device)
+            out = model(inputs)
             det = post_process_single(
                 out["cls_preds"][0].float(),
                 out["reg_preds"][0].float(),
@@ -188,6 +213,8 @@ def run_inference(
             )
             dense = strip_padding(det)  # copies to the host: synchronises
             serve_s.append(time.perf_counter() - t0)
+            if "comm_rate" in out:  # where2comm's bandwidth
+                comm_rates.append(float(out["comm_rate"]))
             if collect_heads:
                 heads.append({k: out[k].float().cpu() for k in
                               ("cls_preds", "reg_preds", "dir_preds")
@@ -215,6 +242,9 @@ def run_inference(
     result = eval_np.eval_final_results(
         stat, save_path=model_dir, infer_info=note or "intermediate"
     )
+    if comm_rates:
+        result["comm_rate"] = float(np.mean(comm_rates))
+        print(f"[inference] comm_rate {result['comm_rate']:.4f}")
     for m, (sse, n) in sorted(depth_sse.items()):
         if n:
             result[f"depth_rmse_{m}"] = float(np.sqrt(sse / n))

@@ -52,6 +52,7 @@ from ..config import load_yaml, save_yaml
 from ..data import build_dataset
 from ..data.prefetch import prefetch
 from ..models import build_loss
+from ..models.layers import channels_last
 from ..parallel import Trainer, build_optimizer, pin, to_device
 from ..parallel.freezing import freeze, trainable_parameters
 from . import checkpoint as ckpt_lib
@@ -163,7 +164,7 @@ def build_trainer(cfg: dict, device, steps_per_epoch: int, *,
     device = torch.device(device)
     model = model.to(device)
     if device.type == "cuda":
-        model = model.to(memory_format=torch.channels_last)
+        model = channels_last(model)
 
     fix_modules = tuple(getattr(model, "fix_modules", ()))
     if fix_modules:

@@ -11,7 +11,16 @@ layouts differ:
     (I, O, s, s), flipped on both spatial axes (flax's tap at output
     (i*s+di, j*s+dj) is kern[s-1-di, s-1-dj], heal_tpu layers.py:278-290);
   * ``pfn_kernel`` (10, F), norm scales/biases, conv biases and the
-    batch statistics: as they are.
+    batch statistics: as they are;
+  * the fusion zoo's leaves (models/fuse/), which the port keeps in
+    flax's layouts, so they pass as they are: ``Dense`` (in, out),
+    ``LayerNorm`` scale / bias, the ``MultiHeadDotProductAttention``
+    projections (query / key / value kernels (C, heads, dh) with (heads,
+    dh) biases, ``out`` (heads, dh, C)), V2X-ViT's typed denses (T, C,
+    D), its ``relation_att`` / ``relation_msg`` (T, T, heads, dh, dh),
+    and the ``rel_pos_bias`` tables; only their convolutions (V2VNet's
+    ``msg_cnn`` and GRU convs, DiscoNet's, Who2com's ``decode_layer``)
+    are HWIO -> OIHW like every conv.
 
 Inputs are nested dicts of numpy arrays (``jax.device_get(variables)``,
 or a checkpoint); nothing here imports jax.

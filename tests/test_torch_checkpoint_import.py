@@ -208,3 +208,57 @@ def test_heal_tpu_m3_checkpoint_loads_strictly_and_merges(tiny_ckpt,
         "branch_m1", "branch_m3", "pyramid_backbone", "shrink", "heads"}
     for k, t in jwant.items():
         assert torch.equal(got[k], t), k
+
+
+@pytest.mark.parametrize("method,ms", [
+    ("v2vnet", False), ("where2comm", False), ("cobevt", False),
+    ("v2xvit", False), ("att", True)])
+def test_heal_tpu_baseline_checkpoint_loads_strictly(method, ms, tmp_path):
+    """A heal_tpu ``.ckpt`` of ``heter_model_baseline`` (and of
+    ``heter_model_baseline_ms``, whose flax tree has no
+    ``fusion_backbone/stages_0``) loads strictly into the port, every
+    entry bit-equal to the bridge of the flax variables: the GRU convs,
+    the flax attention projections (query / key / value kernels (C,
+    heads, dh), out (heads, dh, C)), the typed denses (T, C, D), the
+    relation matrices (T, T, heads, dh, dh), the relative-position
+    tables, LayerNorm and Dense leaves under flax's auto-names."""
+    from heal_tpu_torch.tools.inference import build_weights
+    from test_torch_heter_baseline import baseline_cfg
+
+    cfg = baseline_cfg(method, ms)
+    batch = next(build_dataset(cfg, train=False).batches(
+        1, shuffle=False, process_split=False))
+    jm = build_flax(cfg["model"])
+    v = jax.device_get(jax.jit(lambda b: jm.init(
+        jax.random.PRNGKey(7), b, train=False))(jax.tree.map(jnp.asarray,
+                                                             batch)))
+    path = jax_ckpt.save_checkpoint(str(tmp_path / method), dict(v), 1)
+    sd = build_weights(cfg, checkpoint=path).state_dict()  # strict
+    want = from_flax(v["params"], v.get("batch_stats", {}))
+    assert sd.keys() == want.keys()
+    for k, t in sd.items():
+        assert torch.equal(t, want[k]), k
+    if ms:
+        assert "stages_0" not in v["params"]["fusion_backbone"]
+        assert any(k.startswith("fusion_backbone.stages_1") for k in sd)
+        return
+    kinds = {
+        "v2vnet": ["fusion.ConvGRUCell_0.Conv_0.kernel", "fusion.mlp.kernel"],
+        "where2comm": ["fusion.mha.query.kernel", "fusion.mha.out.kernel",
+                       "fusion.Dense_1.kernel", "fusion.LayerNorm_1.scale"],
+        "cobevt": ["fusion.block_0.SwapAttention_1.rel_pos_bias",
+                   "fusion.block_0.SwapAttention_0."
+                   "MultiHeadDotProductAttention_0.value.bias"],
+        "v2xvit": ["fusion.block_0.hmsa_0.relation_att",
+                   "fusion.block_0.hmsa_0.q.kernel",
+                   "fusion.block_0.mswin_0.win8.rel_pos_bias",
+                   "fusion.block_0.mswin_0.split_attn.Dense_1.kernel"],
+    }[method]
+    shapes = {k: tuple(sd[k].shape) for k in kinds}
+    assert all(len(s) > 0 for s in shapes.values()), shapes
+    if method == "v2xvit":
+        assert shapes["fusion.block_0.hmsa_0.relation_att"] == (5, 5, 8, 2, 2)
+        assert shapes["fusion.block_0.hmsa_0.q.kernel"] == (5, 16, 16)
+    if method == "where2comm":
+        assert shapes["fusion.mha.query.kernel"] == (16, 8, 2)
+        assert shapes["fusion.mha.out.kernel"] == (8, 2, 16)

@@ -230,6 +230,43 @@ def test_shear_warp_input_gradient_goes_through_the_kernel(dev, monkeypatch):
     _close(got, want, torch.float32)
 
 
+@pytest.mark.parametrize("c", [1, 5])
+def test_warp_pairwise_shear_on_the_card_matches_plain(dev, monkeypatch, c):
+    """``warp_pairwise`` takes the shear on a CUDA tensor: 5 kernel-2
+    launches a call (3 shears, 2 remainder shifts) for all B·I·J maps,
+    forward and backward, equal to the same warp through the plain
+    versions. c = 1 is V2VNet's field-of-view warp of ones."""
+    from heal_tpu_torch.ops.warp import warp_pairwise
+
+    feats, aff = _warp_case(dev)
+    feats = feats[..., :c].contiguous()
+    # every pair, not only the ego's row
+    aff = aff[:, :1].expand(aff.shape).contiguous()
+    aff = aff.transpose(1, 2).contiguous()
+    cot = torch.randn(feats.shape[:1] + (3,) + feats.shape[1:], device=dev,
+                      generator=torch.Generator(device=dev).manual_seed(2))
+
+    def run():
+        x = feats.clone().requires_grad_()
+        out = warp_pairwise(x, aff)
+        (out * cot).sum().backward()
+        return out.detach(), x.grad
+
+    fwd = shift_rows.shift_rows.launches
+    bwd = shift_rows.shift_rows.backward_launches
+    got, got_g = run()
+    assert shift_rows.shift_rows.launches == fwd + 5
+    assert shift_rows.shift_rows.backward_launches == bwd + 5
+    assert got.shape == (2, 3, 3, 24, 40, c)
+    monkeypatch.setattr(shift_rows, "shift_rows", shift_rows.shift_rows_plain)
+    monkeypatch.setattr(shift_rows, "shift_cols", shift_rows.shift_cols_plain)
+    want, want_g = run()
+    torch.cuda.synchronize()
+    assert want.abs().max() > 0 and want_g.abs().max() > 0
+    _close(got, want, torch.float32)
+    _close(got_g, want_g, torch.float32)
+
+
 def test_pillar_tables_raises_under_grad_on_the_card(dev):
     grid = pillar.PillarGrid(2, 4, 5, 1.0, 1.0, 0.5, 0.5, 0.0)
     u = torch.zeros((3, 8), device=dev, requires_grad=True)

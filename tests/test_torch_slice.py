@@ -123,6 +123,11 @@ _NO_JAX = _BLOCK + """
 import heal_tpu_torch
 from heal_tpu_torch.models import build_loss
 from heal_tpu_torch.parallel import Trainer, build_optimizer
+# the fusion zoo and the heterogeneous baselines
+from heal_tpu_torch.models import heter_baseline
+from heal_tpu_torch.models.fuse import (build_fusion, cobevt, legacy, v2xvit,
+                                        where2comm_comm)
+from heal_tpu_torch.ops.warp import warp_pairwise
 from heal_tpu_torch.tools.inference import build_weights, run_inference
 from heal_tpu_torch.tools.train import device_batches, load_config
 # HEAL's stages 2 and 3 (a heal_tpu .ckpt is read by utils.flax_msgpack)
@@ -157,12 +162,27 @@ batch, _ = next(device_batches(cfg, 2, "cpu"))
 losses = [trainer.train_step(batch)["total_loss"].item() for _ in range(2)]
 from heal_tpu_torch.tools import checkpoint
 build_weights(cfg, checkpoint=sys.argv[2])  # a heal_tpu .ckpt, strictly
+# a where2comm baseline served (its comm rate) and trained one step
+b_cfg = load_config(sys.argv[5])
+rb = run_inference(cfg=b_cfg, device="cpu", max_batches=1)
+bmodel = build_weights(b_cfg, seed=0)
+bopt, bsched = build_optimizer(bmodel.parameters(), b_cfg["optimizer"],
+                               b_cfg["lr_scheduler"], 8)
+btr = Trainer(bmodel, build_loss(b_cfg["loss"]), bopt, bsched,
+              supervise_single=True)
+baux = btr.train_step(next(device_batches(b_cfg, 1, "cpu"))[0])
+zoo = [type(build_fusion(m, {"in_channels": 16, "policy_width": 16}, 16,
+                         4)).__name__
+       for m in ("max", "att", "disconet", "v2vnet", "where2comm", "who2com",
+                 "v2xvit", "cobevt", "when2com", "transformer")]
 """ + _LOADED + """
 print(json.dumps({"frames": r["frames"], "steps": len(losses),
                   "falling": losses[1] < losses[0],
                   "camera": list(cam["inputs_m2"]["imgs"].shape),
                   "second": list(m3_heads.shape),
-                  "loaded": loaded}))
+                  "comm": 0 < rb["comm_rate"] <= 1,
+                  "baseline_step": sorted(k for k in baux if "comm" in k),
+                  "zoo": zoo, "loaded": loaded}))
 """
 
 # chip_smoke.py's host side: the flagship config and one test batch, and
@@ -179,6 +199,12 @@ cfgs = chip_smoke.protocol_cfgs()
 final, _ = next(device_batches(cfgs["final"], 1, "cpu", train=False))
 singles = [build_model(cfgs[k]["model"])
            for k in ("stage2", "stage2_m2", "stage2_m3")]
+baselines = {
+    name: [type(m).__name__,
+           [type(f).__name__ for f in chip_smoke._fusions(m)]]
+    for name, m in ((n, build_model(c["model"],
+                                    max_cav=c["train_params"]["max_cav"]))
+                    for n, c in chip_smoke.baseline_cfgs().items())}
 """ + _LOADED + """
 print(json.dumps({"points": list(batch["inputs_m1"]["points"].shape),
                   "agents": int(batch["agent_mask"].sum()),
@@ -190,6 +216,7 @@ print(json.dumps({"points": list(batch["inputs_m1"]["points"].shape),
                              for m in singles],
                   "cached": cfgs["stage2_m2"]["train_params"][
                       "cache_device_batches"],
+                  "baselines": baselines,
                   "loaded": loaded}))
 """
 
@@ -206,19 +233,30 @@ def _run_blocked(script, *args):
 
 def test_port_never_imports_jax(tmp_path):
     from heal_tpu.tools.checkpoint import save_checkpoint
+    from heal_tpu_torch.config import save_yaml
     from heal_tpu_torch.models.layers import init_weights
     from heal_tpu_torch.utils.bridge import to_flax
+    from test_torch_heter_baseline import baseline_cfg
 
     model = init_weights(build_torch(load_yaml(TINY)["model"]),
                          torch.Generator().manual_seed(0))
     params, stats = to_flax(model.state_dict())
     ckpt = save_checkpoint(str(tmp_path), {"params": params,
                                            "batch_stats": stats}, 1)
+    w2c = baseline_cfg("where2comm")
+    w2c["fusion"]["args"].update(num_scenes_train=1, num_scenes_test=1)
+    save_yaml(w2c, str(tmp_path / "w2c.yaml"))
     out = _run_blocked(_NO_JAX, os.path.join(REPO, TINY), ckpt,
                        os.path.join(REPO, "tests/configs/tiny_heter_m1m2.yaml"),
-                       os.path.join(REPO, "tests/configs/entry_m3_single.yaml"))
+                       os.path.join(REPO, "tests/configs/entry_m3_single.yaml"),
+                       str(tmp_path / "w2c.yaml"))
     assert out == {"frames": 1, "steps": 2, "falling": True,
                    "camera": [1, 3, 4, 128, 192, 3], "second": [1, 32, 32, 2],
+                   "comm": True, "baseline_step": ["comm_rate"],
+                   "zoo": ["MaxFusion", "AttFusion", "DiscoFusion",
+                           "V2VNetFusion", "Where2commFusion",
+                           "Who2comFusion", "V2XViTFusion", "CoBEVTFusion",
+                           "When2comFusion", "TransformerFusion"],
                    "loaded": []}
 
 
@@ -231,4 +269,15 @@ def test_chip_smoke_never_imports_jax():
                    "stage2": [["HeterPyramidSingle", "m4", frozen],
                               ["HeterPyramidSingle", "m2", frozen],
                               ["HeterPyramidSingle", "m3", frozen]],
-                   "cached": True, "loaded": []}
+                   "cached": True,
+                   "baselines": {
+                       **{n: ["HeterModelBaseline", [f]] for n, f in (
+                           ("fcooper", "MaxFusion"), ("att", "AttFusion"),
+                           ("disconet", "DiscoFusion"),
+                           ("v2vnet", "V2VNetFusion"),
+                           ("where2comm", "Where2commFusion"),
+                           ("cobevt", "CoBEVTFusion"),
+                           ("v2xvit", "V2XViTFusion"))},
+                       "coalign": ["HeterModelBaselineMS",
+                                   ["AttFusion", "AttFusion"]]},
+                   "loaded": []}
