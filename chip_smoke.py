@@ -79,7 +79,34 @@ Phases, in order; any failure raises and the exit code is non-zero:
      parallel.Trainer and a warm and a timed bf16 step (finite loss, a
      nonzero gradient in every fusion parameter, kernel 2's backward
      counter rising, kernel 1's not moving), ms/step and peak memory;
-  8. the input pipeline: epochs of heal_tpu/configs/demo_heal_full/
+  8. the fusion timings: HEAL's late and early fusion and the
+     homogeneous PointPillars table on the published
+     heal_tpu/configs/opv2v/ configs at full width, seeded random
+     weights, synthetic scenes with the flagship's scene arguments,
+     TIMING_FRAMES test frames each (assembled and copied once) served f32
+     and bf16 through tools.inference.run_inference (mean, median and
+     range of the frames after the first; one more f32 frame traced with
+     torch.profiler for the card's busy and idle share of it), the f32
+     heads of every forward within HEADS_TOL of the plain kernel versions:
+     lidar_only/late_fusion.yaml (point_pillar, one forward per agent
+     sample, kernel 1 launched once per forward, kernel 2 never) and
+     lidar_only/early_fusion.yaml (kernel 1 once a frame), each then a
+     warm and TIMING_STEPS timed train steps at the published batch with
+     the published augmentation (kernel 1 never launched in training);
+     the late-heter protocol: one train step after a warm one of each
+     single/m{1,2,3,4}_pretrain.yaml at the published batch (no
+     supervise_single on late fusion), m1 and m2 merged by
+     tools.merge.merge_final into more_modality/m1m2_lateheter.yaml
+     (strict load, no entry left out) and served (kernel 1 once per
+     forward: the m1 branch runs on every sample); the ten
+     lidar_only/{max, att, disconet, v2vnet, where2comm, cobevt, v2xvit,
+     who2com, when2com, transformer}.yaml on point_pillar_baseline, one
+     set of frames for all (kernel 1 once a frame, kernel 2
+     LIDAR_SHIFT_LAUNCHES a frame), then a warm and a timed f32 train
+     step at LIDAR_BATCH (published 4; every fusion parameter with a
+     nonzero gradient, kernel 2 forward and backward launched); per
+     config serve ms a frame, step ms, peak memory and the launches;
+  9. the input pipeline: epochs of heal_tpu/configs/demo_heal_full/
      stage2_m2.yaml (PIPELINE_SCENES train scenes) timed on the host
      clock, batches assembled serially, through the prefetch pipeline
      (tools/train.py, data/prefetch.py), and from the device cache of
@@ -97,6 +124,7 @@ import itertools
 import json
 import math
 import os
+import statistics
 import subprocess
 import sys
 import tempfile
@@ -109,7 +137,8 @@ import torch
 # prints anything, when it stands alone
 from heal_tpu_torch.kernels.cases import (branch_frame_inputs, dense_inputs,
                                           frame_inputs, pillar_work)
-from heal_tpu_torch.kernels.measure import bound, device_kernels, device_ms
+from heal_tpu_torch.kernels.measure import (bound, device_busy, device_kernels,
+                                           device_ms)
 
 SEED = 0
 FRAMES = 8
@@ -183,6 +212,29 @@ BASELINE_PILLAR_LAUNCHES = 2
 # (of 384) at its batch of 2
 PIPELINE_CFG = "demo_heal_full/stage2_m2.yaml"
 PIPELINE_SCENES = 24
+# the fusion timings phase (heal_tpu/configs/opv2v/): late and early
+# fusion of point_pillar, the late-heter protocol (each type's single
+# detector, the m1+m2 merge) and the lidar-only point_pillar_baseline
+# table; TIMING_FRAMES test frames each, the published batch of 4 for
+# late, early and the singles, LIDAR_BATCH for the baselines
+TIMING_CFGS = {"late": "lidar_only/late_fusion.yaml",
+               "early": "lidar_only/early_fusion.yaml"}
+SINGLE_CFGS = {m: f"single/{m}_pretrain.yaml" for m in ("m1", "m2", "m3",
+                                                         "m4")}
+LATE_HETER_CFG = "more_modality/m1m2_lateheter.yaml"
+LIDAR_BASELINES = ("max", "att", "disconet", "v2vnet", "where2comm",
+                   "cobevt", "v2xvit", "who2com", "when2com", "transformer")
+TIMING_FRAMES = 12
+TIMING_BATCH = 4  # published
+TIMING_STEPS = 2  # timed steps after a warm one (late, early)
+LIDAR_BATCH = 2  # published 4
+# kernel-2 launches a served lidar-only baseline frame: 5 a warp call
+# (one ego warp; V2VNet's field-of-view and two pairwise warps; the
+# transformer's feature and region-of-interest warps). Kernel 1 runs once
+# a frame (the encoder sees every agent slot in one call); late fusion
+# launches it once per agent forward, early fusion once a frame
+LIDAR_SHIFT_LAUNCHES = {**{n: 5 for n in LIDAR_BASELINES}, "v2vnet": 15,
+                        "transformer": 10}
 
 
 def rel_err(a: torch.Tensor, b: torch.Tensor) -> tuple[float, float]:
@@ -1401,26 +1453,7 @@ def phase_baselines(cfgs: dict) -> dict:
             raise AssertionError(f"where2comm comm_rate {comm}")
 
         # kernels vs plain versions on the same device frames
-        def heads():
-            with torch.inference_mode():
-                return [{k: v.float() for k, v in model32(f).items()
-                         if k in ("cls_preds", "reg_preds", "dir_preds")}
-                        for _, f in frames]
-
-        torch.use_deterministic_algorithms(True, warn_only=True)
-        try:
-            det = heads()
-            compared = _counts()
-            with plain_kernels():
-                ref = heads()
-        finally:
-            torch.use_deterministic_algorithms(False)
-        if _counts() != compared:
-            raise AssertionError(f"{name}: the plain run launched a kernel")
-        worst = max(rel_err(a[k], b[k])[1] for a, b in zip(det, ref)
-                    for k in a)
-        if not worst <= HEADS_TOL:
-            raise AssertionError(f"{name} heads, kernels vs plain: {worst}")
+        worst = heads_vs_plain(model32, frames, name)
         del model16
         for k in total:  # the comparison's launches do not count
             total[k] += served[k]
@@ -1510,6 +1543,314 @@ def phase_baselines(cfgs: dict) -> dict:
     return {"launches": total, "rows": out}
 
 
+def fusion_cfgs() -> dict:
+    """The fusion timings phase's published configs at full width, read
+    through the port's loader, on the synthetic backend with the
+    flagship's scene arguments: ``late`` and ``early``
+    (TIMING_BATCH train scenes), the single detectors ``m1``..``m4``
+    (TIMING_BATCH train scenes), ``m1m2`` (the late-heter alliance), and
+    each lidar-only baseline by its method (LIDAR_BATCH train scenes);
+    TIMING_FRAMES test scenes each."""
+    from heal_tpu_torch.tools.train import load_config
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    scene_args = flagship_cfg()["fusion"]["args"]
+    rels = {**TIMING_CFGS, **SINGLE_CFGS, "m1m2": LATE_HETER_CFG,
+            **{n: f"lidar_only/{n}.yaml" for n in LIDAR_BASELINES}}
+    out = {}
+    for name, rel in rels.items():
+        cfg = load_config(os.path.join(root, "heal_tpu", "configs", "opv2v",
+                                       rel))
+        batch = LIDAR_BATCH if name in LIDAR_BASELINES else TIMING_BATCH
+        cfg["fusion"]["dataset"] = "synthetic"
+        cfg["fusion"]["args"] = dict(scene_args, num_scenes_train=batch,
+                                     num_scenes_test=TIMING_FRAMES)
+        cfg["train_params"]["batch_size"] = batch
+        out[name] = cfg
+    return out
+
+
+def _forwards(frames) -> list:
+    """Every forward's inputs of ``frames`` (late fusion: one per agent
+    sample)."""
+    return [x for _, f in frames for x in (f if isinstance(f, list) else [f])]
+
+
+def heads_vs_plain(model, frames, what: str) -> float:
+    """The f32 heads of every forward of ``frames``, kernels against the
+    plain versions, both with deterministic algorithms; -> the worst
+    max |d| / (1 + max |plain|). Fails past HEADS_TOL, on a bad output,
+    or if the plain run launched a kernel."""
+    inputs = _forwards(frames)
+
+    def heads():
+        with torch.inference_mode():
+            return [{k: v.float() for k, v in model(x).items()
+                     if k in ("cls_preds", "reg_preds", "dir_preds")}
+                    for x in inputs]
+
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        det = heads()
+        compared = _counts()
+        with plain_kernels():
+            ref = heads()
+    finally:
+        torch.use_deterministic_algorithms(False)
+    if _counts() != compared:
+        raise AssertionError(f"{what}: the plain run launched a kernel")
+    for h in det:
+        for k, t in h.items():
+            if t.shape[:3] != (1, 128, 256) or not torch.isfinite(t).all():
+                raise AssertionError(f"{what} {k}: bad output")
+    worst = max(rel_err(a[k], b[k])[1] for a, b in zip(det, ref) for k in a)
+    if not worst <= HEADS_TOL:
+        raise AssertionError(f"{what} heads, kernels vs plain: {worst}")
+    return worst
+
+
+def _serve(cfg, model32, frames, what: str) -> tuple[dict, dict]:
+    """``frames`` served f32 and bf16 through run_inference; -> (the
+    runs, the kernels' launches over both); heads checked finite."""
+    from heal_tpu_torch.tools.inference import run_inference
+
+    model16 = copy.deepcopy(model32).to(torch.bfloat16)
+    _zero_counts()
+    runs = {dname: run_inference(cfg=cfg, device="cuda", dtype=dt,
+                                 model=model, collect_heads=True,
+                                 frames=frames)
+            for dname, model, dt in (("f32", model32, torch.float32),
+                                     ("bf16", model16, torch.bfloat16))}
+    served = _counts()
+    for dname, r in runs.items():
+        for i, h in enumerate(r["heads"]):
+            for k, t in h.items():
+                if t.shape[:3] != (1, 128, 256) or not torch.isfinite(
+                        t).all():
+                    raise AssertionError(f"{what} {dname} forward {i} {k}: "
+                                         "bad output")
+    return runs, served
+
+
+def traced_frame(cfg, model32, frame) -> dict:
+    """One f32 frame served through run_inference under torch.profiler:
+    the card's busy time in it against the frame's serve time in the
+    same run; ``idle`` is the share of the frame the card sat idle."""
+    from heal_tpu_torch.tools.inference import run_inference
+
+    out = {}
+
+    def serve():
+        out.update(run_inference(cfg=cfg, device="cuda", dtype=torch.float32,
+                                 model=model32, frames=[frame]))
+
+    busy = device_busy(serve)
+    frame_ms = 1e3 * out["serve_s"][0]
+    return {"busy_ms": busy["busy_ms"], "frame_ms": frame_ms,
+            "device_ops": busy["device_ops"],
+            "idle": 1 - busy["busy_ms"] / frame_ms}
+
+
+def _steps(tr, batch, n: int) -> dict:
+    """``n`` train steps on ``batch`` (the first warm, the rest timed);
+    -> losses, the mean ms of the timed steps, peak GiB."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    losses, times = [], []
+    for _ in range(n):
+        t0 = time.perf_counter()
+        aux = tr.train_step(batch)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        losses.append(float(aux["total_loss"]))
+    if not all(map(math.isfinite, losses)):
+        raise AssertionError(f"train losses {losses}")
+    timed = times[1:] or times
+    return {"losses": losses, "ms": 1e3 * sum(timed) / len(timed),
+            "batch": int(batch["pos_equal_one"].shape[0]),
+            "peak_gib": torch.cuda.max_memory_allocated() / 2**30}
+
+
+def phase_fusion_timings(cfgs: dict) -> dict:
+    """Late and early fusion, the late-heter protocol and the lidar-only
+    baselines on the published configs at full width (module docstring,
+    phase 8); returns each kernel's launches over the phase and the
+    measurements."""
+    from heal_tpu_torch.config import save_yaml
+    from heal_tpu_torch.models.layers import channels_last
+    from heal_tpu_torch.tools import checkpoint as ckpt_lib
+    from heal_tpu_torch.tools import train as train_tool
+    from heal_tpu_torch.tools.inference import build_weights, device_frames
+    from heal_tpu_torch.tools.merge import merge_final
+
+    dev = torch.device("cuda")
+    t_phase = time.perf_counter()
+    total = {k: 0 for k in _counts()}
+    rows = {}
+
+    def add(counts):
+        for k in total:
+            total[k] += counts[k]
+
+    def served_model(name, cfg, model32, frames, shift_per_frame):
+        """Serve, check the launches (kernel 1 once per forward), compare
+        the heads with the plain versions; -> the row."""
+        runs, served = _serve(cfg, model32, frames, name)
+        n = len(_forwards(frames))
+        want = {"pillar_tables": 2 * n,
+                "shift_rows": 2 * len(frames) * shift_per_frame,
+                "shift_rows_backward": 0}
+        if served != want:
+            raise AssertionError(f"{name}: launches {served}, want {want}")
+        add(served)
+        worst = heads_vs_plain(model32, frames, name)
+        row = {"forwards": n, "frames": len(frames), "heads_rel": worst,
+               "launches_per_frame": {k: served[k] / (2 * len(frames))
+                                      for k in served},
+               "ap_30_f32": runs["f32"]["ap_30"]}
+        for d, r in runs.items():
+            ms = sorted(1e3 * t for t in r["serve_s"][1:])
+            row[f"ms_frame_{d}"] = sum(ms) / len(ms)
+            row[f"median_ms_frame_{d}"] = statistics.median(ms)
+            row[f"range_ms_frame_{d}"] = (ms[0], ms[-1])
+        row["trace_f32"] = traced_frame(cfg, model32, frames[1])
+        if "comm_rate" in runs["f32"]:
+            row["comm_rate"] = runs["f32"]["comm_rate"]
+            if not 0 < row["comm_rate"] <= 1:
+                raise AssertionError(f"{name} comm_rate {row['comm_rate']}")
+        return row
+
+    # 1-2. late and early fusion of point_pillar: serve, then train at
+    # the published batch with the published augmentation
+    for name in TIMING_CFGS:
+        cfg = cfgs[name]
+        torch.cuda.empty_cache()
+        frames = device_frames(cfg, dev, TIMING_FRAMES)
+        batch, _ = next(train_tool.device_batches(cfg, TIMING_BATCH, dev))
+        model32 = channels_last(build_weights(cfg, seed=SEED).to(dev))
+        row = served_model(name, cfg, model32, frames, 0)
+        del model32
+        _zero_counts()
+        tr = train_tool.build_trainer(cfg, dev, 1)
+        row["train"] = _steps(tr, batch, 1 + TIMING_STEPS)
+        trained = _counts()
+        del tr
+        if any(trained.values()):
+            raise AssertionError(f"{name} training launched {trained}")
+        rows[name] = row
+
+    # 3. the late-heter protocol: each type's single detector one step
+    # at the published batch; m1 and m2 merged into the m1+m2 late model
+    with tempfile.TemporaryDirectory() as tmp:
+        dirs = {}
+        for m in SINGLE_CFGS:
+            cfg = cfgs[m]
+            torch.cuda.empty_cache()
+            batch, _ = next(train_tool.device_batches(cfg, TIMING_BATCH,
+                                                      dev))
+            _zero_counts()
+            tr = train_tool.build_trainer(cfg, dev, 1)
+            if tr.supervise_single:
+                raise AssertionError(f"{m}: supervise_single on late fusion")
+            rows[f"single_{m}"] = {"train": _steps(tr, batch, 2)}
+            if any(_counts().values()):
+                raise AssertionError(f"single {m} training launched a "
+                                     "kernel")
+            dirs[m] = os.path.join(tmp, m)
+            ckpt_lib.save_checkpoint(dirs[m], tr.model, 1, bestval=True)
+            save_yaml(cfg, os.path.join(dirs[m], "config.yaml"))
+            del tr, batch
+        cfg = cfgs["m1m2"]
+        merged = merge_final([dirs["m2"]], dirs["m1"],
+                             os.path.join(tmp, "m1m2"))
+        msd = ckpt_lib.load_state_dict(merged)
+        srcs = {m: ckpt_lib.load_state_dict(
+            ckpt_lib.find_checkpoint(dirs[m])[1]) for m in ("m1", "m2")}
+        left = [k for m, sd in srcs.items() for k, v in sd.items()
+                if (m == "m1" or k.startswith("branch_"))
+                and not torch.equal(msd.get(k, torch.empty(0)), v)]
+        if left:
+            raise AssertionError(f"the late merge left out {left[:5]}")
+        model32 = channels_last(build_weights(cfg, checkpoint=merged).to(
+            dev))
+        frames = device_frames(cfg, dev, TIMING_FRAMES)
+        rows["m1m2"] = served_model("m1m2", cfg, model32, frames, 0)
+        del model32, frames
+    print(f"[fusion] late merge: {len(msd)} entries (m1's {len(srcs['m1'])}"
+          f" and m2's branch), loaded strictly into {LATE_HETER_CFG}")
+
+    # 4. the lidar-only point_pillar_baseline table on one set of frames
+    frames = device_frames(cfgs[LIDAR_BASELINES[0]], dev, TIMING_FRAMES)
+    batch, _ = next(train_tool.device_batches(cfgs[LIDAR_BASELINES[0]],
+                                              LIDAR_BATCH, dev))
+    for name in LIDAR_BASELINES:
+        cfg = cfgs[name]
+        torch.cuda.empty_cache()
+        model32 = channels_last(build_weights(cfg, seed=SEED).to(dev))
+        row = served_model(name, cfg, model32, frames,
+                           LIDAR_SHIFT_LAUNCHES[name])
+        del model32
+        torch.cuda.empty_cache()
+        _zero_counts()
+        tr = train_tool.build_trainer(cfg, dev, 1)
+        fusion = tr.model.fusion_name
+        fusion_params = {n: p for n, p in tr.model.named_parameters()
+                         if n.split(".")[0] == fusion}
+        row["train"] = _steps(tr, batch, 2)
+        trained = _counts()
+        row["train_launches_per_step"] = {k: v / 2
+                                          for k, v in trained.items()}
+        dead = [n for n, p in fusion_params.items()
+                if p.grad is None or not bool(p.grad.abs().max() > 0)]
+        del tr
+        if dead:
+            raise AssertionError(f"{name}: fusion parameters without a "
+                                 f"gradient: {dead[:5]}")
+        if trained["pillar_tables"] != 0 or trained["shift_rows"] <= 0 \
+                or trained["shift_rows_backward"] <= 0:
+            raise AssertionError(f"{name} training launches {trained}")
+        add(trained)
+        row["fusion_params"] = len(fusion_params)
+        rows[name] = row
+    del frames, batch
+
+    for name, row in rows.items():
+        parts = []
+        if "ms_frame_f32" in row:
+            tf = row["trace_f32"]
+            parts.append(
+                "serve ms/frame, mean / median [min, max] over "
+                f"{row['frames'] - 1} frames after the first: "
+                + ", ".join(
+                    f"{d} {row[f'ms_frame_{d}']:.3f} / "
+                    f"{row[f'median_ms_frame_{d}']:.3f} "
+                    f"[{row[f'range_ms_frame_{d}'][0]:.3f}, "
+                    f"{row[f'range_ms_frame_{d}'][1]:.3f}]"
+                    for d in ("f32", "bf16"))
+                + f" ({row['forwards']} forwards in {row['frames']} frames); "
+                f"one traced f32 frame {tf['frame_ms']:.3f} ms, card busy "
+                f"{tf['busy_ms']:.3f} ms in {tf['device_ops']} device ops, "
+                f"idle {tf['idle']:.3f}; "
+                f"launches a frame {row['launches_per_frame']}; f32 heads vs "
+                f"plain max rel err {row['heads_rel']:.3e} (tol {HEADS_TOL})")
+        if "train" in row:
+            tr = row["train"]
+            parts.append(
+                f"train step {tr['ms']:.3f} ms f32 (batch {tr['batch']}, mean "
+                f"of {len(tr['losses']) - 1} after a warm one), peak "
+                f"{tr['peak_gib']:.3f} GiB, losses "
+                + ", ".join(f"{x:.4f}" for x in tr["losses"]))
+        if "comm_rate" in row:
+            parts.append(f"comm_rate {row['comm_rate']:.4f}")
+        if "fusion_params" in row:
+            parts.append(f"{row['fusion_params']} fusion parameters, each "
+                         "with a nonzero gradient")
+        print(f"[fusion] {name}: " + "; ".join(parts))
+    print(f"[fusion] phase {time.perf_counter() - t_phase:.1f} s; launches "
+          f"{total}")
+    return {"launches": total, "rows": rows}
+
+
 def phase_pipeline() -> None:
     """Epochs of the demo stage-2 m2 config on the host clock: batches
     assembled serially, through the prefetch pipeline, and from the
@@ -1592,6 +1933,8 @@ def main() -> int:
     protocol = phase_protocol(pcfgs)
     torch.cuda.empty_cache()
     baselines = phase_baselines(baseline_cfgs())
+    torch.cuda.empty_cache()
+    fusion = phase_fusion_timings(fusion_cfgs())
     phase_pipeline()
     for name in rows:
         rows[name]["protocol_launches"] = protocol["launches"][name]
@@ -1600,9 +1943,20 @@ def main() -> int:
         rows[name]["baseline_launches_per_frame"] = {
             b: r["launches_per_frame"][name]
             for b, r in baselines["rows"].items()}
+        rows[name]["fusion_timings_launches"] = fusion["launches"][name]
+        rows[name]["fusion_timings_launches_per_frame"] = {
+            c: r["launches_per_frame"][name]
+            for c, r in fusion["rows"].items() if "launches_per_frame" in r}
+        rows[name]["fusion_timings_launches_per_step"] = {
+            c: r["train_launches_per_step"][name]
+            for c, r in fusion["rows"].items()
+            if "train_launches_per_step" in r}
     rows["pillar_tables"]["train_launches"] = trained["pillar_tables"]
     rows["shift_rows"]["train_launches"] = trained["shift_rows"]
     rows["shift_rows"]["backward_launches"] = trained["shift_rows_backward"]
+    rows["shift_rows"]["fusion_timings_backward_launches_per_step"] = {
+        c: r["train_launches_per_step"]["shift_rows_backward"]
+        for c, r in fusion["rows"].items() if "train_launches_per_step" in r}
 
     meta = {
         "pillar_tables": ("heal_tpu_torch/csrc/pillar_tables.cu",
@@ -1624,6 +1978,8 @@ def main() -> int:
               f"({k['alliance_launches_per_frame']} a served alliance frame)"
               f", {k['baselines_launches']} in the baselines phase (a "
               f"frame: {k['baseline_launches_per_frame']})"
+              f", {k['fusion_timings_launches']} in the fusion timings phase "
+              f"(a frame: {k['fusion_timings_launches_per_frame']})"
               + f"; {k['bytes']} bytes, bound {k['bound_ms']:.4f} ms "
               f"({k['bound_by']}), {k['ms']:.4f} ms = {k['pct_of_bound']:.1f}%"
               f" of bound, plain {k['plain_ms']:.4f} ms, library call "

@@ -1,8 +1,10 @@
 """YAML loading + the derived-parameter pass of the port's configs.
 
-The port's copy of heal_tpu/config/loader.py, trimmed to the parser the
-slice's configs name (``load_general_params``: anchor W/H/D from the
-lidar range and voxel size): a scientific-notation-safe YAML loader,
+The port's copy of heal_tpu/config/loader.py, trimmed to the parsers the
+port's configs name (``load_general_params``: anchor W/H/D from the
+lidar range and voxel size; ``load_point_pillar_params``: the same and
+the voxel grid size in ``model.args.point_pillar_scatter``): a
+scientific-notation-safe YAML loader,
 dispatch on the ``yaml_parser`` key, and ``save_yaml``. The same file
 gives the same dict as ``heal_tpu.config.load_yaml``. ``reparse`` runs
 the parser again after an override (the inference tools);
@@ -118,4 +120,19 @@ def load_general_params(param: dict) -> dict:
     return param
 
 
+def load_point_pillar_params(param: dict) -> dict:
+    """``load_general_params`` after the voxel grid size (x, y, z cells,
+    int64) is set in ``model.args.point_pillar_scatter.grid_size``."""
+    cav_lidar_range = param["preprocess"]["cav_lidar_range"]
+    voxel_size = param["preprocess"]["args"]["voxel_size"]
+    grid_size = np.round(
+        (np.array(cav_lidar_range[3:6]) - np.array(cav_lidar_range[0:3]))
+        / np.array(voxel_size)
+    ).astype(np.int64)
+    scatter = param["model"]["args"].setdefault("point_pillar_scatter", {})
+    scatter["grid_size"] = grid_size
+    return load_general_params(param)
+
+
 PARSER_REGISTRY["load_general_params"] = load_general_params
+PARSER_REGISTRY["load_point_pillar_params"] = load_point_pillar_params

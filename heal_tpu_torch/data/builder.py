@@ -1,16 +1,17 @@
 """Dataset builder: (fusion assembler) x (scene backend).
 
 The port's copy of heal_tpu/data/builder.py with the synthetic backend
-and the intermediate assemblers. A backend yields scenes (agents, poses,
-sensors, world objects); the assembler turns them into fixed-shape
-samples. The disk backends, late, early and two-stage fusion, and
-CoAlign's stage-1 pre-calc raise NotImplementedError naming the ROADMAP item (queue 1) that
-ports them.
+and the intermediate, late and early assemblers (data/late_early.py).
+A backend yields scenes (agents, poses, sensors, world objects); the
+assembler turns them into fixed-shape samples. The disk backends,
+two-stage fusion and CoAlign's stage-1 pre-calc raise
+NotImplementedError naming the ROADMAP item (queue 1) that ports them.
 """
 from __future__ import annotations
 
 import numpy as np
 
+from .late_early import EarlyAssembler, LateAssembler
 from .scene import IntermediateAssembler, collate
 from .synthetic import SyntheticDataset
 
@@ -20,11 +21,33 @@ _NOT_PORTED = {
     "v2xset": "item 16 (disk dataset backends: data/opv2v.py)",
     "dairv2x": "item 16 (disk dataset backends: data/dairv2x.py)",
     "v2xsim": "item 16 (disk dataset backends: data/v2xsim.py)",
-    "late": "item 9 (late fusion: data/late_early.py)",
-    "lateheter": "item 9 (late fusion: data/late_early.py)",
-    "early": "item 12 (early fusion: data/late_early.py)",
     "intermediate2stage": "item 9 (two-stage models)",
 }
+
+
+_ASSEMBLERS = {
+    "intermediate": IntermediateAssembler,
+    "intermediateheter": IntermediateAssembler,
+    "intermediateheterinfer": IntermediateAssembler,
+    "late": LateAssembler,
+    "lateheter": LateAssembler,
+    "early": EarlyAssembler,
+}
+
+
+def assembler_class(params: dict) -> type:
+    """The assembler class of ``params``' fusion method; its ``late`` and
+    ``single_labels`` attributes tell serving and training how to use its
+    samples."""
+    method = params["fusion"]["core_method"]
+    if method in _ASSEMBLERS:
+        return _ASSEMBLERS[method]
+    if method in _NOT_PORTED:
+        raise NotImplementedError(
+            f"fusion {method!r} is not ported: ROADMAP queue 1, "
+            f"{_NOT_PORTED[method]}"
+        )
+    raise KeyError(f"unknown fusion core_method {method!r}")
 
 
 def _build_backend(params: dict, train: bool):
@@ -75,20 +98,7 @@ class FusionDataset:
                 "model.args presorted=true requires "
                 "preprocess.args.presort=true (host point ordering)"
             )
-        method = params["fusion"]["core_method"]
-        if method in (
-            "intermediate",
-            "intermediateheter",
-            "intermediateheterinfer",
-        ):
-            self.assembler = IntermediateAssembler(params, train)
-        elif method in _NOT_PORTED:
-            raise NotImplementedError(
-                f"fusion {method!r} is not ported: ROADMAP queue 1, "
-                f"{_NOT_PORTED[method]}"
-            )
-        else:
-            raise KeyError(f"unknown fusion core_method {method!r}")
+        self.assembler = assembler_class(params)(params, train)
         self.modalities = self.assembler.modalities
         ba = params.get("box_align")
         if ba and ba.get("precalc_path"):

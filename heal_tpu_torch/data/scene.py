@@ -43,6 +43,11 @@ MODALITY_KEYS = ("m1", "m2", "m3", "m4")
 class IntermediateAssembler:
     """Heterogeneous intermediate-fusion sample assembly."""
 
+    # one forward per agent sample (late fusion) rather than one a frame
+    late = False
+    # emits the per-agent ``*_single`` labels that ``supervise_single`` reads
+    single_labels = True
+
     def __init__(self, params: dict, train: bool = True):
         self.params = params
         self.train = train
@@ -520,6 +525,10 @@ def _stack(values, memo=None):
 
 def collate(samples: list) -> dict:
     """Stack samples (including nested per-modality input dicts) into
-    batch-major (B, ...) arrays."""
+    batch-major (B, ...) arrays. Late fusion's test-time
+    ``agent_samples`` stay a list (one list of sample dicts a sample),
+    which the device copies (parallel.to_device, pin) leave on the
+    host."""
     memo: dict = {}
-    return {k: _stack([s[k] for s in samples], memo) for k in samples[0]}
+    return {k: [s[k] for s in samples] if k == "agent_samples"
+            else _stack([s[k] for s in samples], memo) for k in samples[0]}

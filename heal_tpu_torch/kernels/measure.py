@@ -49,6 +49,38 @@ def device_kernels(fn) -> list[str]:
     return [e.name for e in prof.events() if e.device_type == DeviceType.CUDA]
 
 
+def device_busy(fn) -> dict:
+    """One call of ``fn`` traced with ``torch.profiler``: ``busy_ms``, the
+    time the card spent in the call's device kernels, copies and fills
+    (the union of their intervals), ``wall_ms``, the call's host time
+    under the trace (synchronised), and ``device_ops``, their count.
+    Raises if the trace holds no device operation."""
+    import time
+
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    spans = sorted((e.time_range.start, e.time_range.end)
+                   for e in prof.events() if e.device_type == DeviceType.CUDA)
+    if not spans:
+        raise RuntimeError("the trace holds no device operation")
+    busy_us, end = 0.0, spans[0][0]
+    for start, stop in spans:
+        if stop > end:
+            busy_us += stop - max(start, end)
+            end = stop
+    return {"busy_ms": busy_us / 1e3, "wall_ms": wall * 1e3,
+            "device_ops": len(spans)}
+
+
 def bound(nbytes: int, flops: int) -> tuple[float, str]:
     """The least time for the work on an H100 SXM (ms) and what sets it:
     the bytes (each input read once, each output written once) over the

@@ -16,10 +16,17 @@ heter_model_baseline.py, heter_model_baseline_ms.py), on the
     no parameters for a stage that is never called) -> deblock decode ->
     shrink -> heads.
 
+  * ``HeterModelLate`` (heter_model_late.py): late fusion's per-agent
+    detector. Each sample is one agent; every type's branch runs on
+    every sample (the types it is not get zero inputs) and its features
+    are multiplied by that type's column of ``modality_flags``, then
+    summed, shrunk and read by the shared heads.
+
 Outputs are NHWC, as in JAX: cls / reg / dir preds, their ``_single``
 twins, each camera type's ``depth_items_mX``, and for Where2comm
-``comm_rate``. Both models are built for the agent axis ``max_cav`` (the
-config's ``train_params.max_cav``), which sizes CoBEVT's bias table.
+``comm_rate``. The first two models are built for the agent axis
+``max_cav`` (the config's ``train_params.max_cav``), which sizes
+CoBEVT's bias table.
 """
 from __future__ import annotations
 
@@ -28,10 +35,10 @@ import torch.nn as nn
 
 from .fuse.fusion_in_one import build_fusion
 from .heads import DetectionHeads
-from .heter_pyramid import (ModalityBranch, _flatten_agents,
+from .heter_pyramid import (ModalityBranch, _flatten_agents, camera_canvas,
                             center_crop_or_pad, is_camera, lidar_first,
                             modality_list)
-from .point_pillar import _shrink_from_args
+from .point_pillar import _shrink_from_args, out_width
 from .registry import register_model
 from .resnet_bev import ResNetBEVBackbone
 
@@ -110,7 +117,7 @@ class HeterModelBaseline(_Baseline):
         if self.shrink is not None:
             width = a["shrink_header"]["dim"][-1]
         self.fusion = build_fusion(method, fusion_args, width, max_cav)
-        self.heads = _heads(a, _out_width(self.fusion, width))
+        self.heads = _heads(a, out_width(self.fusion, width))
 
     def forward(self, batch: dict) -> dict:
         a = self.args
@@ -145,13 +152,6 @@ class HeterModelBaseline(_Baseline):
         out = self.heads(fused.permute(0, 3, 1, 2))
         out.update(out_aux)
         return out
-
-
-def _out_width(fusion: nn.Module, width: int) -> int:
-    """The fused map's width: the decode conv's for Who2com, else the
-    input's."""
-    decode = getattr(fusion, "decode_layer", None)
-    return decode.bias.shape[0] if decode is not None else width
 
 
 @register_model("heter_model_baseline_ms")
@@ -216,5 +216,81 @@ class HeterModelBaselineMS(_Baseline):
         if self.shrink is not None:
             fused = self.shrink(fused)
         out = self.heads(fused)
+        out.update(out_aux)
+        return out
+
+
+@register_model("heter_model_late")
+class HeterModelLate(nn.Module):
+    """args: m1..m4 blocks + shrink_header + anchor_number + dir_args.
+    Batch: ``inputs_mX`` with a leading sample axis (lidar points (B, P,
+    4); camera images (B, ncam, ...)) and ``modality_flags`` (B, M), one
+    column per type in ``modality_list`` order.
+
+    JAX's default norm is group norm (every branch sees the zero inputs
+    of the other types' samples, which train-mode batch norm would fold
+    into its statistics); every published config sets ``norm: batch``,
+    and group norm is not ported (ROADMAP queue 1, item 2).
+
+    A camera BEV is center-cropped or zero-padded to the lidar branch's
+    canvas, and with no lidar type (``single/m2_pretrain.yaml``) to the
+    lidar range at its own stride, as the collab and single pyramid
+    models do. heal_tpu's late model leaves it uncropped then, so where
+    the camera grid does not cover the lidar range (that config: 128x128
+    cells against a 128x256 label grid) JAX's loss fails on the shapes;
+    where it does, the two agree."""
+
+    batch_keys = ("modality_flags",)
+
+    def __init__(self, args: dict):
+        super().__init__()
+        a = args
+        if a.get("use_iou"):
+            raise NotImplementedError(
+                "use_iou is not ported: ROADMAP queue 1, item 2")
+        norm = a.get("norm", "group")
+        if norm.split("@")[0] != "batch":
+            raise NotImplementedError(
+                f"heter_model_late with norm {norm!r} is not ported (batch "
+                "only): ROADMAP queue 1, item 2")
+        self.args = a
+        self.modalities = modality_list(a)
+        for m in self.modalities:
+            self.add_module(f"branch_{m}", ModalityBranch(a[m], norm=norm))
+        width = getattr(self, f"branch_{self.modalities[0]}").out_channels
+        self.shrink = _shrink_from_args(a, width)
+        if self.shrink is not None:
+            width = a["shrink_header"]["dim"][-1]
+        self.heads = _heads(a, width)
+
+    def forward(self, batch: dict) -> dict:
+        a = self.args
+        flags = batch.get("modality_flags")
+        feat_sum, target_hw, out_aux = None, None, {}
+        for m in lidar_first(self.modalities, a):
+            if f"inputs_{m}" not in batch:
+                continue
+            feat, depth = getattr(self, f"branch_{m}")(batch[f"inputs_{m}"])
+            feat = feat.permute(0, 2, 3, 1)  # NHWC view
+            if not is_camera(a[m]):
+                target_hw = feat.shape[1:3]
+            else:
+                feat = center_crop_or_pad(feat, *(
+                    target_hw if target_hw is not None else camera_canvas(
+                        a[m], a["lidar_range"], *feat.shape[1:3])))
+            if flags is not None:
+                # zero the samples that are not this type: their padded
+                # zero inputs still give the norms' bias activations
+                k = self.modalities.index(m)
+                feat = feat * flags[:, k].to(feat.dtype)[:, None, None, None]
+            feat_sum = feat if feat_sum is None else feat_sum + feat
+            if depth is not None:
+                out_aux[f"depth_items_{m}"] = depth
+        if feat_sum is None:
+            raise ValueError("no modality inputs in batch")
+        feat = feat_sum.permute(0, 3, 1, 2)
+        if self.shrink is not None:
+            feat = self.shrink(feat)
+        out = self.heads(feat)
         out.update(out_aux)
         return out

@@ -1,12 +1,36 @@
-"""PointPillars helpers shared by the detectors (torch).
+"""Homogeneous PointPillars detectors (torch).
 
-Counterpart of the shrink-header builder of heal_tpu/models/point_pillar.py
-(``_shrink_from_args``, :35-44). The single-agent PointPillar detector
-itself is not ported yet.
+Counterparts of heal_tpu/models/point_pillar.py:
+
+  * ``PointPillar`` (the reference's point_pillar.py): one agent's
+    points -> ``PointPillarEncoder`` -> ``ResNetBEVBackbone`` -> the
+    ``DownsampleConv`` shrink header -> ``DetectionHeads``. Late fusion
+    runs it once per agent, early fusion once on the merged points;
+  * ``PointPillarBaseline`` (point_pillar_baseline.py): the same chain
+    per agent slot of a (B, L) intermediate batch, then the config's
+    ``fusion_method`` from the zoo (models/fuse), then the heads. For
+    Where2comm the shared heads also run on every agent: their
+    confidence gates what is sent (``comm_rate`` in the outputs), and
+    with ``supervise_single`` they are the ``_single`` outputs.
+
+Modules carry flax's auto-names (``PointPillarEncoder_0``,
+``ResNetBEVBackbone_0``, ``DownsampleConv_0``, the fusion's
+``<Class>_0``, ``DetectionHeads_0``), so heal_tpu checkpoints load
+strictly. Outputs are NHWC, as in JAX, with ``spatial_features_2d`` the
+map the heads read. ``compression`` and ``use_iou`` are not ported
+(ROADMAP queue 1, item 2) and raise.
 """
 from __future__ import annotations
 
+import torch
+import torch.nn as nn
+
+from .encoders import PointPillarEncoder
+from .fuse.fusion_in_one import build_fusion
+from .heads import DetectionHeads
 from .layers import DownsampleConv
+from .registry import register_model
+from .resnet_bev import ResNetBEVBackbone
 
 
 def _shrink_from_args(args: dict, cin: int):
@@ -20,3 +44,144 @@ def _shrink_from_args(args: dict, cin: int):
         strides=tuple(sh["stride"]),
         paddings=tuple(sh.get("padding", ())),
     )
+
+
+def _backbone_from_args(args: dict, cin: int, norm: str) -> ResNetBEVBackbone:
+    bb = args["base_bev_backbone"]
+    return ResNetBEVBackbone(
+        cin,
+        layer_nums=tuple(bb["layer_nums"]),
+        layer_strides=tuple(bb["layer_strides"]),
+        num_filters=tuple(bb["num_filters"]),
+        upsample_strides=tuple(bb.get("upsample_strides", ())),
+        num_upsample_filter=tuple(bb.get("num_upsample_filter", ())),
+        resnext=bb.get("resnext", False),
+        norm=norm,
+    )
+
+
+def out_width(fusion: nn.Module, width: int) -> int:
+    """The fused map's width: the decode conv's for Who2com, else the
+    input's."""
+    decode = getattr(fusion, "decode_layer", None)
+    return decode.bias.shape[0] if decode is not None else width
+
+
+class _PointPillarChain(nn.Module):
+    """Encoder -> backbone -> shrink of one agent, and the heads."""
+
+    # the batch keys the model reads (tools/inference._model_inputs)
+    batch_keys = ("points", "point_mask")
+
+    def _build_chain(self, a: dict) -> int:
+        for key in ("compression", "use_iou"):
+            if a.get(key):
+                raise NotImplementedError(
+                    f"{key} is not ported: ROADMAP queue 1, item 2")
+        self.args = a
+        norm = a.get("norm", "batch")
+        self.PointPillarEncoder_0 = PointPillarEncoder(
+            voxel_size=tuple(a["voxel_size"]),
+            lidar_range=tuple(a["lidar_range"]),
+            num_filters=tuple(a["pillar_vfe"]["num_filters"]),
+            use_absolute_xyz=a["pillar_vfe"].get("use_absolute_xyz", True),
+            with_distance=a["pillar_vfe"].get("with_distance", False),
+            norm=norm,
+            presorted=a.get("presorted", False),
+        )
+        self.ResNetBEVBackbone_0 = _backbone_from_args(
+            a, self.PointPillarEncoder_0.out_channels, norm)
+        width = self.ResNetBEVBackbone_0.out_channels
+        shrink = _shrink_from_args(a, width)
+        if shrink is not None:
+            self.DownsampleConv_0 = shrink
+            width = a["shrink_header"]["dim"][-1]
+        return width
+
+    def _heads(self, cin: int) -> DetectionHeads:
+        a = self.args
+        return DetectionHeads(
+            cin, anchor_number=a["anchor_number"], use_dir="dir_args" in a,
+            num_bins=a.get("dir_args", {}).get("num_bins", 2))
+
+    def features(self, points: torch.Tensor,
+                 mask: torch.Tensor) -> torch.Tensor:
+        """(N, P, 4) points -> the (N, C, H, W) NCHW map the heads (or
+        the fusion) read."""
+        bev = self.PointPillarEncoder_0(points, mask)
+        feat = self.ResNetBEVBackbone_0(bev.permute(0, 3, 1, 2))
+        shrink = getattr(self, "DownsampleConv_0", None)
+        return feat if shrink is None else shrink(feat)
+
+
+@register_model("point_pillar")
+class PointPillar(_PointPillarChain):
+    """args: voxel_size, lidar_range, pillar_vfe, base_bev_backbone,
+    (shrink_header), anchor_number, (dir_args). Batch: points (B, N, 4),
+    point_mask (B, N)."""
+
+    def __init__(self, args: dict):
+        super().__init__()
+        width = self._build_chain(args)
+        self.DetectionHeads_0 = self._heads(width)
+
+    def forward(self, batch: dict) -> dict:
+        feat = self.features(batch["points"], batch["point_mask"])
+        out = self.DetectionHeads_0(feat)
+        out["spatial_features_2d"] = feat.permute(0, 2, 3, 1)
+        return out
+
+
+@register_model("point_pillar_baseline")
+class PointPillarBaseline(_PointPillarChain):
+    """args: PointPillar's + fusion_method and its block (``in_channels``
+    defaults to the block's ``feat_dim``, else 64). Batch: points
+    (B, L, N, 4), point_mask (B, L, N), agent_mask (B, L),
+    pairwise_affine (B, L, L, 2, 3). Built for the agent axis
+    ``max_cav``, which sizes CoBEVT's bias table."""
+
+    needs_max_cav = True
+    batch_keys = ("points", "point_mask", "agent_mask", "pairwise_affine")
+
+    def __init__(self, args: dict, max_cav: int | None = None):
+        super().__init__()
+        width = self._build_chain(args)
+        self.method = args["fusion_method"]
+        fusion_args = dict(args.get(self.method, {}) or {})
+        fusion_args.setdefault("in_channels",
+                               fusion_args.get("feat_dim", 64))
+        fusion = build_fusion(self.method, fusion_args, width, max_cav)
+        self.fusion_name = f"{type(fusion).__name__}_0"
+        self.add_module(self.fusion_name, fusion)
+        self.DetectionHeads_0 = self._heads(out_width(fusion, width))
+
+    @property
+    def fusion(self) -> nn.Module:
+        return getattr(self, self.fusion_name)
+
+    def forward(self, batch: dict) -> dict:
+        points, pmask = batch["points"], batch["point_mask"]
+        b, l = points.shape[:2]
+        feat = self.features(points.reshape((b * l,) + points.shape[2:]),
+                             pmask.reshape((b * l,) + pmask.shape[2:]))
+        heads = self.DetectionHeads_0
+        nhwc = feat.permute(0, 2, 3, 1)
+        nhwc = nhwc.reshape((b, l) + nhwc.shape[1:])
+        extra = {}
+        if self.method == "where2comm":
+            # the shared heads on every agent: the reference's psm, whose
+            # confidence gates the transmissions
+            single = heads(feat)
+            conf = torch.sigmoid(single["cls_preds"]).amax(-1, keepdim=True)
+            if self.args.get("supervise_single", False):
+                extra = {f"{k}_single": v for k, v in single.items()}
+            fused, extra["comm_rate"] = self.fusion(
+                nhwc, batch["pairwise_affine"], batch["agent_mask"],
+                confidence=conf.reshape((b, l) + conf.shape[1:]))
+        else:
+            fused = self.fusion(nhwc, batch["pairwise_affine"],
+                                batch["agent_mask"])
+        out = heads(fused.permute(0, 3, 1, 2))
+        out["spatial_features_2d"] = fused
+        out.update(extra)
+        return out

@@ -2,8 +2,9 @@
 
 Counterpart of heal_tpu/models/registry.py. Ported so far: the models
 ``heter_pyramid_collab``, ``heter_pyramid_single``,
-``heter_model_baseline`` and ``heter_model_baseline_ms``, and the losses
-``point_pillar_loss`` and ``point_pillar_pyramid_loss``.
+``heter_model_baseline``, ``heter_model_baseline_ms``,
+``heter_model_late``, ``point_pillar`` and ``point_pillar_baseline``,
+and the losses ``point_pillar_loss`` and ``point_pillar_pyramid_loss``.
 """
 from __future__ import annotations
 
@@ -27,21 +28,26 @@ def register_loss(name: str):
     return deco
 
 
+def model_class(name: str):
+    """The registered model class of ``core_method`` ``name``."""
+    if name not in MODEL_REGISTRY:
+        # importing the model modules registers their models
+        from . import heter_baseline, heter_pyramid, point_pillar  # noqa: F401
+    if name not in MODEL_REGISTRY:
+        raise KeyError(
+            f"model core_method {name!r} is not ported; ported: "
+            f"{sorted(MODEL_REGISTRY)}"
+        )
+    return MODEL_REGISTRY[name]
+
+
 def build_model(model_cfg: dict, max_cav: int | None = None):
     """Build the torch module of the config's ``model`` section, in eval
     mode, parameters uninitialised (bridge or ``init_weights`` them).
     ``max_cav``: the agent axis L of the batches (``train_params.max_cav``)
     for the models that size parameters by it (``needs_max_cav``: the
     baselines, whose CoBEVT bias table spans the agents)."""
-    name = model_cfg["core_method"]
-    if name not in MODEL_REGISTRY:
-        # importing the model modules registers their models
-        from . import heter_baseline, heter_pyramid  # noqa: F401
-    if name not in MODEL_REGISTRY:
-        raise KeyError(
-            f"model core_method {name!r} is not ported; ported: "
-            f"{sorted(MODEL_REGISTRY)}"
-        )
+    cls = model_class(model_cfg["core_method"])
     args = model_cfg["args"]
     if "bn_momentum" in args:
         # as heal_tpu/models/registry.py: the momentum rides the norm kind
@@ -49,7 +55,6 @@ def build_model(model_cfg: dict, max_cav: int | None = None):
         base = str(args.get("norm", "batch")).split("@")[0]
         if base == "batch":
             args = dict(args, norm=f"batch@{float(args['bn_momentum'])}")
-    cls = MODEL_REGISTRY[name]
     if getattr(cls, "needs_max_cav", False):
         return cls(args, max_cav=max_cav).eval()
     return cls(args).eval()

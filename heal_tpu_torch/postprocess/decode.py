@@ -3,7 +3,8 @@
 Counterpart of heal_tpu/postprocess/decode.py ``post_process_single``:
 sigmoid score -> threshold -> residual decode -> direction correction ->
 project to ego -> sanity filters (extent / z band) -> rotated NMS ->
-range mask, over a fixed top-K candidate set with a validity mask.
+range mask, over a fixed top-K candidate set with a validity mask; and
+``fuse_and_nms``, late fusion's cross-agent merge of those sets.
 
 Prediction layout is NHWC, as in the JAX package: cls (H, W, A),
 reg (H, W, A*7), dir (H, W, A*num_bins) per sample.
@@ -83,6 +84,29 @@ def post_process_single(
         "corners": corners,
         "scores": torch.where(keep, top_scores, torch.zeros_like(top_scores)),
         "boxes": top_boxes,
+        "valid": keep,
+    }
+
+
+def fuse_and_nms(corners_list, scores_list, valid_list,
+                 nms_threshold: float = 0.15, max_det: int = 300) -> dict:
+    """Late fusion's merge: the agents' padded detection sets (corners
+    already in the ego frame) pooled, the top ``max_det`` of the masked
+    scores taken, and one rotated NMS over them (ref
+    inference_utils.py:18-47). Ties keep the lower index first, as
+    ``lax.top_k`` does. -> corners (max_det, 8, 3), scores, valid."""
+    corners = torch.cat(list(corners_list), dim=0)
+    scores = torch.cat(list(scores_list), dim=0)
+    valid = torch.cat(list(valid_list), dim=0)
+    masked = torch.where(valid, scores, torch.zeros_like(scores))
+    top_scores, idx = torch.sort(masked, descending=True, stable=True)
+    top_scores, idx = top_scores[:max_det], idx[:max_det]
+    top_corners = corners[idx]
+    keep = nms_rotated_fixed(top_corners[:, :4, :2], top_scores,
+                             top_scores > 0.0, nms_threshold)
+    return {
+        "corners": top_corners,
+        "scores": torch.where(keep, top_scores, torch.zeros_like(top_scores)),
         "valid": keep,
     }
 

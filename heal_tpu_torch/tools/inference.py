@@ -1,12 +1,16 @@
-"""Inference + AP evaluation for the port (intermediate fusion).
+"""Inference + AP evaluation for the port.
 
-Counterpart of heal_tpu/tools/inference.py ``run_inference`` for the
-intermediate-fusion path: dataset (the port's numpy host side) -> model
--> decode + rotated NMS -> AP@0.3/0.5/0.7 with the VOC matcher of
-utils/eval_np.py, and for each camera agent type its depth RMSE
-(``depth_rmse_mX``, utils/camera.depth_metric) beside the AP, and for
-Where2comm the mean ``comm_rate`` over the frames. Late fusion,
-two-stage models and visualisation are not ported yet.
+Counterpart of heal_tpu/tools/inference.py ``run_inference``: dataset
+(the port's numpy host side) -> model -> decode + rotated NMS ->
+AP@0.3/0.5/0.7 with the VOC matcher of utils/eval_np.py, and for each
+camera agent type its depth RMSE (``depth_rmse_mX``,
+utils/camera.depth_metric) beside the AP, and for Where2comm the mean
+``comm_rate`` over the frames. Intermediate and early fusion run one
+forward a frame; late fusion (``late``, ``lateheter``) one forward at
+batch 1 per agent sample, the ego's first, each decoded with its
+``transformation_matrix`` to the ego and merged by one cross-agent NMS
+(postprocess/decode.fuse_and_nms), as JAX does. Two-stage models and
+visualisation are not ported yet.
 
     python -m heal_tpu_torch.tools.inference --config heal_tpu/configs/opv2v_m1_pyramid.yaml \
         [--checkpoint net.pt | --seed 0] [--dtype bf16] [--max_batches 8]
@@ -31,15 +35,21 @@ import numpy as np
 import torch
 
 from ..config import load_yaml, reparse
-from ..data import build_dataset
+from ..data import assembler_class, build_dataset
+from ..data.scene import collate
 from ..models import build_model
 from ..models.layers import channels_last, init_weights
-from ..postprocess.decode import post_process_single, strip_padding
+from ..models.registry import model_class
+from ..postprocess.decode import (fuse_and_nms, post_process_single,
+                                  strip_padding)
 from ..utils import box_np, camera, eval_np
 from ..utils.common_np import update_dict
 from . import checkpoint as ckpt_lib
 
 _DTYPES = {"f32": torch.float32, "bf16": torch.bfloat16}
+# the top-level batch keys a model reads, unless its class names its own
+# (``batch_keys``); every inputs_mX and slots_mX is read as well
+_BATCH_KEYS = ("agent_mask", "pairwise_affine", "agent_modality")
 
 
 def build_weights(cfg: dict, checkpoint: str | None = None, seed: int = 0):
@@ -80,31 +90,56 @@ def apply_overrides(cfg: dict, *, noise_setting: dict | None = None,
     return cfg
 
 
-def _model_inputs(batch: dict, modalities, device) -> dict:
-    """The arrays the model reads, as tensors on ``device``. Points,
-    affines and labels stay f32 whatever the model's dtype."""
-    keys = ["agent_mask", "pairwise_affine", "agent_modality"]
-    keys += [f"slots_{m}" for m in modalities]
-    out = {k: torch.from_numpy(np.asarray(batch[k])).to(device) for k in keys
-           if k in batch}
-    for m in modalities:
-        out[f"inputs_{m}"] = {
-            k: torch.from_numpy(np.asarray(v)).to(device)
-            for k, v in batch[f"inputs_{m}"].items()
-        }
+def batch_keys(cfg: dict) -> tuple:
+    """The top-level batch keys ``cfg``'s model reads."""
+    return getattr(model_class(cfg["model"]["core_method"]), "batch_keys",
+                   _BATCH_KEYS)
+
+
+def _model_inputs(batch: dict, keys, device) -> dict:
+    """The arrays the model reads (``keys``, every inputs_mX and
+    slots_mX), as tensors on ``device``; an array the batch holds under
+    two keys (collate aliases ``points`` and ``inputs_m1/points``)
+    crosses once. Points, affines and labels stay f32 whatever the
+    model's dtype."""
+    memo: dict = {}
+
+    def conv(x):
+        if id(x) not in memo:  # keep x alive: its id stays unique
+            memo[id(x)] = (x, torch.from_numpy(np.asarray(x)).to(device))
+        return memo[id(x)][1]
+
+    out = {}
+    for k, v in batch.items():
+        if k.startswith("inputs_") and isinstance(v, dict):
+            out[k] = {kk: conv(vv) for kk, vv in v.items()}
+        elif k in keys or k.startswith("slots_"):
+            out[k] = conv(v)
     return out
+
+
+def frame_inputs(batch: dict, keys, device, late: bool):
+    """One test frame's model inputs on ``device``: a dict, or for late
+    fusion a list of them, the ego's then each agent sample's (batch 1
+    each)."""
+    if not late:
+        return _model_inputs(batch, keys, device)
+    return [_model_inputs(batch, keys, device)] + [
+        _model_inputs(collate([s]), keys, device)
+        for s in batch["agent_samples"][0]]
 
 
 def device_frames(cfg: dict, device, max_batches: int | None = None) -> list:
     """The test split of ``cfg`` as (numpy batch, model inputs on
-    ``device``) pairs, one frame each: assembled and copied once, for
-    :func:`run_inference`'s ``frames`` (several models on one set of
-    frames)."""
+    ``device``) pairs, one frame each (:func:`frame_inputs`): assembled
+    and copied once, for :func:`run_inference`'s ``frames`` (several
+    models on one set of frames)."""
     dataset = build_dataset(cfg, train=False)
+    keys, late = batch_keys(cfg), assembler_class(cfg).late
     out = []
     for batch in dataset.batches(1, shuffle=False):
-        out.append((batch, _model_inputs(batch, dataset.modalities,
-                                         torch.device(device))))
+        out.append((batch, frame_inputs(batch, keys, torch.device(device),
+                                        late)))
         if max_batches and len(out) >= max_batches:
             break
     return out
@@ -137,8 +172,9 @@ def run_inference(
       * ``data_s``: per-frame seconds the host spent assembling the batch;
       * ``depth_rmse_mX``: each camera type's depth RMSE in metres over
         the pixels with a lidar return (JAX's ``depth_metric``);
-      * ``heads`` (``collect_heads``): per-frame f32 CPU copies of the
-        cls/reg/dir head outputs;
+      * ``heads`` (``collect_heads``): f32 CPU copies of the cls/reg/dir
+        head outputs of every forward (one a frame; late fusion one per
+        agent sample, the ego's first);
       * ``comm_rate``: Where2comm's mean fraction of cells sent.
 
     ``model`` (already on ``device`` in ``dtype``) skips the weight setup.
@@ -150,13 +186,7 @@ def run_inference(
     cfg = apply_overrides(cfg, noise_setting=noise_setting,
                           cfg_override=cfg_override,
                           override_range=override_range)
-    if cfg["fusion"]["core_method"] not in (
-        "intermediate", "intermediateheter", "intermediateheterinfer"
-    ):
-        raise NotImplementedError(
-            f"fusion {cfg['fusion']['core_method']!r} is not ported "
-            "(intermediate fusion only)"
-        )
+    late, keys = assembler_class(cfg).late, batch_keys(cfg)
     device = torch.device(device)
     dataset = build_dataset(cfg, train=False)
     if model is None and checkpoint is None and model_dir is not None:
@@ -186,6 +216,19 @@ def run_inference(
         if device.type == "cuda":
             torch.cuda.synchronize(device)
 
+    def decode(out, t_matrix):
+        return post_process_single(
+            out["cls_preds"][0].float(),
+            out["reg_preds"][0].float(),
+            out["dir_preds"][0].float() if "dir_preds" in out else None,
+            anchors,
+            torch.from_numpy(np.asarray(t_matrix, np.float32)).to(device),
+            gt_range,
+            order=post["order"],
+            score_threshold=post["target_args"]["score_threshold"],
+            nms_threshold=post["nms_thresh"],
+        )
+
     if frames is None:
         frames = ((b, None) for b in dataset.batches(1, shuffle=False))
     t_data = time.perf_counter()
@@ -196,29 +239,31 @@ def run_inference(
             sync()
             t0 = time.perf_counter()
             if inputs is None:
-                inputs = _model_inputs(batch, dataset.modalities, device)
-            out = model(inputs)
-            det = post_process_single(
-                out["cls_preds"][0].float(),
-                out["reg_preds"][0].float(),
-                out["dir_preds"][0].float() if "dir_preds" in out else None,
-                anchors,
-                torch.from_numpy(
-                    np.asarray(batch["transformation_matrix"][0], np.float32)
-                ).to(device),
-                gt_range,
-                order=post["order"],
-                score_threshold=post["target_args"]["score_threshold"],
-                nms_threshold=post["nms_thresh"],
-            )
+                inputs = frame_inputs(batch, keys, device, late)
+            if late:
+                # one forward per agent sample, decoded in the ego frame
+                outs = [model(x) for x in inputs]
+                dets = [decode(o, t) for o, t in zip(outs, [
+                    batch["transformation_matrix"][0]] + [
+                    s["transformation_matrix"]
+                    for s in batch["agent_samples"][0]])]
+                det = fuse_and_nms([d["corners"] for d in dets],
+                                   [d["scores"] for d in dets],
+                                   [d["valid"] for d in dets],
+                                   nms_threshold=post["nms_thresh"])
+            else:
+                outs = [model(inputs)]
+                det = decode(outs[0], batch["transformation_matrix"][0])
             dense = strip_padding(det)  # copies to the host: synchronises
             serve_s.append(time.perf_counter() - t0)
+            if collect_heads:
+                heads += [{k: o[k].float().cpu() for k in
+                           ("cls_preds", "reg_preds", "dir_preds") if k in o}
+                          for o in outs]
+            # late fusion reports neither, as in JAX
+            out = {} if late else outs[0]
             if "comm_rate" in out:  # where2comm's bandwidth
                 comm_rates.append(float(out["comm_rate"]))
-            if collect_heads:
-                heads.append({k: out[k].float().cpu() for k in
-                              ("cls_preds", "reg_preds", "dir_preds")
-                              if k in out})
             for m, gc in depth_grids.items():
                 if f"depth_items_{m}" in out:
                     sse, n = camera.depth_metric(

@@ -16,7 +16,12 @@ AND the learning-rate schedule restart at update 0 (JAX replaces only
 params and batch_stats, so ``TrainState.step`` starts over).
 ``train_params.bf16`` selects the bf16 compute policy
 (parallel/trainer.py). The final inference on the test split runs
-in-process unless ``--no_final_inference``.
+in-process unless ``--no_final_inference`` (late fusion: one forward per
+agent sample and the cross-agent NMS, tools/inference.py). Late and
+early fusion train on single samples; a late validation batch carries
+its ``agent_samples``, which stay on the host. ``supervise_single`` is
+taken from the model args for intermediate fusion only
+(:func:`supervise_single`).
 
 The input stream is JAX's (heal_tpu/tools/train.py:165-219): with
 ``train_params.cache_device_batches`` every train and validation batch is
@@ -49,7 +54,7 @@ import numpy as np
 import torch
 
 from ..config import load_yaml, save_yaml
-from ..data import build_dataset
+from ..data import assembler_class, build_dataset
 from ..data.prefetch import prefetch
 from ..models import build_loss
 from ..models.layers import channels_last
@@ -147,6 +152,18 @@ def _nbytes(batches: list) -> int:
     return sum(seen.values())
 
 
+def supervise_single(cfg: dict) -> bool:
+    """Whether the step adds the ``_single`` loss: ``supervise_single``
+    of the model args, taken only where the assembler emits the per-agent
+    labels, the intermediate ones (HEAL reads the flag from its dataset;
+    its late and early datasets define none). JAX passes the flag
+    whatever the fusion, and its step on a late config that sets it, as
+    every published ``single/m*_pretrain.yaml`` does, fails on the
+    missing labels (ROADMAP §3)."""
+    return (assembler_class(cfg).single_labels
+            and bool(cfg["model"]["args"].get("supervise_single", False)))
+
+
 def build_trainer(cfg: dict, device, steps_per_epoch: int, *,
                   init_from: str | None = None,
                   resume: str | None = None) -> Trainer:
@@ -175,8 +192,7 @@ def build_trainer(cfg: dict, device, steps_per_epoch: int, *,
         cfg.get("lr_scheduler"), steps_per_epoch)
     return Trainer(
         model=model, criterion=build_loss(cfg["loss"]), optimizer=optimizer,
-        schedule=schedule,
-        supervise_single=cfg["model"]["args"].get("supervise_single", False),
+        schedule=schedule, supervise_single=supervise_single(cfg),
         single_weight=cfg["loss"]["args"].get("single_weight", 1.0),
         bf16=bool(cfg["train_params"].get("bf16", False)),
         fix_modules=fix_modules,

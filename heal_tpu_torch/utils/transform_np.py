@@ -1,9 +1,9 @@
 """SE(3)/pose math (host side, numpy).
 
 The port's copy of heal_tpu/utils/transform_np.py, trimmed to what the
-intermediate-fusion host side uses: x_to_world (CARLA pose -> world
-transform with its roll/pitch sign conventions), the pairwise transforms
-and their normalised BEV affines.
+host side uses: x_to_world (CARLA pose -> world transform with its
+roll/pitch sign conventions), x1_to_x2 (late and early fusion), the
+pairwise transforms and their normalised BEV affines.
 
 Poses are 6-dof lists/arrays ``[x, y, z, roll, yaw, pitch]`` in DEGREES
 (CARLA convention).
@@ -31,6 +31,11 @@ def x_to_world(pose) -> np.ndarray:
     m[2, 1] = -c_p * s_r
     m[2, 2] = c_p * c_r
     return m
+
+
+def x1_to_x2(x1, x2) -> np.ndarray:
+    """T_x2_x1: maps coordinates in the frame of pose x1 into that of x2."""
+    return np.linalg.solve(x_to_world(x2), x_to_world(x1))
 
 
 def get_pairwise_transformation(lidar_poses: list, max_cav: int) -> np.ndarray:

@@ -292,3 +292,35 @@ def test_kernels_raise_on_inputs_they_do_not_take(dev):
             torch.zeros((3, 8), device=dev), torch.zeros((3, 4), device=dev),
             torch.zeros(3, dtype=torch.int64, device=dev),
             torch.zeros((7, 8), device=dev), grid, 1)
+
+
+@pytest.mark.parametrize("method,per_frame", [("late", 2), ("early", 1)])
+def test_late_and_early_frames_launch_kernel_1_once_per_forward(dev, method,
+                                                                per_frame):
+    """tests/configs/tiny_late.yaml served on the card: late fusion runs
+    one forward per agent sample (the ego and one other agent a frame),
+    each launching kernel 1 once; early fusion one a frame; kernel 2
+    never (no warp). The f32 heads of every forward within 1e-4 of the
+    same frames through kernel 1's plain version."""
+    from heal_tpu_torch.config import load_yaml
+    from heal_tpu_torch.tools.inference import (build_weights, device_frames,
+                                                run_inference)
+
+    cfg = load_yaml("tests/configs/tiny_late.yaml")
+    cfg["fusion"]["core_method"] = method
+    model = build_weights(cfg, seed=0).to(dev)
+    frames = device_frames(cfg, dev, 2)
+    k1, k2 = pillar.pillar_tables.launches, shift_rows.shift_rows.launches
+    got = run_inference(cfg=cfg, device=dev, model=model, frames=frames,
+                        collect_heads=True)
+    assert pillar.pillar_tables.launches - k1 == 2 * per_frame
+    assert shift_rows.shift_rows.launches == k2
+    assert len(got["heads"]) == 2 * per_frame
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(pillar, "pillar_tables", pillar.pillar_tables_plain)
+        want = run_inference(cfg=cfg, device=dev, model=model, frames=frames,
+                             collect_heads=True)
+    for a, b in zip(got["heads"], want["heads"]):
+        for k in a:
+            scale = 1.0 + b[k].abs().max().item()
+            assert (a[k] - b[k]).abs().max().item() <= 1e-4 * scale, k

@@ -175,6 +175,11 @@ zoo = [type(build_fusion(m, {"in_channels": 16, "policy_width": 16}, 16,
                          4)).__name__
        for m in ("max", "att", "disconet", "v2vnet", "where2comm", "who2com",
                  "v2xvit", "cobevt", "when2com", "transformer")]
+# late fusion: one served frame through the late path (two forwards)
+from heal_tpu_torch.data import augmentor, late_early
+from heal_tpu_torch.models import point_pillar
+rl = run_inference(cfg=load_config(sys.argv[6]), device="cpu", max_batches=1,
+                   collect_heads=True)
 """ + _LOADED + """
 print(json.dumps({"frames": r["frames"], "steps": len(losses),
                   "falling": losses[1] < losses[0],
@@ -182,7 +187,8 @@ print(json.dumps({"frames": r["frames"], "steps": len(losses),
                   "second": list(m3_heads.shape),
                   "comm": 0 < rb["comm_rate"] <= 1,
                   "baseline_step": sorted(k for k in baux if "comm" in k),
-                  "zoo": zoo, "loaded": loaded}))
+                  "zoo": zoo, "late_heads": len(rl["heads"]),
+                  "loaded": loaded}))
 """
 
 # chip_smoke.py's host side: the flagship config and one test batch, and
@@ -205,6 +211,13 @@ baselines = {
     for name, m in ((n, build_model(c["model"],
                                     max_cav=c["train_params"]["max_cav"]))
                     for n, c in chip_smoke.baseline_cfgs().items())}
+# the fusion timings phase: its models and one late test frame
+fcfgs = chip_smoke.fusion_cfgs()
+fusion = {}
+for n, c in fcfgs.items():
+    m = build_model(c["model"], max_cav=c["train_params"]["max_cav"])
+    fusion[n] = [type(m).__name__, type(getattr(m, "fusion", None)).__name__]
+late, _ = next(device_batches(fcfgs["late"], 1, "cpu", train=False))
 """ + _LOADED + """
 print(json.dumps({"points": list(batch["inputs_m1"]["points"].shape),
                   "agents": int(batch["agent_mask"].sum()),
@@ -216,7 +229,10 @@ print(json.dumps({"points": list(batch["inputs_m1"]["points"].shape),
                              for m in singles],
                   "cached": cfgs["stage2_m2"]["train_params"][
                       "cache_device_batches"],
-                  "baselines": baselines,
+                  "baselines": baselines, "fusion": fusion,
+                  "late": [list(late["points"].shape),
+                           len(late["agent_samples"][0]),
+                           "data_augment" in fcfgs["late"]],
                   "loaded": loaded}))
 """
 
@@ -249,7 +265,8 @@ def test_port_never_imports_jax(tmp_path):
     out = _run_blocked(_NO_JAX, os.path.join(REPO, TINY), ckpt,
                        os.path.join(REPO, "tests/configs/tiny_heter_m1m2.yaml"),
                        os.path.join(REPO, "tests/configs/entry_m3_single.yaml"),
-                       str(tmp_path / "w2c.yaml"))
+                       str(tmp_path / "w2c.yaml"),
+                       os.path.join(REPO, "tests/configs/tiny_late.yaml"))
     assert out == {"frames": 1, "steps": 2, "falling": True,
                    "camera": [1, 3, 4, 128, 192, 3], "second": [1, 32, 32, 2],
                    "comm": True, "baseline_step": ["comm_rate"],
@@ -257,7 +274,7 @@ def test_port_never_imports_jax(tmp_path):
                            "V2VNetFusion", "Where2commFusion",
                            "Who2comFusion", "V2XViTFusion", "CoBEVTFusion",
                            "When2comFusion", "TransformerFusion"],
-                   "loaded": []}
+                   "late_heads": 2, "loaded": []}
 
 
 def test_chip_smoke_never_imports_jax():
@@ -280,4 +297,20 @@ def test_chip_smoke_never_imports_jax():
                            ("v2xvit", "V2XViTFusion"))},
                        "coalign": ["HeterModelBaselineMS",
                                    ["AttFusion", "AttFusion"]]},
+                   "fusion": {
+                       **{n: ["PointPillar", "NoneType"]
+                          for n in ("late", "early")},
+                       **{m: ["HeterModelLate", "NoneType"]
+                          for m in ("m1", "m2", "m3", "m4", "m1m2")},
+                       **{n: ["PointPillarBaseline", f] for n, f in (
+                           ("max", "MaxFusion"), ("att", "AttFusion"),
+                           ("disconet", "DiscoFusion"),
+                           ("v2vnet", "V2VNetFusion"),
+                           ("where2comm", "Where2commFusion"),
+                           ("cobevt", "CoBEVTFusion"),
+                           ("v2xvit", "V2XViTFusion"),
+                           ("who2com", "Who2comFusion"),
+                           ("when2com", "When2comFusion"),
+                           ("transformer", "TransformerFusion"))}},
+                   "late": [[1, 30000, 4], 3, True],
                    "loaded": []}
