@@ -106,7 +106,34 @@ Phases, in order; any failure raises and the exit code is non-zero:
      step at LIDAR_BATCH (published 4; every fusion parameter with a
      nonzero gradient, kernel 2 forward and backward launched); per
      config serve ms a frame, step ms, peak memory and the launches;
-  9. the input pipeline: epochs of heal_tpu/configs/demo_heal_full/
+  9. pose error and bandwidth, on the published heal_tpu/configs/opv2v/
+     configs at full width, seeded random weights, synthetic scenes with
+     the flagship's scene arguments, POSE_FRAMES test frames: CoAlign on
+     lidar_only/coalign.yaml (heter_model_baseline_ms, att at two
+     levels): tools/pose_graph_pre_calc.py's CLI on the card in both
+     paths, its one-agent scenes for coalign.yaml and padded presorted
+     points for the uncertainty detector (point_pillar_uncertainty on
+     lidar_only/late_fusion.yaml derived: model and loss switched; the
+     repo publishes no config for it), each dump one entry per scene
+     agent with 3 uncertainty values a box for the detector, kernel 1 once
+     a forward (kernel 2 10 times for coalign.yaml); the detector's heads
+     and unc_preds within HEADS_TOL of the plain kernel versions; a dump
+     from the ground truth, and coalign.yaml's frames at pose noise
+     POSE_NOISE assembled without and with box alignment from the same
+     seed: the aligned pairwise affines at least 2x closer to the clean
+     ones than the noisy ones, both served (serve ms a frame each, the
+     host's box-align ms a frame apart, heads vs plain), then one level
+     of tools/inference_w_noise.run_noise_sweep with box_align_precalc;
+     the compressor finetune of heal/stage1/m1_pyramid_compress.yaml:
+     a seeded heal/stage1/m1_pyramid.yaml base saved as .pth, loaded by
+     tools/train.build_trainer's init_from (every base key taken, only
+     compressor.* left), a warm and a timed f32 step at the published
+     batch (ms, peak memory; every frozen parameter and batch-norm
+     buffer bit-equal, every compressor parameter moved; a step
+     launches kernel 1 once, in the frozen branch's eval-mode encoder,
+     and kernel 2 15 times forward and 15 backward), then served f32 and
+     bf16 (kernel 1 once and kernel 2 15 times a frame, heads vs plain);
+ 10. the input pipeline: epochs of heal_tpu/configs/demo_heal_full/
      stage2_m2.yaml (PIPELINE_SCENES train scenes) timed on the host
      clock, batches assembled serially, through the prefetch pipeline
      (tools/train.py, data/prefetch.py), and from the device cache of
@@ -235,6 +262,27 @@ LIDAR_BATCH = 2  # published 4
 # launches it once per agent forward, early fusion once a frame
 LIDAR_SHIFT_LAUNCHES = {**{n: 5 for n in LIDAR_BASELINES}, "v2vnet": 15,
                         "transformer": 10}
+# the pose error and bandwidth phase (heal_tpu/configs/opv2v/): CoAlign on
+# lidar_only/coalign.yaml with its stage-1 detector, point_pillar_
+# uncertainty on a config derived from lidar_only/late_fusion.yaml (the
+# repo publishes none: core_method and loss switched, pose_cfgs), and
+# the compressor finetune of heal/stage1/m1_pyramid_compress.yaml from a
+# seeded heal/stage1/m1_pyramid.yaml base; POSE_FRAMES test frames each
+POSE_CFGS = {"coalign": "lidar_only/coalign.yaml",
+             "uncertainty": "lidar_only/late_fusion.yaml",
+             "base": "heal/stage1/m1_pyramid.yaml",
+             "compress": "heal/stage1/m1_pyramid_compress.yaml"}
+POSE_FRAMES = 4
+POSE_NOISE = 0.6  # pos (m) and rot (deg) std, the sweep's top level
+POSE_SEED = 303
+COMPRESS_BATCH = 4  # published
+# (kernel 1, kernel 2) launches a forward: coalign.yaml's one PointPillars
+# branch and its two fused levels (5 a warp call), on every pre-calc
+# one-agent forward too; the detector's encoder; the compressed Pyramid's
+# encoder and weighted_fuse (3 levels x 5), in a finetune step too (its
+# frozen encoder runs in eval mode; kernel 2 backward as often)
+POSE_LAUNCHES = {"coalign": (1, 10), "uncertainty": (1, 0),
+                 "compress": (1, 15)}
 
 
 def rel_err(a: torch.Tensor, b: torch.Tensor) -> tuple[float, float]:
@@ -1577,8 +1625,9 @@ def _forwards(frames) -> list:
 
 
 def heads_vs_plain(model, frames, what: str) -> float:
-    """The f32 heads of every forward of ``frames``, kernels against the
-    plain versions, both with deterministic algorithms; -> the worst
+    """The f32 heads (and the uncertainty detector's ``unc_preds``) of
+    every forward of ``frames``, kernels against the plain versions,
+    both with deterministic algorithms; -> the worst
     max |d| / (1 + max |plain|). Fails past HEADS_TOL, on a bad output,
     or if the plain run launched a kernel."""
     inputs = _forwards(frames)
@@ -1586,7 +1635,8 @@ def heads_vs_plain(model, frames, what: str) -> float:
     def heads():
         with torch.inference_mode():
             return [{k: v.float() for k, v in model(x).items()
-                     if k in ("cls_preds", "reg_preds", "dir_preds")}
+                     if k in ("cls_preds", "reg_preds", "dir_preds",
+                              "unc_preds")}
                     for x in inputs]
 
     torch.use_deterministic_algorithms(True, warn_only=True)
@@ -1851,6 +1901,330 @@ def phase_fusion_timings(cfgs: dict) -> dict:
     return {"launches": total, "rows": rows}
 
 
+def pose_cfgs() -> dict:
+    """The pose error and bandwidth phase's configs (POSE_CFGS) at full
+    width, read through the port's loader, on the synthetic backend with
+    the flagship's scene arguments: POSE_FRAMES test scenes,
+    COMPRESS_BATCH train scenes. ``uncertainty`` is derived from
+    late_fusion.yaml: model point_pillar_uncertainty, loss
+    point_pillar_uncertainty_loss, everything else as published."""
+    from heal_tpu_torch.tools.train import load_config
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    scene_args = flagship_cfg()["fusion"]["args"]
+    out = {}
+    for name, rel in POSE_CFGS.items():
+        cfg = load_config(os.path.join(root, "heal_tpu", "configs", "opv2v",
+                                       rel))
+        cfg["fusion"]["dataset"] = "synthetic"
+        cfg["fusion"]["args"] = dict(scene_args,
+                                     num_scenes_train=COMPRESS_BATCH,
+                                     num_scenes_test=POSE_FRAMES)
+        out[name] = cfg
+    out["uncertainty"]["model"]["core_method"] = "point_pillar_uncertainty"
+    out["uncertainty"]["loss"]["core_method"] = (
+        "point_pillar_uncertainty_loss")
+    return out
+
+
+@contextlib.contextmanager
+def timed_box_align(seconds: list):
+    """Append the host seconds of every box alignment the assembler runs
+    (data/scene.py) to ``seconds``."""
+    from heal_tpu_torch.data import scene
+
+    real = scene.box_alignment_relative
+
+    def timed(*args, **kwargs):
+        t0 = time.perf_counter()
+        out = real(*args, **kwargs)
+        seconds.append(time.perf_counter() - t0)
+        return out
+
+    scene.box_alignment_relative = timed
+    try:
+        yield
+    finally:
+        scene.box_alignment_relative = real
+
+
+def gt_dump(cfg, path: str) -> str:
+    """A stage-1 dump from the ground truth of ``cfg``'s first
+    POSE_FRAMES test scenes: each agent's view of every object's center
+    (tests/test_box_align.py builds it so)."""
+    import numpy as np
+
+    from heal_tpu_torch.data import build_dataset
+
+    ds = build_dataset(cfg, train=False)
+    dump = {}
+    for idx in range(POSE_FRAMES):
+        scene = ds.backend.scene(idx)
+        objs = np.asarray(scene["objects"])[:, :2]
+        per_agent = []
+        for a in scene["agents"]:
+            pose = np.asarray(a["pose"], np.float64)
+            c, s = np.cos(np.radians(pose[4])), np.sin(np.radians(pose[4]))
+            centers = (objs - pose[:2]) @ np.array([[c, -s], [s, c]])
+            per_agent.append({"centers": centers.tolist(),
+                              "scores": [1.0] * len(centers)})
+        dump[str(idx)] = per_agent
+    with open(path, "w") as f:
+        json.dump(dump, f)
+    return path
+
+
+def _steady_ms(serve_s) -> float:
+    timed = serve_s[1:] or serve_s
+    return 1e3 * sum(timed) / len(timed)
+
+
+def phase_pose(cfgs: dict) -> dict:
+    """HEAL's pose-error and bandwidth paths at full width (module
+    docstring, phase 9); returns each kernel's launches over the phase
+    and the measurements."""
+    import numpy as np
+
+    from heal_tpu_torch.config import save_yaml
+    from heal_tpu_torch.data import build_dataset
+    from heal_tpu_torch.models.layers import channels_last
+    from heal_tpu_torch.tools import checkpoint as ckpt_lib
+    from heal_tpu_torch.tools import pose_graph_pre_calc
+    from heal_tpu_torch.tools import train as train_tool
+    from heal_tpu_torch.tools.inference import (apply_overrides,
+                                                build_weights, device_frames,
+                                                run_inference)
+    from heal_tpu_torch.tools.inference_w_noise import run_noise_sweep
+
+    dev = torch.device("cuda")
+    t_phase = time.perf_counter()
+    total = {k: 0 for k in _counts()}
+    out = {}
+
+    def launched(what, want_per_forward, forwards):
+        got = _counts()
+        k1, k2 = want_per_forward
+        want = {"pillar_tables": k1 * forwards,
+                "shift_rows": k2 * forwards, "shift_rows_backward": 0}
+        if got != want:
+            raise AssertionError(f"{what}: launches {got}, want {want}")
+        for k in total:
+            total[k] += got[k]
+
+    with tempfile.TemporaryDirectory() as tmp:
+        # (a) CoAlign. 1. the stage-1 dumps through the CLI, both paths
+        runs = {}
+        for name in ("coalign", "uncertainty"):
+            cfg = cfgs[name]
+            runs[name] = os.path.join(tmp, name)
+            ckpt_lib.save_checkpoint(runs[name],
+                                     build_weights(cfg, seed=SEED), 1)
+            save_yaml(cfg, os.path.join(runs[name], "config.yaml"))
+            _zero_counts()
+            t0 = time.perf_counter()
+            dump = pose_graph_pre_calc.main(["--model_dir", runs[name],
+                                             "--max_frames",
+                                             str(POSE_FRAMES)])
+            secs = time.perf_counter() - t0
+            ds = build_dataset(cfg, train=False)
+            agents = [len(ds.backend.scene(i)["agents"])
+                      for i in range(POSE_FRAMES)]
+            launched(f"pre-calc {name}", POSE_LAUNCHES[name], sum(agents))
+            keys = {"centers", "scores"} | (
+                {"uncertainty"} if name == "uncertainty" else set())
+            if sorted(dump) != [str(i) for i in range(POSE_FRAMES)]:
+                raise AssertionError(f"pre-calc {name}: frames {sorted(dump)}")
+            boxes = []
+            for i, n in enumerate(agents):
+                entry = dump[str(i)]
+                if len(entry) != n:
+                    raise AssertionError(f"pre-calc {name} frame {i}: "
+                                         f"{len(entry)} entries, {n} agents")
+                for e in entry:
+                    k = len(e["centers"])
+                    if (set(e) != keys or len(e["scores"]) != k
+                            or any(len(c) != 2 for c in e["centers"])
+                            or ("uncertainty" in e and (
+                                len(e["uncertainty"]) != k or any(
+                                    len(u) != 3 for u in e["uncertainty"])))):
+                        raise AssertionError(f"pre-calc {name} frame {i}: "
+                                             "bad entry schema")
+                    boxes.append(k)
+            out[f"precalc_{name}"] = {
+                "forwards": sum(agents), "s": secs,
+                "boxes": (min(boxes), max(boxes))}
+
+        # 2. the detector's heads (and unc_preds), kernels vs plain
+        model_u = channels_last(build_weights(cfgs["uncertainty"],
+                                              seed=SEED).to(dev))
+        frames_u = device_frames(cfgs["uncertainty"], dev, POSE_FRAMES)
+        out["uncertainty_heads_rel"] = heads_vs_plain(model_u, frames_u,
+                                                      "uncertainty")
+        del model_u, frames_u
+
+        # 3. coalign.yaml at pose noise POSE_NOISE on the same frames,
+        # without and with box alignment on a ground-truth dump
+        cfg = cfgs["coalign"]
+        gt_path = gt_dump(cfg, os.path.join(tmp, "gt_boxes.json"))
+        noise = {"add_noise": True, "args": {
+            "pos_std": POSE_NOISE, "rot_std": POSE_NOISE, "pos_mean": 0,
+            "rot_mean": 0, "laplace": False, "von_mises": False}}
+        variants = {
+            "clean": apply_overrides(cfg),
+            "noisy": apply_overrides(cfg, noise_setting=noise),
+            "aligned": apply_overrides(
+                cfg, noise_setting=noise,
+                cfg_override={"box_align": {"precalc_path": gt_path}})}
+        frames, align_s, calls = {}, [], {}
+        with timed_box_align(align_s):
+            for name, c in variants.items():
+                np.random.seed(POSE_SEED)  # add_pose_noise's draws
+                n0 = len(align_s)
+                frames[name] = device_frames(c, dev, POSE_FRAMES)
+                calls[name] = len(align_s) - n0
+        if calls != {"clean": 0, "noisy": 0, "aligned": POSE_FRAMES}:
+            raise AssertionError(f"box alignments run: {calls}")
+        err = {name: max(float(np.abs(b["pairwise_affine"]
+                                      - cb["pairwise_affine"]).max())
+                         for (b, _), (cb, _) in zip(frames[name],
+                                                    frames["clean"]))
+               for name in ("noisy", "aligned")}
+        if not 2 * err["aligned"] <= err["noisy"] or err["noisy"] <= 0:
+            raise AssertionError(f"pairwise affine error vs clean: {err}")
+        out["affine_err"] = err
+        out["box_align_ms"] = 1e3 * sum(align_s) / len(align_s)
+        model_c = channels_last(build_weights(cfg, seed=SEED).to(dev))
+        _zero_counts()
+        coalign_runs = {
+            name: run_inference(cfg=variants[name], device="cuda",
+                                model=model_c, frames=frames[name],
+                                collect_heads=True)
+            for name in ("noisy", "aligned")}
+        launched("coalign served", POSE_LAUNCHES["coalign"], 2 * POSE_FRAMES)
+        for name, r in coalign_runs.items():
+            for h in r["heads"]:
+                if not all(torch.isfinite(t).all() for t in h.values()):
+                    raise AssertionError(f"coalign {name}: bad heads")
+            out[f"serve_ms_{name}"] = _steady_ms(r["serve_s"])
+        out["coalign_heads_rel"] = heads_vs_plain(model_c, frames["aligned"],
+                                                  "coalign aligned")
+        del frames, model_c
+
+        # 4. one level of the box-aligned sweep, called directly
+        _zero_counts()
+        sweep_s = []
+        with timed_box_align(sweep_s):
+            sweep = run_noise_sweep(runs["coalign"], levels=(POSE_NOISE,),
+                                    max_batches=POSE_FRAMES,
+                                    box_align_precalc=gt_path, cfg=cfg)
+        launched("box-aligned sweep", POSE_LAUNCHES["coalign"], POSE_FRAMES)
+        with open(os.path.join(runs["coalign"],
+                               "ap_vs_noise_gauss_boxalign.json")) as f:
+            written = json.load(f)
+        if (len(sweep_s) != POSE_FRAMES or set(written) != {str(POSE_NOISE)}
+                or set(sweep[POSE_NOISE]) != {"ap_30", "ap_50", "ap_70"}):
+            raise AssertionError(f"box-aligned sweep: {sweep}, "
+                                 f"{len(sweep_s)} alignments")
+        out["sweep"] = sweep[POSE_NOISE]
+
+        # (b) the compressor finetune from a seeded m1 base (.pth)
+        base_path = ckpt_lib.save_checkpoint(
+            os.path.join(tmp, "base"), build_weights(cfgs["base"], seed=SEED),
+            1)
+        base_sd = ckpt_lib.load_state_dict(base_path)
+        cfg = cfgs["compress"]
+        batch, _ = next(train_tool.device_batches(cfg, COMPRESS_BATCH, dev))
+        torch.cuda.empty_cache()
+        _zero_counts()
+        tr = train_tool.build_trainer(cfg, dev, 1, init_from=base_path)
+        start = {k: v.detach().clone() for k, v in
+                 tr.model.state_dict().items()}
+        missing = set(start) - set(base_sd)
+        if (set(base_sd) - set(start) or not missing
+                or any(not k.startswith("compressor.") for k in missing)
+                or any(not torch.equal(start[k].cpu(), v)
+                       for k, v in base_sd.items())):
+            raise AssertionError("compress: the base did not load whole, or "
+                                 f"keys other than the compressor's are "
+                                 f"missing: {sorted(missing)[:5]}")
+        out["train"] = _steps(tr, batch, 2)
+        # the frozen branch's encoder runs in eval mode: kernel 1 once a
+        # step; weighted_fuse's warps forward and backward
+        trained = _counts()
+        k1, k2 = POSE_LAUNCHES["compress"]
+        want = {"pillar_tables": 2 * k1, "shift_rows": 2 * k2,
+                "shift_rows_backward": 2 * k2}
+        if trained != want:
+            raise AssertionError(f"compress training launches {trained}, "
+                                 f"want {want}")
+        for k in total:
+            total[k] += trained[k]
+        out["train_launches_per_step"] = {k: v / 2
+                                          for k, v in trained.items()}
+        after = tr.model.state_dict()
+        moved = [k for k in after if not torch.equal(after[k], start[k])]
+        frozen_moved = [k for k in moved if not k.startswith("compressor.")]
+        still = [k for k, _ in tr.model.named_parameters()
+                 if k.startswith("compressor.") and k not in moved]
+        if frozen_moved or still:
+            raise AssertionError(f"compress: frozen entries moved "
+                                 f"{frozen_moved[:5]}, compressor "
+                                 f"parameters still {still[:5]}")
+        out["frozen_entries"] = len(after) - len(missing)
+        out["compressor_moved"] = len(moved)
+        model32 = tr.model.eval()
+        del tr, batch
+        torch.cuda.empty_cache()
+        frames = device_frames(cfg, dev, POSE_FRAMES)
+        runs_c, served = _serve(cfg, model32, frames, "compress")
+        per = POSE_LAUNCHES["compress"]
+        want = {"pillar_tables": 2 * POSE_FRAMES * per[0],
+                "shift_rows": 2 * POSE_FRAMES * per[1],
+                "shift_rows_backward": 0}
+        if served != want:
+            raise AssertionError(f"compress served: {served}, want {want}")
+        for k in total:
+            total[k] += served[k]
+        out["compress_heads_rel"] = heads_vs_plain(model32, frames,
+                                                   "compress")
+        for d, r in runs_c.items():
+            out[f"compress_serve_ms_{d}"] = _steady_ms(r["serve_s"])
+        del model32, frames
+
+    out["launches_per_frame"] = {
+        name: dict(zip(("pillar_tables", "shift_rows"), POSE_LAUNCHES[name]))
+        for name in POSE_LAUNCHES}
+    out["s"] = time.perf_counter() - t_phase
+    step = out["train"]
+    print(f"[pose] pre-calc (pose_graph_pre_calc.main, {POSE_FRAMES} "
+          "frames): " + "; ".join(
+              f"{n} {out[f'precalc_{n}']['forwards']} forwards in "
+              f"{out[f'precalc_{n}']['s']:.3f} s, {out[f'precalc_{n}']['boxes'][0]}"
+              f"-{out[f'precalc_{n}']['boxes'][1]} boxes an agent"
+              for n in ("coalign", "uncertainty"))
+          + f"; detector heads + unc_preds vs plain max rel err "
+          f"{out['uncertainty_heads_rel']:.3e} (tol {HEADS_TOL})")
+    print(f"[pose] coalign.yaml at noise {POSE_NOISE}: pairwise affine max "
+          f"|d| vs clean noisy {err['noisy']:.6f}, aligned "
+          f"{err['aligned']:.6f}; serve ms/frame (f32, after the first) "
+          f"noisy {out['serve_ms_noisy']:.3f}, aligned "
+          f"{out['serve_ms_aligned']:.3f}; host box align "
+          f"{out['box_align_ms']:.3f} ms a frame; heads vs plain "
+          f"{out['coalign_heads_rel']:.3e}; one sweep level {out['sweep']}")
+    print(f"[pose] compress finetune ({POSE_CFGS['compress']}, batch "
+          f"{step['batch']}): step {step['ms']:.3f} ms f32 (after a warm "
+          f"one), peak {step['peak_gib']:.3f} GiB, losses "
+          + ", ".join(f"{x:.4f}" for x in step["losses"])
+          + f"; {out['frozen_entries']} frozen entries bit-equal, "
+          f"{out['compressor_moved']} compressor entries moved; launches a "
+          f"step {out['train_launches_per_step']}; serve ms/frame f32 "
+          f"{out['compress_serve_ms_f32']:.3f}, bf16 "
+          f"{out['compress_serve_ms_bf16']:.3f}; heads vs plain "
+          f"{out['compress_heads_rel']:.3e}")
+    print(f"[pose] phase {out['s']:.1f} s; launches {total}")
+    return {"launches": total, "rows": out}
+
+
 def phase_pipeline() -> None:
     """Epochs of the demo stage-2 m2 config on the host clock: batches
     assembled serially, through the prefetch pipeline, and from the
@@ -1935,6 +2309,8 @@ def main() -> int:
     baselines = phase_baselines(baseline_cfgs())
     torch.cuda.empty_cache()
     fusion = phase_fusion_timings(fusion_cfgs())
+    torch.cuda.empty_cache()
+    pose = phase_pose(pose_cfgs())
     phase_pipeline()
     for name in rows:
         rows[name]["protocol_launches"] = protocol["launches"][name]
@@ -1951,6 +2327,11 @@ def main() -> int:
             c: r["train_launches_per_step"][name]
             for c, r in fusion["rows"].items()
             if "train_launches_per_step" in r}
+        rows[name]["pose_launches"] = pose["launches"][name]
+        rows[name]["pose_launches_per_forward"] = {
+            c: n[name] for c, n in pose["rows"]["launches_per_frame"].items()}
+        rows[name]["pose_compress_launches_per_step"] = pose["rows"][
+            "train_launches_per_step"][name]
     rows["pillar_tables"]["train_launches"] = trained["pillar_tables"]
     rows["shift_rows"]["train_launches"] = trained["shift_rows"]
     rows["shift_rows"]["backward_launches"] = trained["shift_rows_backward"]
@@ -1980,6 +2361,8 @@ def main() -> int:
               f"frame: {k['baseline_launches_per_frame']})"
               f", {k['fusion_timings_launches']} in the fusion timings phase "
               f"(a frame: {k['fusion_timings_launches_per_frame']})"
+              f", {k['pose_launches']} in the pose and bandwidth phase (a "
+              f"forward: {k['pose_launches_per_forward']})"
               + f"; {k['bytes']} bytes, bound {k['bound_ms']:.4f} ms "
               f"({k['bound_by']}), {k['ms']:.4f} ms = {k['pct_of_bound']:.1f}%"
               f" of bound, plain {k['plain_ms']:.4f} ms, library call "

@@ -3,7 +3,8 @@
 The port's copy of heal_tpu/config/loader.py, trimmed to the parsers the
 port's configs name (``load_general_params``: anchor W/H/D from the
 lidar range and voxel size; ``load_point_pillar_params``: the same and
-the voxel grid size in ``model.args.point_pillar_scatter``): a
+the voxel grid size in ``model.args.point_pillar_scatter``;
+``load_point_pillar_params_stage1``: that for CoAlign's stage 1): a
 scientific-notation-safe YAML loader,
 dispatch on the ``yaml_parser`` key, and ``save_yaml``. The same file
 gives the same dict as ``heal_tpu.config.load_yaml``. ``reparse`` runs
@@ -134,5 +135,18 @@ def load_point_pillar_params(param: dict) -> dict:
     return load_general_params(param)
 
 
+def load_point_pillar_params_stage1(param: dict) -> dict:
+    """``load_point_pillar_params`` for CoAlign's stage-1 detector; a
+    ``box_align_pre_calc`` block's stage-1 post-processor gets the
+    derived anchor arguments."""
+    param = load_point_pillar_params(param)
+    if "box_align_pre_calc" in param:
+        param["box_align_pre_calc"]["stage1_postprocessor_config"].update(
+            {"anchor_args": param["postprocess"]["anchor_args"]})
+    return param
+
+
 PARSER_REGISTRY["load_general_params"] = load_general_params
 PARSER_REGISTRY["load_point_pillar_params"] = load_point_pillar_params
+PARSER_REGISTRY["load_point_pillar_params_stage1"] = (
+    load_point_pillar_params_stage1)

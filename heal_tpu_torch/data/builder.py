@@ -3,14 +3,22 @@
 The port's copy of heal_tpu/data/builder.py with the synthetic backend
 and the intermediate, late and early assemblers (data/late_early.py).
 A backend yields scenes (agents, poses, sensors, world objects); the
-assembler turns them into fixed-shape samples. The disk backends,
-two-stage fusion and CoAlign's stage-1 pre-calc raise
+assembler turns them into fixed-shape samples. With
+``box_align.precalc_path`` (a tools/pose_graph_pre_calc.py dump), each
+scene's agents carry their stage-1 detections (``pred_centers``,
+``pred_uncertainty``), which the assembler's CoAlign branch refines the
+noisy poses with. The disk backends and two-stage fusion raise
 NotImplementedError naming the ROADMAP item (queue 1) that ports them.
 """
 from __future__ import annotations
 
+import json
+import os
+import warnings
+
 import numpy as np
 
+from ..utils.box_align import uncertainty_to_weights
 from .late_early import EarlyAssembler, LateAssembler
 from .scene import IntermediateAssembler, collate
 from .synthetic import SyntheticDataset
@@ -100,18 +108,34 @@ class FusionDataset:
             )
         self.assembler = assembler_class(params)(params, train)
         self.modalities = self.assembler.modalities
+        # CoAlign: the stage-1 detections of tools/pose_graph_pre_calc.py
+        self._precalc = None
         ba = params.get("box_align")
         if ba and ba.get("precalc_path"):
-            raise NotImplementedError(
-                "box_align.precalc_path (CoAlign stage-1 detections) is not "
-                "ported: ROADMAP queue 1, item 9 (pose_graph_pre_calc)"
-            )
+            if os.path.exists(ba["precalc_path"]):
+                with open(ba["precalc_path"]) as f:
+                    self._precalc = json.load(f)
+            else:
+                warnings.warn(
+                    f"box_align.precalc_path {ba['precalc_path']!r} does "
+                    "not exist: pose refinement is DISABLED for this run"
+                )
 
     def __len__(self):
         return len(self.backend)
 
     def __getitem__(self, idx: int) -> dict:
-        return self.assembler.assemble(self.backend.scene(idx))
+        scene = self.backend.scene(idx)
+        entry = self._precalc.get(str(idx)) if self._precalc else None
+        if entry:
+            # one entry per scene agent, in scene order and unfiltered
+            # (the pose_graph_pre_calc contract): zipped by position
+            for agent, e in zip(scene["agents"], entry):
+                agent["pred_centers"] = np.asarray(e["centers"])
+                if "uncertainty" in e:
+                    agent["pred_uncertainty"] = uncertainty_to_weights(
+                        e["uncertainty"])
+        return self.assembler.assemble(scene)
 
     @property
     def anchors(self):

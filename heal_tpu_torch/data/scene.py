@@ -22,9 +22,12 @@ between processes and packages (ROADMAP §3, known faults in the
 reference). SECOND agents (m3) get their points in their own order, by
 the encoder's full voxel key (``_presort_voxel``). Branches the slice
 does not run raise NotImplementedError and name the ROADMAP item (queue
-1) that ports them: camera images from disk (item 16), CoAlign box
-alignment (item 9), CenterPoint targets and the distillation teacher
-view (item 13).
+1) that ports them: camera images from disk (item 16), CenterPoint
+targets and the distillation teacher view (item 13). With ``box_align``
+in the config and every agent carrying its stage-1 detections
+(``pred_centers``), the noisy poses are refined by CoAlign's box
+alignment (utils/box_align.py) before the comm-range filter; the labels
+stay on the clean poses.
 """
 from __future__ import annotations
 
@@ -34,6 +37,7 @@ from ..postprocess.anchors import generate_anchor_box
 from ..postprocess.targets import generate_targets
 from ..utils import box_np, transform_np
 from ..utils import camera as cam_utils
+from ..utils.box_align import box_alignment_relative
 from ..utils.common_np import limit_period
 from ..utils.pose_noise import add_pose_noise
 
@@ -117,13 +121,19 @@ class IntermediateAssembler:
         else:
             poses = clean_poses
 
+        # CoAlign: the noisy poses refined from the agents' shared stage-1
+        # detections (data/builder.py sets them from the pre-calc dump)
         if self.params.get("box_align") and all(
             "pred_centers" in a for a in agents
         ):
-            raise NotImplementedError(
-                "CoAlign box alignment is not ported: ROADMAP queue 1, "
-                "item 9 (pose_graph_pre_calc, utils/box_align.py)"
+            refined = box_alignment_relative(
+                [np.asarray(a["pred_centers"]) for a in agents],
+                np.stack(poses),
+                uncertainties=[a.get("pred_uncertainty") for a in agents]
+                if all("pred_uncertainty" in a for a in agents) else None,
+                **(self.params["box_align"].get("args", {}) or {}),
             )
+            poses = [refined[i] for i in range(len(agents))]
 
         # comm-range + modality filters w.r.t. ego, ego first, cap at max_cav
         heter = self.params.get("heter") or {}

@@ -1,11 +1,12 @@
 """Losses (torch): callables ``(output_dict, target_dict, suffix) ->
 (total, aux dict)``, registered by their config ``core_method`` name.
 
-Counterparts of heal_tpu/losses. Ported: ``point_pillar_loss`` and
-``point_pillar_pyramid_loss``.
+Counterparts of heal_tpu/losses. Ported: ``point_pillar_loss``,
+``point_pillar_pyramid_loss`` and ``point_pillar_uncertainty_loss``.
 """
 from . import point_pillar_loss  # noqa: F401
 from . import point_pillar_pyramid_loss  # noqa: F401
+from . import point_pillar_uncertainty_loss  # noqa: F401
 from ..models.registry import build_loss
 
 __all__ = ["build_loss"]

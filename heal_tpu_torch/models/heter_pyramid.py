@@ -22,8 +22,15 @@ eval mode its pyramid scores are masked to the camera's field of view
 (``crop_mask_list``); its depth logits come out as ``depth_items_mX``.
 Train mode follows ``module.train()``: batch-statistics BN everywhere in
 the collab model (nothing is frozen, as in JAX without a compressor); in
-the single model the frozen pyramid and shrink stay in eval mode. The
-compressor and the IoU head are not ported yet and raise.
+the single model the frozen pyramid and shrink stay in eval mode.
+
+With a ``compressor`` (``naive``: ``NaiveCompressor``, ``autoencoder``:
+``AutoEncoder``; HEAL's bandwidth finetune of a collab base) the
+scattered agent features pass through it before the pyramid, and every
+other module is in ``fix_modules``: the trainer
+(parallel/trainer.py) trains the compressor alone and runs the frozen
+modules in eval mode (``freezing.frozen_eval``), as JAX passes
+``train=False`` to them. The IoU head is not ported yet and raises.
 """
 from __future__ import annotations
 
@@ -36,6 +43,7 @@ from .aligner import AlignNet
 from .encoders import PointPillarEncoder
 from .fuse.pyramid import PyramidFusion
 from .heads import DetectionHeads
+from .layers import AutoEncoder, NaiveCompressor
 from .lift_splat_shoot import LiftSplatShootEncoder
 from .point_pillar import _shrink_from_args
 from .registry import register_model
@@ -186,14 +194,13 @@ class ModalityBranch(nn.Module):
 @register_model("heter_pyramid_collab")
 class HeterPyramidCollab(nn.Module):
     """args: per-modality blocks (m1..m4) + fusion_backbone + shrink_header
-    + anchor_number + dir_args."""
+    + anchor_number + dir_args (+ compressor)."""
 
     def __init__(self, args: dict):
         super().__init__()
         a = args
-        for key in ("compressor", "use_iou"):
-            if a.get(key):
-                raise NotImplementedError(f"{key} is not ported yet")
+        if a.get("use_iou"):
+            raise NotImplementedError("use_iou is not ported yet")
         norm = a.get("norm", "batch")
         self.modalities = modality_list(a)
         self.lidar_range = a["lidar_range"]
@@ -215,6 +222,18 @@ class HeterPyramidCollab(nn.Module):
             use_dir="dir_args" in a,
             num_bins=a.get("dir_args", {}).get("num_bins", 2),
         )
+        self.compressor = None
+        if "compressor" in a:
+            comp = a["compressor"]
+            if comp.get("core_method", "naive") == "autoencoder":
+                self.compressor = AutoEncoder(
+                    comp["input_dim"], comp.get("layer_num", 1), norm=norm)
+            else:
+                self.compressor = NaiveCompressor(
+                    comp["input_dim"], comp["compress_ratio"], norm=norm)
+        self.fix_modules = () if self.compressor is None else tuple(
+            f"branch_{m}" for m in self.modalities) + (
+                "pyramid_backbone", "shrink", "heads")
 
     def forward(self, batch: dict) -> dict:
         """batch (tensors): inputs_mX (packed (B, L_m, ...) arrays),
@@ -257,11 +276,17 @@ class HeterPyramidCollab(nn.Module):
             raise ValueError("no modality inputs in batch")
         feat_all = feat_all.reshape((b, l + 1) + feat_all.shape[1:])
 
+        feat = feat_all[:, :l]
+        if self.compressor is not None:
+            flat = feat.reshape((b * l,) + feat.shape[2:]).permute(0, 3, 1, 2)
+            feat = self.compressor(flat).permute(0, 2, 3, 1).reshape(
+                feat.shape)
+
         crop_mask_list = None
         if not self.training and cam_ratios:
             crop_mask_list = self._crop_masks(batch, cam_ratios, feat_all)
         fused, occ_list = self.pyramid_backbone.forward_collab(
-            feat_all[:, :l], batch["pairwise_affine"], agent_mask,
+            feat, batch["pairwise_affine"], agent_mask,
             crop_mask_list=crop_mask_list,
         )
         fused = fused.permute(0, 3, 1, 2)

@@ -488,6 +488,56 @@ class DownsampleConv(nn.Module):
         return x
 
 
+class NaiveCompressor(nn.Module):
+    """Channel autoencoder for bandwidth compression (ref
+    sub_modules/naive_compress.py): three 3x3 ``ConvNormAct``, to
+    ``input_dim // compress_ratio`` channels and back to ``input_dim``."""
+
+    def __init__(self, input_dim: int, compress_ratio: int,
+                 norm: str = "batch"):
+        super().__init__()
+        hidden = input_dim // compress_ratio
+        self.ConvNormAct_0 = ConvNormAct(input_dim, hidden, 3, 1, norm=norm)
+        self.ConvNormAct_1 = ConvNormAct(hidden, input_dim, 3, 1, norm=norm)
+        self.ConvNormAct_2 = ConvNormAct(input_dim, input_dim, 3, 1,
+                                         norm=norm)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.ConvNormAct_2(self.ConvNormAct_1(self.ConvNormAct_0(x)))
+
+
+class AutoEncoder(nn.Module):
+    """Spatial and channel autoencoder compressor (ref
+    sub_modules/auto_encoder.py): ``layer_num`` encoder stages, each
+    halving H, W (a stride-2 conv) and the channels (``enc_{i}a``,
+    ``enc_{i}b``), then mirrored transposed-conv stages restoring both
+    (``dec_{i}a``, ``dec_{i}b``, i counting down)."""
+
+    def __init__(self, feature_num: int, layer_num: int = 1,
+                 norm: str = "batch"):
+        super().__init__()
+        self.layer_num = layer_num
+        c = feature_num
+        for i in range(layer_num):
+            self.add_module(f"enc_{i}a", ConvNormAct(c, c, 3, 2, norm=norm))
+            self.add_module(f"enc_{i}b", ConvNormAct(c, c // 2, 3, 1,
+                                                     norm=norm))
+            c //= 2
+        for i in range(layer_num - 1, -1, -1):
+            self.add_module(f"dec_{i}a", DeconvNormAct(c, 2 * c, 2,
+                                                       norm=norm))
+            self.add_module(f"dec_{i}b", ConvNormAct(2 * c, 2 * c, 3, 1,
+                                                     norm=norm))
+            c *= 2
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        for i in range(self.layer_num):
+            x = getattr(self, f"enc_{i}b")(getattr(self, f"enc_{i}a")(x))
+        for i in range(self.layer_num - 1, -1, -1):
+            x = getattr(self, f"dec_{i}b")(getattr(self, f"dec_{i}a")(x))
+        return x
+
+
 def _init_rule(p: torch.Tensor, rule: tuple, generator: torch.Generator):
     """A module's own flax initializer for one parameter: ("lecun",
     fan_in), ("xavier", fan_in, fan_out) or ("normal", std)."""

@@ -6,19 +6,25 @@ Counterparts of heal_tpu/models/point_pillar.py:
     points -> ``PointPillarEncoder`` -> ``ResNetBEVBackbone`` -> the
     ``DownsampleConv`` shrink header -> ``DetectionHeads``. Late fusion
     runs it once per agent, early fusion once on the merged points;
+  * ``PointPillarUncertainty`` (point_pillar_uncertainty.py, CoAlign's
+    stage 1): ``PointPillar`` plus a 1x1 conv ``unc_head`` whose
+    ``unc_preds`` hold each anchor's log-variance x, log-variance y and
+    log-kappa yaw (tools/pose_graph_pre_calc.py exports them with the
+    boxes);
   * ``PointPillarBaseline`` (point_pillar_baseline.py): the same chain
-    per agent slot of a (B, L) intermediate batch, then the config's
-    ``fusion_method`` from the zoo (models/fuse), then the heads. For
-    Where2comm the shared heads also run on every agent: their
-    confidence gates what is sent (``comm_rate`` in the outputs), and
-    with ``supervise_single`` they are the ``_single`` outputs.
+    per agent slot of a (B, L) intermediate batch, ``compression``'s
+    ``NaiveCompressor`` when set, then the config's ``fusion_method``
+    from the zoo (models/fuse), then the heads. For Where2comm the shared
+    heads also run on every agent: their confidence gates what is sent
+    (``comm_rate`` in the outputs), and with ``supervise_single`` they
+    are the ``_single`` outputs.
 
 Modules carry flax's auto-names (``PointPillarEncoder_0``,
 ``ResNetBEVBackbone_0``, ``DownsampleConv_0``, the fusion's
-``<Class>_0``, ``DetectionHeads_0``), so heal_tpu checkpoints load
-strictly. Outputs are NHWC, as in JAX, with ``spatial_features_2d`` the
-map the heads read. ``compression`` and ``use_iou`` are not ported
-(ROADMAP queue 1, item 2) and raise.
+``<Class>_0``, ``DetectionHeads_0``, ``NaiveCompressor_0``), so heal_tpu
+checkpoints load strictly. Outputs are NHWC, as in JAX, with
+``spatial_features_2d`` the map the heads read. ``use_iou`` is not
+ported (ROADMAP queue 1, item 2) and raises.
 """
 from __future__ import annotations
 
@@ -28,7 +34,7 @@ import torch.nn as nn
 from .encoders import PointPillarEncoder
 from .fuse.fusion_in_one import build_fusion
 from .heads import DetectionHeads
-from .layers import DownsampleConv
+from .layers import Conv, DownsampleConv, NaiveCompressor
 from .registry import register_model
 from .resnet_bev import ResNetBEVBackbone
 
@@ -74,10 +80,9 @@ class _PointPillarChain(nn.Module):
     batch_keys = ("points", "point_mask")
 
     def _build_chain(self, a: dict) -> int:
-        for key in ("compression", "use_iou"):
-            if a.get(key):
-                raise NotImplementedError(
-                    f"{key} is not ported: ROADMAP queue 1, item 2")
+        if a.get("use_iou"):
+            raise NotImplementedError(
+                "use_iou is not ported: ROADMAP queue 1, item 2")
         self.args = a
         norm = a.get("norm", "batch")
         self.PointPillarEncoder_0 = PointPillarEncoder(
@@ -132,6 +137,26 @@ class PointPillar(_PointPillarChain):
         return out
 
 
+@register_model("point_pillar_uncertainty")
+class PointPillarUncertainty(_PointPillarChain):
+    """``PointPillar`` + the aleatoric-uncertainty head ``unc_head`` (a
+    biased 1x1 conv, 3 * anchor_number outputs): ``unc_preds`` (B, H, W,
+    3A) NHWC, per anchor log-var x, log-var y, log-kappa yaw."""
+
+    def __init__(self, args: dict):
+        super().__init__()
+        width = self._build_chain(args)
+        self.DetectionHeads_0 = self._heads(width)
+        self.unc_head = Conv(width, 3 * args["anchor_number"])
+
+    def forward(self, batch: dict) -> dict:
+        feat = self.features(batch["points"], batch["point_mask"])
+        out = self.DetectionHeads_0(feat)
+        out["unc_preds"] = self.unc_head(feat).permute(0, 2, 3, 1)
+        out["spatial_features_2d"] = feat.permute(0, 2, 3, 1)
+        return out
+
+
 @register_model("point_pillar_baseline")
 class PointPillarBaseline(_PointPillarChain):
     """args: PointPillar's + fusion_method and its block (``in_channels``
@@ -146,6 +171,9 @@ class PointPillarBaseline(_PointPillarChain):
     def __init__(self, args: dict, max_cav: int | None = None):
         super().__init__()
         width = self._build_chain(args)
+        if "compression" in args:
+            self.NaiveCompressor_0 = NaiveCompressor(
+                width, args["compression"], norm=args.get("norm", "batch"))
         self.method = args["fusion_method"]
         fusion_args = dict(args.get(self.method, {}) or {})
         fusion_args.setdefault("in_channels",
@@ -164,6 +192,9 @@ class PointPillarBaseline(_PointPillarChain):
         b, l = points.shape[:2]
         feat = self.features(points.reshape((b * l,) + points.shape[2:]),
                              pmask.reshape((b * l,) + pmask.shape[2:]))
+        compressor = getattr(self, "NaiveCompressor_0", None)
+        if compressor is not None:
+            feat = compressor(feat)
         heads = self.DetectionHeads_0
         nhwc = feat.permute(0, 2, 3, 1)
         nhwc = nhwc.reshape((b, l) + nhwc.shape[1:])

@@ -3,8 +3,9 @@
 Counterpart of heal_tpu/models/registry.py. Ported so far: the models
 ``heter_pyramid_collab``, ``heter_pyramid_single``,
 ``heter_model_baseline``, ``heter_model_baseline_ms``,
-``heter_model_late``, ``point_pillar`` and ``point_pillar_baseline``,
-and the losses ``point_pillar_loss`` and ``point_pillar_pyramid_loss``.
+``heter_model_late``, ``point_pillar``, ``point_pillar_uncertainty``
+and ``point_pillar_baseline``, and the losses ``point_pillar_loss``,
+``point_pillar_pyramid_loss`` and ``point_pillar_uncertainty_loss``.
 """
 from __future__ import annotations
 

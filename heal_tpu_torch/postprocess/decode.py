@@ -31,15 +31,20 @@ def post_process_single(
     max_det: int = 300,
     dir_offset: float = 0.7853,
     num_bins: int = 2,
+    unc_preds: torch.Tensor | None = None,
 ) -> dict:
     """Decode one sample's head outputs into padded detections.
 
     cls_preds (H, W, A) logits; reg_preds (H, W, A*7); dir_preds
     (H, W, A*num_bins) or None; anchors (H, W, A, 7) hwl;
-    transformation_matrix (4, 4) to the ego frame; gt_range (6,).
+    transformation_matrix (4, 4) to the ego frame; gt_range (6,);
+    unc_preds (H, W, A*udim) or None, the uncertainty detector's.
 
     Returns dict: corners (max_det, 8, 3) in the ego frame, scores
-    (max_det,), boxes (max_det, 7), valid (max_det,) bool.
+    (max_det,), boxes (max_det, 7), valid (max_det,) bool, and with
+    ``unc_preds`` each candidate's ``uncertainty`` (max_det, udim):
+    log-var x / y and log-kappa yaw, which CoAlign's box alignment turns
+    into landmark weights.
     """
     h, w, a = cls_preds.shape
     n = h * w * a
@@ -80,12 +85,16 @@ def post_process_single(
     keep = nms_rotated_fixed(
         corners[:, :4, :2], top_scores, valid, nms_threshold
     )
-    return {
+    out = {
         "corners": corners,
         "scores": torch.where(keep, top_scores, torch.zeros_like(top_scores)),
         "boxes": top_boxes,
         "valid": keep,
     }
+    if unc_preds is not None:
+        udim = unc_preds.numel() // n
+        out["uncertainty"] = unc_preds.reshape(n, udim)[top_idx]
+    return out
 
 
 def fuse_and_nms(corners_list, scores_list, valid_list,

@@ -5,10 +5,15 @@ Counterpart of heal_tpu/tools/inference_w_noise.py: the eval loop of
 pos/rot std in {0, 0.2, 0.4, 0.6} (utils/pose_noise.py: Gaussian,
 ``--laplace`` or Gaussian position with von-Mises yaw ``--von_mises``),
 the AP per level written to ``<model_dir>/ap_vs_noise_<dist>.json``.
-CoAlign pose refinement (``--box_align``) is not ported yet and raises.
+With ``--box_align PRECALC_JSON`` (a tools/pose_graph_pre_calc.py dump)
+the config's ``box_align.precalc_path`` is set to it, so every frame's
+noisy poses are refined by CoAlign's box alignment before fusion
+(data/builder.py, data/scene.py), and the AP per level goes to
+``ap_vs_noise_<dist>_boxalign.json``.
 
     python -m heal_tpu_torch.tools.inference_w_noise --model_dir runs/merged \\
-        [--laplace | --von_mises] [--max_batches N] [--device cuda]
+        [--laplace | --von_mises] [--box_align stage1_boxes.json] \\
+        [--max_batches N] [--device cuda]
 """
 from __future__ import annotations
 
@@ -21,10 +26,6 @@ import torch
 from .inference import run_inference
 
 NOISE_LEVELS = (0.0, 0.2, 0.4, 0.6)
-BOX_ALIGN_NOT_PORTED = (
-    "CoAlign box alignment (box_align_precalc) is not ported: ROADMAP "
-    "queue 1, item 9 (pose_graph_pre_calc, utils/box_align.py)"
-)
 
 
 def run_noise_sweep(model_dir: str, laplace: bool = False,
@@ -33,10 +34,12 @@ def run_noise_sweep(model_dir: str, laplace: bool = False,
                     von_mises: bool = False, *, cfg: dict | None = None,
                     device="cuda", dtype=torch.float32) -> dict:
     """-> {std: {ap_30, ap_50, ap_70}}. ``cfg``: the config to serve
-    (default: ``model_dir``'s config.yaml)."""
-    if box_align_precalc:
-        raise NotImplementedError(BOX_ALIGN_NOT_PORTED)
+    (default: ``model_dir``'s config.yaml); ``box_align_precalc``: a
+    pose_graph_pre_calc dump, which turns CoAlign's pose refinement on."""
     dist = "laplace" if laplace else "vonmises" if von_mises else "gauss"
+    align = "_boxalign" if box_align_precalc else ""
+    override = ({"box_align": {"precalc_path": box_align_precalc}}
+                if box_align_precalc else None)
     results = {}
     for std in levels:
         noise = {
@@ -47,10 +50,12 @@ def run_noise_sweep(model_dir: str, laplace: bool = False,
         }
         res = run_inference(model_dir, cfg, device=device, dtype=dtype,
                             max_batches=max_batches,
-                            note=f"noise_{dist}_{std}", noise_setting=noise)
+                            note=f"noise_{dist}_{std}{align}",
+                            noise_setting=noise, cfg_override=override)
         results[std] = {k: v for k, v in res.items() if k.startswith("ap")}
-        print(f"[noise {std}] {results[std]}")
-    with open(os.path.join(model_dir, f"ap_vs_noise_{dist}.json"), "w") as f:
+        print(f"[noise {std}{' +align' if align else ''}] {results[std]}")
+    with open(os.path.join(model_dir, f"ap_vs_noise_{dist}{align}.json"),
+              "w") as f:
         json.dump(results, f, indent=2)
     return results
 
@@ -63,7 +68,8 @@ def main(argv=None):
                    help="Gaussian position + von-Mises yaw noise")
     p.add_argument("--max_batches", type=int, default=None)
     p.add_argument("--box_align", default=None, metavar="PRECALC_JSON",
-                   help="CoAlign pose refinement (not ported yet: raises)")
+                   help="pose_graph_pre_calc dump; turns CoAlign pose "
+                        "refinement on during the sweep")
     p.add_argument("--device", default="cuda")
     args = p.parse_args(argv)
     return run_noise_sweep(args.model_dir, args.laplace,

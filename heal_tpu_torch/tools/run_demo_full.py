@@ -4,11 +4,13 @@ Counterpart of heal_tpu/tools/run_demo_full.py: a stage-1 m1 base, each
 new agent type of ``--modalities`` trained against the FROZEN base
 (stage 2), the merge (stage 3), then the merged alliance's evaluations:
 plain AP, the in-order table (k = 1 .. n agent types) and the pose-noise
-sweep. The alliance config is ``--final_cfg`` (a name in ``--cfg_dir``
-or a path) cut down to m1 and the trained types
-(``config.keep_modalities``). The box-align leg is not ported yet
-(ROADMAP queue 1, item 9): it raises NotImplementedError, which is
-recorded in the results as JAX records a failed leg.
+sweep, and CoAlign's box-aligned sweep: the stage-1 base's detections
+dumped by tools/pose_graph_pre_calc.py (when the dump is missing), then
+the pose-noise sweep with the box alignment on. The alliance config is
+``--final_cfg`` (a name in ``--cfg_dir`` or a path) cut down to m1 and
+the trained types (``config.keep_modalities``). A failure of the
+box-align leg is recorded in the results, as JAX records it, and the
+run goes on.
 
 Each phase is skipped when its artifact exists, so the run resumes.
 
@@ -28,6 +30,7 @@ import json
 import os
 import re
 import time
+import traceback
 
 CFG = os.path.join(os.path.dirname(os.path.abspath(__file__)), "..", "..",
                    "heal_tpu", "configs", "demo_heal_full")
@@ -80,6 +83,7 @@ def main(argv=None):
     from .inference_heter_in_order import run_in_order
     from .inference_w_noise import run_noise_sweep
     from .merge import merge_final
+    from .pose_graph_pre_calc import pre_calc
     from .train import main as train_main
 
     os.makedirs(args.out, exist_ok=True)
@@ -155,12 +159,22 @@ def main(argv=None):
                             device=args.device)
         with open(tagf) as f:
             results["noise"] = json.load(f)
+        # CoAlign: the box-aligned sweep on the stage-1 detections
         precalc = os.path.join(stage1, "stage1_boxes.json")
         try:
-            run_noise_sweep(merged, max_batches=args.max_batches,
-                            box_align_precalc=precalc, device=args.device)
-        except NotImplementedError as e:
-            log(f"box-align leg failed: {e!r}")
+            if not os.path.exists(precalc):
+                log("eval: pose_graph_pre_calc on the stage-1 model")
+                pre_calc(stage1, precalc, device=args.device)
+            tagf = os.path.join(merged, "ap_vs_noise_gauss_boxalign.json")
+            if not os.path.exists(tagf):
+                log("eval: pose-noise sweep + box align")
+                run_noise_sweep(merged, max_batches=args.max_batches,
+                                box_align_precalc=precalc,
+                                device=args.device)
+            with open(tagf) as f:
+                results["noise_boxalign"] = json.load(f)
+        except Exception as e:  # noqa: BLE001 (recorded, as JAX does)
+            log(f"box-align leg failed: {e!r}\n{traceback.format_exc()}")
             results["noise_boxalign"] = {"error": repr(e)}
 
     with open(os.path.join(args.out, "demo_full_results.json"), "w") as f:

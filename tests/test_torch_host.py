@@ -251,9 +251,7 @@ def _set(key, value):
     _set("fusion.dataset", "v2xsim"),
     _set("fusion.core_method", "intermediate2stage"),
     _set("kd_flag", True),
-    _set("box_align", {"precalc_path": "stage1.json"}),
-], ids=["opv2v", "v2xset", "dairv2x", "v2xsim", "two_stage", "kd_teacher",
-        "box_align"])
+], ids=["opv2v", "v2xset", "dairv2x", "v2xsim", "two_stage", "kd_teacher"])
 def test_unported_host_paths_raise(edit):
     cfg = load_config(CONFIGS[0])
     edit(cfg)

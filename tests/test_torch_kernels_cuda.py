@@ -324,3 +324,38 @@ def test_late_and_early_frames_launch_kernel_1_once_per_forward(dev, method,
         for k in a:
             scale = 1.0 + b[k].abs().max().item()
             assert (a[k] - b[k]).abs().max().item() <= 1e-4 * scale, k
+
+
+def test_compressed_pyramid_frames_launch_both_kernels(dev):
+    """tests/configs/tiny_heter_collab.yaml with HEAL's naive compressor
+    served on the card: kernel 1 once a frame (the m1 branch) and kernel
+    2 15 times (weighted_fuse: 3 levels x 5 launches); the f32 heads
+    within 1e-4 of the same frames through both plain versions."""
+    from heal_tpu_torch.config import load_yaml
+    from heal_tpu_torch.tools.inference import (build_weights, device_frames,
+                                                run_inference)
+
+    cfg = load_yaml("tests/configs/tiny_heter_collab.yaml")
+    cfg["model"]["args"]["compressor"] = {"core_method": "naive",
+                                          "input_dim": 32,
+                                          "compress_ratio": 4}
+    model = build_weights(cfg, seed=0).to(dev)
+    assert model.compressor is not None
+    frames = device_frames(cfg, dev, 2)
+    k1, k2 = pillar.pillar_tables.launches, shift_rows.shift_rows.launches
+    got = run_inference(cfg=cfg, device=dev, model=model, frames=frames,
+                        collect_heads=True)
+    assert pillar.pillar_tables.launches - k1 == 2
+    assert shift_rows.shift_rows.launches - k2 == 2 * 15
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(pillar, "pillar_tables", pillar.pillar_tables_plain)
+        mp.setattr(shift_rows, "_shift",
+                   lambda x, s, m, axis, backward=False: (
+                       shift_rows.shift_rows_plain if axis == 0
+                       else shift_rows.shift_cols_plain)(x, s, m))
+        want = run_inference(cfg=cfg, device=dev, model=model, frames=frames,
+                             collect_heads=True)
+    for a, b in zip(got["heads"], want["heads"]):
+        for k in a:
+            scale = 1.0 + b[k].abs().max().item()
+            assert (a[k] - b[k]).abs().max().item() <= 1e-4 * scale, k

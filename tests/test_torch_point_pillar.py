@@ -237,8 +237,7 @@ def test_heal_tpu_checkpoint_loads_strictly(which, tmp_path):
         assert _rel(got[k].numpy(), w) <= TOL, k
 
 
-@pytest.mark.parametrize("key,value", [
-    ("compression", 2), ("use_iou", True)])
+@pytest.mark.parametrize("key,value", [("use_iou", True)])
 def test_unported_options_raise(key, value):
     cfg = baseline_cfg("max")
     cfg["model"]["args"][key] = value

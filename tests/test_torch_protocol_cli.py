@@ -5,8 +5,10 @@ entry_m4_single.yaml with ``--init_from`` the stage-1 ``.pth`` and, in a
 second run, a heal_tpu ``.ckpt`` of the same weights (written by
 ``heal_tpu.tools.checkpoint.save_checkpoint``); ``merge_final`` merges
 them; the alliance (entry_m1m2m3m4_final.yaml cut to m1 and m4) is served
-by ``run_inference``, ``run_in_order`` (m1, then m1m4) and the noise
-sweep; ``run_demo_full`` drives the same phases from a config dir.
+by ``run_inference``, ``run_in_order`` (m1, then m1m4), the noise
+sweep, and CoAlign's box-aligned sweep on the stage-1 base's detections
+(``pose_graph_pre_calc``); ``run_demo_full`` drives the same phases from
+a config dir.
 The camera agent type m2 goes the same way: ``_camera_configs`` makes
 entry_m4_single.yaml a Lift-Splat-Shoot m2 on the same grid (with
 ``cache_device_batches``, as heal_tpu's demo configs set it) and the
@@ -35,7 +37,7 @@ from heal_tpu.utils.common import update_dict as jax_update_dict
 from heal_tpu_torch.config import keep_modalities, load_yaml, save_yaml
 from heal_tpu_torch.models import build_model
 from heal_tpu_torch.tools import checkpoint as ckpt_lib
-from heal_tpu_torch.tools import run_demo_full
+from heal_tpu_torch.tools import pose_graph_pre_calc, run_demo_full
 from heal_tpu_torch.tools import train as train_tool
 from heal_tpu_torch.tools.inference import apply_overrides, run_inference
 from heal_tpu_torch.tools.inference_heter_in_order import main as \
@@ -156,9 +158,17 @@ def test_protocol_through_the_clis(tmp_path, capsys):
                             max_batches=1)
     assert list(noise) == [0.2] and set(noise[0.2]) == {
         "ap_30", "ap_50", "ap_70"}
-    with pytest.raises(NotImplementedError, match="item 9"):
-        run_noise_sweep(merged, box_align_precalc="boxes.json",
-                        device="cpu")
+    # CoAlign: the stage-1 base's detections, then the box-aligned sweep
+    boxes = str(tmp_path / "stage1_boxes.json")
+    dump = pose_graph_pre_calc.main(["--model_dir", s1, "--out", boxes,
+                                     "--max_frames", "2", "--device", "cpu"])
+    assert sorted(dump) == ["0", "1"]
+    aligned = run_noise_sweep(merged, levels=(0.2,), device="cpu",
+                              max_batches=1, box_align_precalc=boxes)
+    assert list(aligned) == [0.2] and set(aligned[0.2]) == {
+        "ap_30", "ap_50", "ap_70"}
+    with open(os.path.join(merged, "ap_vs_noise_gauss_boxalign.json")) as f:
+        assert json.load(f) == {"0.2": aligned[0.2]}
 
 
 def test_camera_protocol_through_the_clis(tmp_path, capsys):
@@ -245,8 +255,8 @@ def test_second_protocol_through_the_clis(tmp_path, capsys):
 def test_run_demo_full_tiny(tmp_path, capsys):
     """``run_demo_full`` on a config dir of the tiny configs, with an m4,
     an m2 (camera) and an m3 (SECOND) leg: every phase, the box-align leg
-    recorded as failed, and a second call that finds every artifact and
-    trains nothing."""
+    (the stage-1 dump, then the sweep) with its AP per level, and a second
+    call that finds every artifact and trains nothing."""
     cfg_dir = tmp_path / "cfgs"
     cfg_dir.mkdir()
     m2_yaml, final_yaml = _camera_configs(tmp_path,
@@ -263,7 +273,11 @@ def test_run_demo_full_tiny(tmp_path, capsys):
     assert set(out) == {"merged", "in_order", "noise", "noise_boxalign"}
     assert list(out["in_order"]) == ["m1", "m1m2", "m1m2m3", "m1m2m3m4"]
     assert sorted(out["noise"]) == ["0.0", "0.2", "0.4", "0.6"]
-    assert "NotImplementedError" in out["noise_boxalign"]["error"]
+    assert sorted(out["noise_boxalign"]) == ["0.0", "0.2", "0.4", "0.6"]
+    for aps in out["noise_boxalign"].values():
+        assert set(aps) == {"ap_30", "ap_50", "ap_70"}
+    assert os.path.exists(str(tmp_path / "demo" / "stage1_m1" /
+                              "stage1_boxes.json"))
     assert out["merged"]["depth_rmse_m2"] > 0
     merged = load_yaml("", model_dir=str(tmp_path / "demo" /
                                          "merged_alliance"))

@@ -180,6 +180,21 @@ from heal_tpu_torch.data import augmentor, late_early
 from heal_tpu_torch.models import point_pillar
 rl = run_inference(cfg=load_config(sys.argv[6]), device="cpu", max_batches=1,
                    collect_heads=True)
+# CoAlign: the uncertainty detector's stage-1 dump; the compressors
+from heal_tpu_torch.config import save_yaml
+from heal_tpu_torch.losses import point_pillar_uncertainty_loss
+from heal_tpu_torch.models.layers import AutoEncoder, NaiveCompressor
+from heal_tpu_torch.tools import pose_graph_evaluate, pose_graph_pre_calc
+from heal_tpu_torch.utils import box_align
+u_cfg = load_config(sys.argv[6])
+u_cfg["model"]["core_method"] = "point_pillar_uncertainty"
+u_cfg["fusion"]["args"]["num_scenes_test"] = 1
+checkpoint.save_checkpoint(sys.argv[7], build_weights(u_cfg, seed=0), 1)
+save_yaml(u_cfg, sys.argv[7] + "/config.yaml")
+dump = pose_graph_pre_calc.main(["--model_dir", sys.argv[7],
+                                 "--device", "cpu"])
+with torch.no_grad():
+    comp = AutoEncoder(8, 2)(NaiveCompressor(8, 4)(torch.zeros(1, 8, 8, 8)))
 """ + _LOADED + """
 print(json.dumps({"frames": r["frames"], "steps": len(losses),
                   "falling": losses[1] < losses[0],
@@ -188,6 +203,8 @@ print(json.dumps({"frames": r["frames"], "steps": len(losses),
                   "comm": 0 < rb["comm_rate"] <= 1,
                   "baseline_step": sorted(k for k in baux if "comm" in k),
                   "zoo": zoo, "late_heads": len(rl["heads"]),
+                  "precalc": [len(dump), len(dump["0"]), sorted(dump["0"][0])],
+                  "compressor": list(comp.shape),
                   "loaded": loaded}))
 """
 
@@ -218,6 +235,13 @@ for n, c in fcfgs.items():
     m = build_model(c["model"], max_cav=c["train_params"]["max_cav"])
     fusion[n] = [type(m).__name__, type(getattr(m, "fusion", None)).__name__]
 late, _ = next(device_batches(fcfgs["late"], 1, "cpu", train=False))
+# the pose error and bandwidth phase: its models and loss
+from heal_tpu_torch.models import build_loss
+pose = {}
+for n, c in chip_smoke.pose_cfgs().items():
+    m = build_model(c["model"], max_cav=c["train_params"]["max_cav"])
+    pose[n] = [type(m).__name__, list(getattr(m, "fix_modules", ())),
+               type(build_loss(c["loss"])).__name__]
 """ + _LOADED + """
 print(json.dumps({"points": list(batch["inputs_m1"]["points"].shape),
                   "agents": int(batch["agent_mask"].sum()),
@@ -233,7 +257,7 @@ print(json.dumps({"points": list(batch["inputs_m1"]["points"].shape),
                   "late": [list(late["points"].shape),
                            len(late["agent_samples"][0]),
                            "data_augment" in fcfgs["late"]],
-                  "loaded": loaded}))
+                  "pose": pose, "loaded": loaded}))
 """
 
 
@@ -266,7 +290,8 @@ def test_port_never_imports_jax(tmp_path):
                        os.path.join(REPO, "tests/configs/tiny_heter_m1m2.yaml"),
                        os.path.join(REPO, "tests/configs/entry_m3_single.yaml"),
                        str(tmp_path / "w2c.yaml"),
-                       os.path.join(REPO, "tests/configs/tiny_late.yaml"))
+                       os.path.join(REPO, "tests/configs/tiny_late.yaml"),
+                       str(tmp_path / "stage1"))
     assert out == {"frames": 1, "steps": 2, "falling": True,
                    "camera": [1, 3, 4, 128, 192, 3], "second": [1, 32, 32, 2],
                    "comm": True, "baseline_step": ["comm_rate"],
@@ -274,7 +299,9 @@ def test_port_never_imports_jax(tmp_path):
                            "V2VNetFusion", "Where2commFusion",
                            "Who2comFusion", "V2XViTFusion", "CoBEVTFusion",
                            "When2comFusion", "TransformerFusion"],
-                   "late_heads": 2, "loaded": []}
+                   "late_heads": 2,
+                   "precalc": [1, 2, ["centers", "scores", "uncertainty"]],
+                   "compressor": [1, 8, 8, 8], "loaded": []}
 
 
 def test_chip_smoke_never_imports_jax():
@@ -313,4 +340,14 @@ def test_chip_smoke_never_imports_jax():
                            ("when2com", "When2comFusion"),
                            ("transformer", "TransformerFusion"))}},
                    "late": [[1, 30000, 4], 3, True],
+                   "pose": {
+                       "coalign": ["HeterModelBaselineMS", [],
+                                   "PointPillarLoss"],
+                       "uncertainty": ["PointPillarUncertainty", [],
+                                       "PointPillarUncertaintyLoss"],
+                       "base": ["HeterPyramidCollab", [],
+                                "PointPillarPyramidLoss"],
+                       "compress": ["HeterPyramidCollab",
+                                    ["branch_m1", *frozen],
+                                    "PointPillarPyramidLoss"]},
                    "loaded": []}
