@@ -77,7 +77,9 @@ Phases, in order; any failure raises and the exit code is non-zero:
      (0, 1]; the fusion module's own time (CUDA events) and its share of
      the forward; then one warm and two timed f32 train steps through
      parallel.Trainer and a warm and a timed bf16 step (finite loss, a
-     nonzero gradient in every fusion parameter, kernel 2's backward
+     nonzero gradient in every fusion parameter but the softmax shifts,
+     whose gradient is zero by construction, see no_gradient; kernel 2's
+     backward
      counter rising, kernel 1's not moving), ms/step and peak memory;
   8. the fusion timings: HEAL's late and early fusion and the
      homogeneous PointPillars table on the published
@@ -104,7 +106,8 @@ Phases, in order; any failure raises and the exit code is non-zero:
      set of frames for all (kernel 1 once a frame, kernel 2
      LIDAR_SHIFT_LAUNCHES a frame), then a warm and a timed f32 train
      step at LIDAR_BATCH (published 4; every fusion parameter with a
-     nonzero gradient, kernel 2 forward and backward launched); per
+     nonzero gradient but the softmax shifts, kernel 2 forward and
+     backward launched); per
      config serve ms a frame, step ms, peak memory and the launches;
   9. pose error and bandwidth, on the published heal_tpu/configs/opv2v/
      configs at full width, seeded random weights, synthetic scenes with
@@ -133,7 +136,24 @@ Phases, in order; any failure raises and the exit code is non-zero:
      launches kernel 1 once, in the frozen branch's eval-mode encoder,
      and kernel 2 15 times forward and 15 backward), then served f32 and
      bf16 (kernel 1 once and kernel 2 15 times a frame, heads vs plain);
- 10. the input pipeline: epochs of heal_tpu/configs/demo_heal_full/
+ 10. the anchor-free and SECOND intermediate detectors, on the published
+     heal_tpu/configs/opv2v/lidar_only/center_point_where2comm.yaml
+     (CenterPoint with Where2comm, max_cav 5) and
+     heal_tpu/configs/dairv2x/second_coalign.yaml (second_intermediate
+     with att over 0.1 m voxels, max_cav 2, its scenes 2 agents: a
+     vehicle and a roadside unit) at full width, seeded random weights,
+     synthetic scenes with the flagship's scene arguments: both kernels
+     on each path's own inputs against their plain versions (kernel 1 on
+     CenterPoint's first frame, kernel 2 at the fusion warp's canvases
+     and crops, forward and backward), AF_FRAMES test frames served f32
+     and bf16 through tools.inference.run_inference (anchor-free decode
+     for CenterPoint, its comm_rate), the exact launches a frame
+     (AF_LAUNCHES), the f32 heads within HEADS_TOL of the plain kernel
+     versions, then a warm and a timed f32 train step at the published
+     batch AF_BATCH (finite loss, every trainable parameter moved but
+     the softmax shifts, which need only a gradient; kernel 2 as often
+     backward as forward, kernel 1 never), ms and peak memory;
+ 11. the input pipeline: epochs of heal_tpu/configs/demo_heal_full/
      stage2_m2.yaml (PIPELINE_SCENES train scenes) timed on the host
      clock, batches assembled serially, through the prefetch pipeline
      (tools/train.py, data/prefetch.py), and from the device cache of
@@ -283,6 +303,19 @@ COMPRESS_BATCH = 4  # published
 # frozen encoder runs in eval mode; kernel 2 backward as often)
 POSE_LAUNCHES = {"coalign": (1, 10), "uncertainty": (1, 0),
                  "compress": (1, 15)}
+# phase 10: the anchor-free CenterPoint and DAIR-V2X's SECOND detector,
+# published configs at full width (heal_tpu/configs/...)
+AF_CFGS = {"center_point": "opv2v/lidar_only/center_point_where2comm.yaml",
+           "second": "dairv2x/second_coalign.yaml"}
+AF_FRAMES = 6
+AF_BATCH = 4  # published
+AF_AGENTS = {"second": 2}  # DAIR-V2X-C: one vehicle, one roadside unit
+# (kernel 1, kernel 2) launches a forward, counted from the code: kernel 1
+# once in CenterPoint's eval encoder (all B*L agents in one call) and
+# never in SECOND; kernel 2 five times a warp_agents_to_ego (three shears
+# and two integer shifts), the where2comm or att fusion's one warp. A
+# train step launches kernel 2 as often again backward, kernel 1 never
+AF_LAUNCHES = {"center_point": (1, 5), "second": (0, 5)}
 
 
 def rel_err(a: torch.Tensor, b: torch.Tensor) -> tuple[float, float]:
@@ -374,7 +407,6 @@ def phase_kernels(cfg, model32, final_cfg) -> dict:
     """Kernel vs plain at flagship shapes (and kernel 1 on the first frame
     of ``final_cfg``'s m1+m4 alliance through its m4 encoder); returns the
     JSON rows' numbers (all but the launches)."""
-    from heal_tpu_torch.ops import pillar, shift_rows
     from heal_tpu_torch.tools.inference import build_weights
     from heal_tpu_torch.tools.train import device_batches
 
@@ -432,48 +464,11 @@ def phase_kernels(cfg, model32, final_cfg) -> dict:
                             ).to(dt)
             s = (torch.rand((4, side), generator=gen, device=dev) * 2 - 1
                  ) * ms_bound
-            for name, fn, plain in (
-                ("rows", shift_rows.shift_rows, shift_rows.shift_rows_plain),
-                ("cols", shift_rows.shift_cols, shift_rows.shift_cols_plain),
-            ):
-                axis = 0 if name == "rows" else 1
-                got = fn(x, s, ms_bound)
-                want = plain(x, s, ms_bound)
-                torch.cuda.synchronize()
-                d, r = rel_err(got, want)
-                if not r <= KERNEL_TOL[dt]:
-                    raise AssertionError(f"shift_{name} {dt} {side}: {r}")
-                worst = max(worst, d)
-                fwd = dict(
-                    err=d, rel=r, ms=device_ms(lambda: fn(x, s, ms_bound)),
-                    plain_ms=device_ms(lambda: plain(x, s, ms_bound)),
-                    **library_shift(x, s, axis, want))
-                bwd = shift_backward(x, s, ms_bound, fn, plain, gen, axis)
-                if not bwd["rel"] <= KERNEL_TOL[dt]:
-                    raise AssertionError(f"shift_{name} backward {dt} {side}:"
-                                         f" {bwd['rel']}")
-                worst_bwd = max(worst_bwd, bwd["err"])
-                nbytes = 2 * x.numel() * x.element_size() + s.numel() * 4
-                b_ms, b_by = bound(nbytes, 3 * x.numel())
-                for direction, m in (("forward", fwd), ("backward", bwd)):
-                    print(f"[kernel] shift_{name} {direction} {str(dt)[6:]} x "
-                          f"{tuple(x.shape)}: max_abs_err {m['err']:.3e} (rel "
-                          f"{m['rel']:.3e}, tol {KERNEL_TOL[dt]}), "
-                          f"{m['ms']:.4f} ms vs plain {m['plain_ms']:.4f} ms; "
-                          f"{nbytes} bytes, bound {b_ms:.4f} ms ({b_by}), "
-                          f"{100 * b_ms / m['ms']:.1f}% of bound; grid_sample "
-                          f"{m['library_ms']:.4f} ms (max abs diff from plain "
-                          f"{m['library_err']:.3e})"
-                          + (f"; autograd through the plain forward "
-                             f"{m['autograd_ms']:.4f} ms"
-                             if "autograd_ms" in m else ""))
-                    cases.append(dict(
-                        dtype=str(dt)[6:], x=list(x.shape), axis=name,
-                        direction=direction, max_abs_err=m["err"],
-                        ms=m["ms"], plain_ms=m["plain_ms"],
-                        library_ms=m["library_ms"],
-                        library_err=m["library_err"], bytes=nbytes,
-                        bound_ms=b_ms, pct_of_bound=100 * b_ms / m["ms"]))
+            for name in ("rows", "cols"):
+                got = shift_case(x, s, ms_bound, name, gen)
+                worst = max(worst, got[0]["max_abs_err"])
+                worst_bwd = max(worst_bwd, got[1]["max_abs_err"])
+                cases += got
     # the row's numbers: f32 level 0 rows forward, as the f32 serve path
     # calls it; every case is in "cases". Not a bf16 case: grid_sample
     # takes its grid in x's dtype, and a bf16 grid cannot hold the
@@ -614,6 +609,55 @@ def shift_backward(x, s, ms_bound, fn, plain, gen, axis) -> dict:
             lambda: torch.autograd.grad(yp, xr, g, retain_graph=True)),
         **library_shift(g, neg, axis, want),
     )
+
+
+def shift_case(x, s, ms_bound, name: str, gen, what: str = "") -> list:
+    """Kernel 2 along ``name`` ("rows" or "cols") on x with shifts s,
+    forward and backward, against the plain versions (tolerance
+    KERNEL_TOL), with both device times, the bytes and the bound and the
+    grid_sample yardstick; printed, -> the two cases."""
+    from heal_tpu_torch.ops import shift_rows
+
+    dt = x.dtype
+    axis = 0 if name == "rows" else 1
+    fn, plain = ((shift_rows.shift_rows, shift_rows.shift_rows_plain)
+                 if axis == 0 else
+                 (shift_rows.shift_cols, shift_rows.shift_cols_plain))
+    got = fn(x, s, ms_bound)
+    want = plain(x, s, ms_bound)
+    torch.cuda.synchronize()
+    d, r = rel_err(got, want)
+    if not r <= KERNEL_TOL[dt]:
+        raise AssertionError(f"shift_{name} {what}{dt} {tuple(x.shape)}: {r}")
+    fwd = dict(
+        err=d, rel=r, ms=device_ms(lambda: fn(x, s, ms_bound)),
+        plain_ms=device_ms(lambda: plain(x, s, ms_bound)),
+        **library_shift(x, s, axis, want))
+    bwd = shift_backward(x, s, ms_bound, fn, plain, gen, axis)
+    if not bwd["rel"] <= KERNEL_TOL[dt]:
+        raise AssertionError(f"shift_{name} backward {what}{dt} "
+                             f"{tuple(x.shape)}: {bwd['rel']}")
+    nbytes = 2 * x.numel() * x.element_size() + s.numel() * 4
+    b_ms, b_by = bound(nbytes, 3 * x.numel())
+    cases = []
+    for direction, m in (("forward", fwd), ("backward", bwd)):
+        print(f"[kernel] {what}shift_{name} {direction} {str(dt)[6:]} x "
+              f"{tuple(x.shape)}: max_abs_err {m['err']:.3e} (rel "
+              f"{m['rel']:.3e}, tol {KERNEL_TOL[dt]}), "
+              f"{m['ms']:.4f} ms vs plain {m['plain_ms']:.4f} ms; "
+              f"{nbytes} bytes, bound {b_ms:.4f} ms ({b_by}), "
+              f"{100 * b_ms / m['ms']:.1f}% of bound; grid_sample "
+              f"{m['library_ms']:.4f} ms (max abs diff from plain "
+              f"{m['library_err']:.3e})"
+              + (f"; autograd through the plain forward "
+                 f"{m['autograd_ms']:.4f} ms" if "autograd_ms" in m else ""))
+        cases.append(dict(
+            dtype=str(dt)[6:], x=list(x.shape), axis=name,
+            direction=direction, max_abs_err=m["err"], ms=m["ms"],
+            plain_ms=m["plain_ms"], library_ms=m["library_ms"],
+            library_err=m["library_err"], bytes=nbytes, bound_ms=b_ms,
+            pct_of_bound=100 * b_ms / m["ms"]))
+    return cases
 
 
 def phase_serve(cfg, model32) -> dict:
@@ -1525,8 +1569,7 @@ def phase_baselines(cfgs: dict) -> dict:
             times.append(time.perf_counter() - t0)
             losses.append(float(aux["total_loss"]))
         peak32 = torch.cuda.max_memory_allocated() / 2**30
-        dead = [n for n, p in fusion_params.items()
-                if p.grad is None or not bool(p.grad.abs().max() > 0)]
+        dead = no_gradient(fusion_params, tr.model)
         # the bf16 policy: a warm step (its first call picks the bf16
         # convolution algorithms), then one timed
         tr.bf16 = True
@@ -1585,7 +1628,8 @@ def phase_baselines(cfgs: dict) -> dict:
               f"a warm one), peak {peak16:.3f} GiB; losses "
               + ", ".join(f"{x:.4f}" for x in losses)
               + f"; {len(fusion_params)} fusion parameters, each with a "
-              f"nonzero gradient; launches {trained}")
+              f"nonzero gradient but the softmax shifts; launches "
+              f"{trained}")
     print(f"[baselines] phase {time.perf_counter() - t_phase:.1f} s; "
           f"launches {total}")
     return {"launches": total, "rows": out}
@@ -1699,6 +1743,20 @@ def traced_frame(cfg, model32, frame) -> dict:
     return {"busy_ms": busy["busy_ms"], "frame_ms": frame_ms,
             "device_ops": busy["device_ops"],
             "idle": 1 - busy["busy_ms"] / frame_ms}
+
+
+def no_gradient(params: dict, model) -> list:
+    """The names of ``params`` (name -> parameter of ``model``, after a
+    step) with no gradient, or an all-zero one. A softmax shift of
+    ``model`` (heal_tpu_torch.models.fuse.softmax_shift_biases: a key
+    projection's bias, DiscoNet's and When2com's score biases) has a
+    gradient of zero by construction, so it needs only to have one: its
+    rounding error may or may not be 0."""
+    from heal_tpu_torch.models.fuse import softmax_shift_biases
+
+    shifts = softmax_shift_biases(model)
+    return [n for n, p in params.items() if p.grad is None
+            or (n not in shifts and not bool(p.grad.abs().max() > 0))]
 
 
 def _steps(tr, batch, n: int) -> dict:
@@ -1850,8 +1908,7 @@ def phase_fusion_timings(cfgs: dict) -> dict:
         trained = _counts()
         row["train_launches_per_step"] = {k: v / 2
                                           for k, v in trained.items()}
-        dead = [n for n, p in fusion_params.items()
-                if p.grad is None or not bool(p.grad.abs().max() > 0)]
+        dead = no_gradient(fusion_params, tr.model)
         del tr
         if dead:
             raise AssertionError(f"{name}: fusion parameters without a "
@@ -1894,7 +1951,7 @@ def phase_fusion_timings(cfgs: dict) -> dict:
             parts.append(f"comm_rate {row['comm_rate']:.4f}")
         if "fusion_params" in row:
             parts.append(f"{row['fusion_params']} fusion parameters, each "
-                         "with a nonzero gradient")
+                         "with a nonzero gradient but the softmax shifts")
         print(f"[fusion] {name}: " + "; ".join(parts))
     print(f"[fusion] phase {time.perf_counter() - t_phase:.1f} s; launches "
           f"{total}")
@@ -2225,6 +2282,151 @@ def phase_pose(cfgs: dict) -> dict:
     return {"launches": total, "rows": out}
 
 
+def anchor_free_cfgs() -> dict:
+    """Phase 10's published configs (AF_CFGS) at full width, read through
+    the port's loader, on the synthetic backend with the flagship's scene
+    arguments (DAIR-V2X's with AF_AGENTS agents): AF_BATCH train scenes,
+    AF_FRAMES test scenes; max_cav as published (5 and 2)."""
+    from heal_tpu_torch.tools.train import load_config
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    scene_args = flagship_cfg()["fusion"]["args"]
+    out = {}
+    for name, rel in AF_CFGS.items():
+        cfg = load_config(os.path.join(root, "heal_tpu", "configs", rel))
+        cfg["fusion"]["dataset"] = "synthetic"
+        cfg["fusion"]["args"] = dict(
+            scene_args, num_scenes_train=AF_BATCH, num_scenes_test=AF_FRAMES,
+            num_agents=AF_AGENTS.get(name, scene_args["num_agents"]))
+        out[name] = cfg
+    return out
+
+
+def path_kernels(name: str, cfg, model, inputs, gen) -> list:
+    """Both kernels on this path's own inputs against their plain
+    versions: kernel 1 on the first frame's encoder arguments (CenterPoint
+    only), kernel 2 at the fusion warp's shapes (the non-ego agents'
+    (292, 292, C) canvases with shear-sized shifts, f32 and bf16, then
+    small integer shifts on the (128, 256, C) crops, f32)."""
+    cases = []
+    if AF_LAUNCHES[name][0]:
+        enc = model.CenterPointBaseline_0.encoder
+        for dt in (torch.float32, torch.bfloat16):
+            cases.append(pillar_case(
+                f"{name} frame", frame_inputs(enc, inputs["points"][0],
+                                              inputs["point_mask"][0], dt),
+                dt))
+    b, l = inputs["points"].shape[:2]
+    # the fused map: the shrink header's width, 128 x 256
+    width = cfg["model"]["args"]["shrink_header"]["dim"][-1]
+    n, side = b * (l - 1), 292
+    ms_bound = int(math.ceil(0.7072 * side / 2)) + 2
+    for dt in (torch.float32, torch.bfloat16):
+        x = torch.randn((n, side, side, width), generator=gen,
+                        device="cuda").to(dt)
+        s = (torch.rand((n, side), generator=gen, device="cuda") * 2 - 1
+             ) * ms_bound
+        for axis in ("rows", "cols"):
+            cases += shift_case(x, s, ms_bound, axis, gen, f"{name} ")
+    # the crops' constant integer shifts (bound w and h): the remainders
+    # of translations past the canvas margin, small where they are not 0
+    x = torch.randn((n, 128, 256, width), generator=gen, device="cuda")
+    for axis, length, reach in (("rows", 128, 256), ("cols", 256, 128)):
+        s = torch.randint(-4, 5, (n, 1), generator=gen,
+                          device="cuda").float().expand(n, length)
+        cases += shift_case(x, s, reach, axis, gen, f"{name} crop ")
+    return cases
+
+
+def phase_anchor_free(cfgs: dict) -> dict:
+    """CenterPoint with Where2comm and DAIR-V2X's SECOND intermediate
+    detector on their published configs (module docstring, phase 10);
+    returns each kernel's launches over the phase and the measurements."""
+    from heal_tpu_torch.models.layers import channels_last
+    from heal_tpu_torch.tools import train as train_tool
+    from heal_tpu_torch.tools.inference import build_weights, device_frames
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    t_phase = time.perf_counter()
+    total = {k: 0 for k in _counts()}
+    rows = {}
+    for name, cfg in cfgs.items():
+        torch.cuda.empty_cache()
+        k1, k2 = AF_LAUNCHES[name]
+        frames = device_frames(cfg, dev, AF_FRAMES)
+        model32 = channels_last(build_weights(cfg, seed=SEED).to(dev))
+        row = {"kernels": path_kernels(name, cfg, model32, frames[0][1],
+                                       gen)}
+        runs, served = _serve(cfg, model32, frames, name)
+        want = {"pillar_tables": 2 * AF_FRAMES * k1,
+                "shift_rows": 2 * AF_FRAMES * k2, "shift_rows_backward": 0}
+        if served != want:
+            raise AssertionError(f"{name} served: launches {served}, want "
+                                 f"{want}")
+        for k in total:
+            total[k] += served[k]
+        row["heads_rel"] = heads_vs_plain(model32, frames, name)
+        for d, r in runs.items():
+            row[f"serve_ms_{d}"] = _steady_ms(r["serve_s"])
+        row["ap_30_f32"] = runs["f32"]["ap_30"]
+        if name == "center_point":
+            row["comm_rate"] = runs["f32"]["comm_rate"]
+            if not 0 < row["comm_rate"] <= 1:
+                raise AssertionError(f"{name} comm_rate {row['comm_rate']}")
+        del model32, frames, runs
+        torch.cuda.empty_cache()
+
+        batch, _ = next(train_tool.device_batches(cfg, AF_BATCH, dev))
+        _zero_counts()
+        tr = train_tool.build_trainer(cfg, dev, 1)
+        start = {n: p.detach().clone()
+                 for n, p in tr.model.named_parameters() if p.requires_grad}
+        row["train"] = _steps(tr, batch, 2)
+        trained = _counts()
+        want = {"pillar_tables": 0, "shift_rows": 2 * k2,
+                "shift_rows_backward": 2 * k2}
+        if trained != want:
+            raise AssertionError(f"{name} training launches {trained}, "
+                                 f"want {want}")
+        for k in total:
+            total[k] += trained[k]
+        # a softmax shift's gradient is zero by construction: it needs
+        # one, and need not move
+        from heal_tpu_torch.models.fuse import softmax_shift_biases
+        shifts = softmax_shift_biases(tr.model)
+        still = [n for n, p in tr.model.named_parameters()
+                 if n in start and n not in shifts
+                 and torch.equal(p.detach(), start[n])]
+        still += no_gradient({n: p for n, p in tr.model.named_parameters()
+                              if n in start and n in shifts}, tr.model)
+        if still:
+            raise AssertionError(f"{name}: trainable parameters that did "
+                                 f"not move: {still[:5]}")
+        row["trainable"] = len(start)
+        del tr, batch, start
+        rows[name] = row
+
+        step = row["train"]
+        print(f"[anchor_free] {AF_CFGS[name]} ({name}): serve ms/frame "
+              f"(after the first of {AF_FRAMES}) f32 "
+              f"{row['serve_ms_f32']:.3f}, bf16 {row['serve_ms_bf16']:.3f}; "
+              f"launches a frame kernel 1 {k1}, kernel 2 {k2}; f32 heads vs "
+              f"plain max rel err {row['heads_rel']:.3e} (tol {HEADS_TOL})"
+              + (f"; comm_rate {row['comm_rate']:.4f}" if "comm_rate" in row
+                 else "")
+              + f"; train step {step['ms']:.3f} ms f32 (batch "
+              f"{step['batch']}, after a warm one), peak "
+              f"{step['peak_gib']:.3f} GiB, losses "
+              + ", ".join(f"{x:.4f}" for x in step["losses"])
+              + f"; all {row['trainable']} trainable parameters moved "
+              "(the softmax shifts: with a gradient); "
+              f"launches a step {({k: v / 2 for k, v in trained.items()})}")
+    print(f"[anchor_free] phase {time.perf_counter() - t_phase:.1f} s; "
+          f"launches {total}")
+    return {"launches": total, "rows": rows}
+
+
 def phase_pipeline() -> None:
     """Epochs of the demo stage-2 m2 config on the host clock: batches
     assembled serially, through the prefetch pipeline, and from the
@@ -2311,6 +2513,8 @@ def main() -> int:
     fusion = phase_fusion_timings(fusion_cfgs())
     torch.cuda.empty_cache()
     pose = phase_pose(pose_cfgs())
+    torch.cuda.empty_cache()
+    anchor_free = phase_anchor_free(anchor_free_cfgs())
     phase_pipeline()
     for name in rows:
         rows[name]["protocol_launches"] = protocol["launches"][name]
@@ -2332,6 +2536,18 @@ def main() -> int:
             c: n[name] for c, n in pose["rows"]["launches_per_frame"].items()}
         rows[name]["pose_compress_launches_per_step"] = pose["rows"][
             "train_launches_per_step"][name]
+        rows[name]["anchor_free_launches"] = anchor_free["launches"][name]
+        rows[name]["anchor_free_launches_per_frame"] = {
+            c: AF_LAUNCHES[c][name == "shift_rows"] for c in AF_CFGS}
+    # phase 10's own kernel cases (the CenterPoint frame's kernel 1, the
+    # fusion warps' kernel 2) join the rows' cases and worst errors
+    for r in anchor_free["rows"].values():
+        for case in r["kernels"]:
+            row = rows["pillar_tables" if "u" in case else "shift_rows"]
+            row["cases"].append(case)
+            err = ("backward_max_abs_err"
+                   if case.get("direction") == "backward" else "max_abs_err")
+            row[err] = max(row[err], case["max_abs_err"])
     rows["pillar_tables"]["train_launches"] = trained["pillar_tables"]
     rows["shift_rows"]["train_launches"] = trained["shift_rows"]
     rows["shift_rows"]["backward_launches"] = trained["shift_rows_backward"]
@@ -2363,6 +2579,8 @@ def main() -> int:
               f"(a frame: {k['fusion_timings_launches_per_frame']})"
               f", {k['pose_launches']} in the pose and bandwidth phase (a "
               f"forward: {k['pose_launches_per_forward']})"
+              f", {k['anchor_free_launches']} in the anchor-free and SECOND "
+              f"phase (a frame: {k['anchor_free_launches_per_frame']})"
               + f"; {k['bytes']} bytes, bound {k['bound_ms']:.4f} ms "
               f"({k['bound_by']}), {k['ms']:.4f} ms = {k['pct_of_bound']:.1f}%"
               f" of bound, plain {k['plain_ms']:.4f} ms, library call "

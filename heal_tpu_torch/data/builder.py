@@ -92,12 +92,15 @@ class FusionDataset:
         self.train = train
         self.backend = _build_backend(params, train)
         # a presorted=True encoder on unsorted points silently corrupts
-        # its sorted scatter: refuse the mismatch
+        # its sorted scatter: refuse the mismatch. The heter models read
+        # the flag from model.args.mX.encoder_args (heter_pyramid.py)
         margs = (params.get("model") or {}).get("args") or {}
+        branches = [margs[m] for m in ("m1", "m2", "m3", "m4")
+                    if isinstance(margs.get(m), dict)]
         wants_sorted = margs.get("presorted", False) or any(
-            isinstance(margs.get(m), dict)
-            and margs[m].get("presorted", False)
-            for m in ("m1", "m2", "m3", "m4")
+            b.get("presorted", False)
+            or (b.get("encoder_args") or {}).get("presorted", False)
+            for b in branches
         )
         if wants_sorted and not params["preprocess"]["args"].get(
             "presort", True

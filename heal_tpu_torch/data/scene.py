@@ -22,8 +22,10 @@ between processes and packages (ROADMAP §3, known faults in the
 reference). SECOND agents (m3) get their points in their own order, by
 the encoder's full voxel key (``_presort_voxel``). Branches the slice
 does not run raise NotImplementedError and name the ROADMAP item (queue
-1) that ports them: camera images from disk (item 16), CenterPoint
-targets and the distillation teacher view (item 13). With ``box_align``
+1) that ports them: camera images from disk (item 16) and the
+distillation teacher view (item 13). CenterPoint configs
+(``center_point*``) also get the anchor-free labels ``heatmap``,
+``box_targets`` and ``reg_mask`` on the anchor grid. With ``box_align``
 in the config and every agent carrying its stage-1 detections
 (``pred_centers``), the noisy poses are refined by CoAlign's box
 alignment (utils/box_align.py) before the comm-range filter; the labels
@@ -34,7 +36,7 @@ from __future__ import annotations
 import numpy as np
 
 from ..postprocess.anchors import generate_anchor_box
-from ..postprocess.targets import generate_targets
+from ..postprocess.targets import generate_center_targets, generate_targets
 from ..utils import box_np, transform_np
 from ..utils import camera as cam_utils
 from ..utils.box_align import box_alignment_relative
@@ -198,10 +200,13 @@ class IntermediateAssembler:
         )
         core = self.params.get("model", {}).get("core_method", "")
         if core.startswith("center_point"):
-            raise NotImplementedError(
-                "CenterPoint targets are not ported: ROADMAP queue 1, "
-                "item 13 (center_point)"
-            )
+            # anchor-free labels on the anchor grid: one cell a
+            # feature-map pixel, vw * feature_stride metres wide
+            aa = self.params["postprocess"]["anchor_args"]
+            stride_m = aa["vw"] * aa.get("feature_stride", 2)
+            label.update(generate_center_targets(
+                gt_ego, gt_mask, self.anchors.shape[:2], self.cav_range,
+                stride_m, self.order))
 
         sample = {
             # agents in comm range but beyond a per-modality packing
@@ -220,6 +225,8 @@ class IntermediateAssembler:
             "pos_equal_one": label["pos_equal_one"],
             "neg_equal_one": label["neg_equal_one"],
             "targets": label["targets"],
+            **{k: label[k] for k in ("heatmap", "box_targets", "reg_mask")
+               if k in label},
             "gt_boxes": gt_ego.astype(np.float32),
             "gt_mask": gt_mask.astype(np.float32),
             "transformation_matrix": np.eye(4, dtype=np.float32),

@@ -540,9 +540,12 @@ class AutoEncoder(nn.Module):
 
 def _init_rule(p: torch.Tensor, rule: tuple, generator: torch.Generator):
     """A module's own flax initializer for one parameter: ("lecun",
-    fan_in), ("xavier", fan_in, fan_out) or ("normal", std)."""
+    fan_in), ("xavier", fan_in, fan_out), ("normal", std) or
+    ("constant", value)."""
     kind = rule[0]
-    if kind == "lecun":
+    if kind == "constant":
+        p.fill_(rule[1])
+    elif kind == "lecun":
         std = (1.0 / rule[1]) ** 0.5 / 0.87962566103423978
         nn.init.trunc_normal_(p, 0.0, std, -2 * std, 2 * std,
                               generator=generator)
@@ -564,7 +567,8 @@ def init_weights(model: nn.Module, generator: torch.Generator) -> nn.Module:
     mean 0 and variance 1. Every kernel is a parameter named ``*kernel``.
     A module's ``flax_init`` (leaf -> rule of :func:`_init_rule`) takes
     precedence: the attention projections, typed denses, relation
-    matrices and relative-position tables of the fusion zoo."""
+    matrices and relative-position tables of the fusion zoo, and
+    CenterPoint's heatmap bias."""
     with torch.no_grad():
         for mname, module in model.named_modules():
             rules = getattr(module, "flax_init", {})

@@ -1,11 +1,15 @@
 """Model and loss registries (torch), keyed by the config's ``core_method``.
 
-Counterpart of heal_tpu/models/registry.py. Ported so far: the models
-``heter_pyramid_collab``, ``heter_pyramid_single``,
-``heter_model_baseline``, ``heter_model_baseline_ms``,
-``heter_model_late``, ``point_pillar``, ``point_pillar_uncertainty``
-and ``point_pillar_baseline``, and the losses ``point_pillar_loss``,
-``point_pillar_pyramid_loss`` and ``point_pillar_uncertainty_loss``.
+Counterpart of heal_tpu/models/registry.py. Ported so far (15 of its
+29 model names, 4 of its 9 losses): the models ``heter_pyramid_collab``,
+``heter_pyramid_single``, ``heter_model_baseline``,
+``heter_model_baseline_ms``, ``heter_model_late``, ``point_pillar``,
+``point_pillar_uncertainty``, ``point_pillar_baseline``,
+``center_point``, ``center_point_baseline``,
+``center_point_baseline_multiscale``, ``center_point_intermediate``,
+``center_point_where2comm``, ``second`` and ``second_intermediate``, and
+the losses ``point_pillar_loss``, ``point_pillar_pyramid_loss``,
+``point_pillar_uncertainty_loss`` and ``center_point_loss``.
 """
 from __future__ import annotations
 
@@ -33,7 +37,8 @@ def model_class(name: str):
     """The registered model class of ``core_method`` ``name``."""
     if name not in MODEL_REGISTRY:
         # importing the model modules registers their models
-        from . import heter_baseline, heter_pyramid, point_pillar  # noqa: F401
+        from . import (center_point, heter_baseline,  # noqa: F401
+                       heter_pyramid, point_pillar, second_model)
     if name not in MODEL_REGISTRY:
         raise KeyError(
             f"model core_method {name!r} is not ported; ported: "

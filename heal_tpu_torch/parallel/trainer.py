@@ -53,9 +53,13 @@ def step_streams(seed: int, step: int, device) -> dict:
 
 
 def _label_targets(batch: dict) -> dict:
-    """The label arrays the ported losses read (JAX trainer.py
-    ``_label_targets`` also passes the anchor-free and two-stage labels)."""
+    """The label arrays the ported losses read, the anchor-free ones
+    (CenterPoint) when the batch has them (JAX trainer.py
+    ``_label_targets`` also passes the two-stage labels)."""
     out = {k: batch[k] for k in ("pos_equal_one", "neg_equal_one", "targets")}
+    for key in ("heatmap", "box_targets", "reg_mask"):
+        if key in batch:
+            out[key] = batch[key]
     for key, value in batch.items():
         if key.startswith("inputs_") and isinstance(value, dict):
             if "depth_bins" in value:

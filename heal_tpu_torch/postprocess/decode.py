@@ -31,6 +31,7 @@ def post_process_single(
     max_det: int = 300,
     dir_offset: float = 0.7853,
     num_bins: int = 2,
+    anchor_free: bool = False,
     unc_preds: torch.Tensor | None = None,
 ) -> dict:
     """Decode one sample's head outputs into padded detections.
@@ -39,6 +40,8 @@ def post_process_single(
     (H, W, A*num_bins) or None; anchors (H, W, A, 7) hwl;
     transformation_matrix (4, 4) to the ego frame; gt_range (6,);
     unc_preds (H, W, A*udim) or None, the uncertainty detector's.
+    ``anchor_free`` (CenterPoint): the regression is the box itself, and
+    ``anchors`` is not read.
 
     Returns dict: corners (max_det, 8, 3) in the ego frame, scores
     (max_det,), boxes (max_det, 7), valid (max_det,) bool, and with
@@ -50,7 +53,10 @@ def post_process_single(
     n = h * w * a
     prob = torch.sigmoid(cls_preds.reshape(n))
     deltas = reg_preds.reshape(n, 7)
-    boxes = geometry.decode_boxes(deltas, anchors.reshape(n, 7))
+    if anchor_free:
+        boxes = deltas
+    else:
+        boxes = geometry.decode_boxes(deltas, anchors.reshape(n, 7))
 
     if dir_preds is not None:
         dir_labels = torch.argmax(dir_preds.reshape(n, num_bins), dim=-1)

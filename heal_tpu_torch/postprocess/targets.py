@@ -7,9 +7,12 @@ The port's copy of heal_tpu/postprocess/targets.py ``generate_targets``:
     (force-matched even below threshold, if IoU > 0);
   * negatives: anchors whose IoU with every GT < neg_threshold, minus
     force-matched ones;
-  * regression targets: VoxelNet residual encoding vs the matched anchor.
-The IoU matrix is numpy's (the JAX package's fallback when its C++ host
-loader is not built; the loader is not ported).
+  * regression targets: VoxelNet residual encoding vs the matched anchor;
+and CenterPoint's anchor-free targets (``gaussian_radius``,
+``generate_center_targets``): a Gaussian heatmap, and the box itself at
+each GT centre's cell. The IoU matrix is numpy's (the JAX package's
+fallback when its C++ host loader is not built; the loader is not
+ported).
 """
 from __future__ import annotations
 
@@ -106,3 +109,61 @@ def generate_targets(
         "neg_equal_one": neg_equal_one,
         "targets": targets,
     }
+
+
+def gaussian_radius(h: float, w: float, min_overlap: float = 0.5) -> float:
+    """CornerNet-style radius so boxes IoU>=min_overlap still hit."""
+    a1, b1 = 1, h + w
+    c1 = w * h * (1 - min_overlap) / (1 + min_overlap)
+    r1 = (b1 - np.sqrt(max(b1**2 - 4 * a1 * c1, 0))) / 2
+    a2, b2 = 4, 2 * (h + w)
+    c2 = (1 - min_overlap) * w * h
+    r2 = (b2 - np.sqrt(max(b2**2 - 4 * a2 * c2, 0))) / 2
+    a3, b3 = 4 * min_overlap, -2 * min_overlap * (h + w)
+    c3 = (min_overlap - 1) * w * h
+    r3 = (b3 + np.sqrt(max(b3**2 - 4 * a3 * c3, 0))) / 2
+    return max(min(r1, r2, r3), 0)
+
+
+def generate_center_targets(
+    gt_box_center: np.ndarray,
+    mask: np.ndarray,
+    grid_hw: tuple,
+    lidar_range,
+    stride_m: float,
+    order: str = "hwl",
+) -> dict:
+    """Anchor-free CenterPoint targets (capability of reference
+    center_point target assignment in loss/center_point_loss.py):
+    per-cell gaussian heatmap + direct box regression at centers.
+
+    Returns heatmap (H, W, 1), box_targets (H, W, 7), reg_mask (H, W).
+    """
+    h, w = grid_hw
+    heatmap = np.zeros((h, w, 1), np.float32)
+    boxes = np.zeros((h, w, 7), np.float32)
+    reg_mask = np.zeros((h, w), np.float32)
+    x0, y0 = lidar_range[0], lidar_range[1]
+    gt = gt_box_center[mask == 1]
+    for box in gt:
+        cx = (box[0] - x0) / stride_m
+        cy = (box[1] - y0) / stride_m
+        if not (0 <= cx < w and 0 <= cy < h):
+            continue
+        # BEV dims: order hwl -> l at 5, w at 4
+        bl = box[5] / stride_m
+        bw = box[4] / stride_m
+        radius = max(int(gaussian_radius(bw, bl)), 1)
+        ci, cj = int(cy), int(cx)
+        ys, xs = np.ogrid[-radius : radius + 1, -radius : radius + 1]
+        g = np.exp(-(xs * xs + ys * ys) / (2 * (radius / 3 + 1e-6) ** 2))
+        t, b = max(0, ci - radius), min(h, ci + radius + 1)
+        l_, r = max(0, cj - radius), min(w, cj + radius + 1)
+        gt_, gb = radius - (ci - t), radius + (b - ci)
+        gl, gr = radius - (cj - l_), radius + (r - cj)
+        heatmap[t:b, l_:r, 0] = np.maximum(
+            heatmap[t:b, l_:r, 0], g[gt_:gb, gl:gr]
+        )
+        boxes[ci, cj] = box
+        reg_mask[ci, cj] = 1.0
+    return {"heatmap": heatmap, "box_targets": boxes, "reg_mask": reg_mask}

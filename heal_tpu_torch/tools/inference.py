@@ -227,6 +227,9 @@ def run_inference(
             order=post["order"],
             score_threshold=post["target_args"]["score_threshold"],
             nms_threshold=post["nms_thresh"],
+            # anchor-free models (CenterPoint) mark their outputs: the
+            # model says so, not its name
+            anchor_free=bool(out.get("anchor_free", False)),
         )
 
     if frames is None:

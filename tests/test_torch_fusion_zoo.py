@@ -25,7 +25,7 @@ from heal_tpu.models.fuse import fusion_in_one as jfuse
 from heal_tpu.models.fuse import legacy as jlegacy
 from heal_tpu.models.fuse import where2comm_comm as jcomm
 from heal_tpu.ops import warp as jw
-from heal_tpu_torch.models.fuse import build_fusion
+from heal_tpu_torch.models.fuse import build_fusion, softmax_shift_biases
 from heal_tpu_torch.models.fuse import cobevt as tcobevt
 from heal_tpu_torch.models.fuse import fusion_in_one as tfuse
 from heal_tpu_torch.models.fuse import legacy as tlegacy
@@ -197,6 +197,38 @@ def test_fusion_matches_jax_train_mode(case):
     inp = _inputs(1)
     tm.train()
     _check(_run_port(tm, inp, case), _run_jax(ref, inp, case, train=True))
+
+
+@pytest.mark.parametrize("case", sorted(CASES))
+def test_softmax_shift_biases_are_the_zero_gradients(case):
+    """In float64 and train mode, the parameters whose gradient is zero
+    up to rounding (1e-10 of the largest) are exactly those
+    ``softmax_shift_biases`` names, which a gradient check may not ask to
+    move. HMSA's typed key bias is named too; it has a gradient here,
+    where the keys' agent types differ."""
+    tm = _port(case).double().train()
+    shifts = softmax_shift_biases(tm)
+    if not list(tm.parameters()):
+        assert shifts == set()
+        return
+    inp = _inputs()
+    kw = {k: torch.from_numpy(v).double() if v.dtype == np.float32
+          else torch.from_numpy(v) for k, v in _extra(case, inp,
+                                                      np.asarray).items()}
+    out = tm(torch.from_numpy(inp["x"]).double(),
+             torch.from_numpy(inp["aff"]).double(),
+             torch.from_numpy(inp["mask"]), **kw)
+    out = out[0] if isinstance(out, tuple) else out
+    cot = torch.randn(out.shape, generator=torch.Generator().manual_seed(1),
+                      dtype=torch.float64)
+    (out * cot).sum().backward()
+    grads = {n: p.grad.abs().max().item() for n, p in tm.named_parameters()}
+    top = max(grads.values())
+    zero = {n for n, g in grads.items() if g <= 1e-10 * top}
+    typed = {n for n in shifts
+             if ".hmsa_" in n and "agent_types" in CASES[case][1]}
+    assert shifts <= grads.keys()
+    assert zero == shifts - typed, (zero, shifts)
 
 
 @pytest.mark.parametrize("case", ["max", "att", "disconet", "v2vnet",

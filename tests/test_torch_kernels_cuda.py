@@ -359,3 +359,57 @@ def test_compressed_pyramid_frames_launch_both_kernels(dev):
         for k in a:
             scale = 1.0 + b[k].abs().max().item()
             assert (a[k] - b[k]).abs().max().item() <= 1e-4 * scale, k
+
+
+@pytest.mark.parametrize("core,launches", [
+    ("center_point_where2comm", (1, 5)), ("second_intermediate", (0, 5))])
+def test_center_point_and_second_frames_launch_the_kernels(dev, core,
+                                                          launches):
+    """tests/configs/tiny_intermediate.yaml as CenterPoint with Where2comm
+    (kernel 1 once a frame, kernel 2 5 times: one warp) and as SECOND
+    intermediate with att at small widths (kernel 2 only); the f32 heads
+    within 1e-4 of the same frames through both plain versions, both
+    runs with deterministic algorithms and TF32 off, as chip_smoke's
+    heads check (without them the two SECOND runs' reg heads differed by
+    1.06e-4 relative on an H100)."""
+    from heal_tpu_torch.config import load_yaml
+    from heal_tpu_torch.tools.inference import (build_weights, device_frames,
+                                                run_inference)
+
+    cfg = load_yaml("tests/configs/tiny_intermediate.yaml")
+    a = cfg["model"]["args"]
+    cfg["model"]["core_method"] = core
+    if core == "second_intermediate":
+        a.update(voxel_size=[0.15, 0.15, 0.5], fusion_method="att",
+                 second={"channels": [8, 16, 16, 16],
+                         "max_voxels": [4096, 3072, 2048, 1536]})
+        a["base_bev_backbone"].update(layer_strides=[1, 2],
+                                      num_filters=[16, 32],
+                                      num_upsample_filter=[16, 16])
+        a["shrink_header"].update(dim=[32], input_dim=32)
+    model = build_weights(cfg, seed=0).to(dev)
+    frames = device_frames(cfg, dev, 2)
+    k1, k2 = pillar.pillar_tables.launches, shift_rows.shift_rows.launches
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(torch.backends.cudnn, "allow_tf32", False)
+        mp.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
+        torch.use_deterministic_algorithms(True, warn_only=True)
+        try:
+            got = run_inference(cfg=cfg, device=dev, model=model,
+                                frames=frames, collect_heads=True)
+            assert pillar.pillar_tables.launches - k1 == 2 * launches[0]
+            assert shift_rows.shift_rows.launches - k2 == 2 * launches[1]
+            mp.setattr(pillar, "pillar_tables", pillar.pillar_tables_plain)
+            mp.setattr(shift_rows, "_shift",
+                       lambda x, s, m, axis, backward=False: (
+                           shift_rows.shift_rows_plain if axis == 0
+                           else shift_rows.shift_cols_plain)(x, s, m))
+            want = run_inference(cfg=cfg, device=dev, model=model,
+                                 frames=frames, collect_heads=True)
+        finally:
+            torch.use_deterministic_algorithms(False)
+    assert got["heads"][0]["cls_preds"].shape[1:3] == (64, 64)
+    for g, w in zip(got["heads"], want["heads"]):
+        for k in g:
+            scale = 1.0 + w[k].abs().max().item()
+            assert (g[k] - w[k]).abs().max().item() <= 1e-4 * scale, k

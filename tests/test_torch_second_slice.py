@@ -20,10 +20,11 @@ bridges one set of weights (a port init, running statistics randomised).
     conventions);
   * the uncut four-type alliance (tests/configs/entry_m1m2m3m4_final.yaml,
     an agent of each type): heads within 1e-5 of 1 + max |JAX|;
-  * the known reference fault of ADVICE r5 that the port inherits: with
-    the host presort off (``preprocess.args.presort: false``) and the
-    encoder's ``presorted: true``, the running max merges voxels without
-    an error, in both packages alike.
+  * the known reference fault of ADVICE r5, repaired in the port: with
+    the host presort off (``preprocess.args.presort: false``) and a heter
+    encoder's ``encoder_args.presorted: true``, JAX's builder accepts the
+    config and its running max merges voxels without an error; the
+    port's builder raises (for the m3 key and the flagship's m1 key).
 """
 import copy
 
@@ -223,28 +224,32 @@ def test_m1m2m3m4_alliance_heads_match_jax():
 
 
 # ------------------------------------------------- known reference fault
-def _m3_batch(build, presort: bool, presorted: bool, **kw):
+def _m3_cfg(presort: bool, presorted: bool) -> dict:
     cfg = load_yaml(M3)
     cfg["preprocess"]["args"]["presort"] = presort
     cfg["model"]["args"]["m3"]["encoder_args"]["presorted"] = presorted
+    return cfg
+
+
+def _m3_batch(build, presort: bool, presorted: bool, **kw):
+    cfg = _m3_cfg(presort, presorted)
     np.random.seed(0)
     return cfg, next(build(cfg, train=False).batches(2, shuffle=False, **kw))
 
 
 def test_presort_off_with_presorted_encoder_merges_voxels():
-    """ADVICE r5 (ROADMAP §3, medium): the data knob
-    ``preprocess.args.presort`` and the encoder's ``presorted`` are never
-    checked against each other. With the presort off and ``presorted``
-    on, the encoder's running max merges points into wrong voxels and
-    raises nothing. The port inherits it: its BEV equals JAX's (same
-    weights, same batch) and differs from the sorted run's."""
-    cfg, batch = _m3_batch(build_dataset, presort=False, presorted=True)
+    """ADVICE r5 (ROADMAP §3, repaired in the port): the data knob
+    ``preprocess.args.presort`` against the heter encoder's
+    ``encoder_args.presorted``. The port's builder refuses the mismatch.
+    JAX's builder still accepts it, and on its unsorted batch the
+    encoder's running max merges points into wrong voxels with no error:
+    the port's encoder on that batch equals JAX's (same weights) and
+    differs from the sorted run's."""
+    with pytest.raises(ValueError, match="presort"):
+        build_dataset(_m3_cfg(presort=False, presorted=True), train=False)
     _, sorted_batch = _m3_batch(build_dataset, presort=True, presorted=True)
-    _, jbatch = _m3_batch(jax_build_dataset, presort=False, presorted=True,
-                          process_split=False)
-    for k in ("points", "point_mask"):
-        np.testing.assert_array_equal(batch["inputs_m3"][k],
-                                      jbatch["inputs_m3"][k])
+    cfg, batch = _m3_batch(jax_build_dataset, presort=False, presorted=True,
+                           process_split=False)
     model = init_weights(build_model(cfg["model"]),
                          torch.Generator().manual_seed(3)).eval()
     enc = model.branch_m3.encoder
@@ -268,3 +273,17 @@ def test_presort_off_with_presorted_encoder_merges_voxels():
         jnp.asarray(batch["inputs_m3"]["point_mask"][:, 0]))))
     assert _rel(got, want) <= 1e-5
     assert _rel(got, good) > 1e-2
+
+
+def test_presort_guard_reads_the_flagship_m1_encoder_args():
+    """The flagship sets its m1 encoder's ``presorted`` under
+    ``model.args.m1.encoder_args`` (opv2v_m1_pyramid.yaml): with the host
+    presort off, the port's builder raises and JAX's accepts."""
+    cfg = load_yaml("heal_tpu/configs/opv2v_m1_pyramid.yaml")
+    assert cfg["model"]["args"]["m1"]["encoder_args"]["presorted"] is True
+    cfg["preprocess"]["args"]["presort"] = False
+    cfg["fusion"]["args"] = dict(cfg["fusion"]["args"] or {},
+                                 num_scenes_test=1)
+    with pytest.raises(ValueError, match="presort"):
+        build_dataset(cfg, train=False)
+    assert len(jax_build_dataset(cfg, train=False)) == 1

@@ -195,6 +195,11 @@ dump = pose_graph_pre_calc.main(["--model_dir", sys.argv[7],
                                  "--device", "cpu"])
 with torch.no_grad():
     comp = AutoEncoder(8, 2)(NaiveCompressor(8, 4)(torch.zeros(1, 8, 8, 8)))
+# CenterPoint served through the anchor-free decode; the SECOND detectors
+from heal_tpu_torch.losses import center_point_loss
+from heal_tpu_torch.models import center_point, second_model
+rc = run_inference(cfg=load_config(sys.argv[8]), device="cpu", max_batches=1,
+                   collect_heads=True)
 """ + _LOADED + """
 print(json.dumps({"frames": r["frames"], "steps": len(losses),
                   "falling": losses[1] < losses[0],
@@ -205,6 +210,8 @@ print(json.dumps({"frames": r["frames"], "steps": len(losses),
                   "zoo": zoo, "late_heads": len(rl["heads"]),
                   "precalc": [len(dump), len(dump["0"]), sorted(dump["0"][0])],
                   "compressor": list(comp.shape),
+                  "center_point": [list(rc["heads"][0]["cls_preds"].shape),
+                                   0 < rc["comm_rate"] <= 1],
                   "loaded": loaded}))
 """
 
@@ -242,6 +249,15 @@ for n, c in chip_smoke.pose_cfgs().items():
     m = build_model(c["model"], max_cav=c["train_params"]["max_cav"])
     pose[n] = [type(m).__name__, list(getattr(m, "fix_modules", ())),
                type(build_loss(c["loss"])).__name__]
+# the anchor-free and SECOND phase: its models, losses and scenes
+from heal_tpu_torch.data import build_dataset
+anchor_free = {}
+for n, c in chip_smoke.anchor_free_cfgs().items():
+    m = build_model(c["model"], max_cav=c["train_params"]["max_cav"])
+    anchor_free[n] = [type(m).__name__, type(build_loss(c["loss"])).__name__,
+                      c["train_params"]["max_cav"],
+                      c["fusion"]["args"]["num_agents"],
+                      "heatmap" in build_dataset(c, train=True)[0]]
 """ + _LOADED + """
 print(json.dumps({"points": list(batch["inputs_m1"]["points"].shape),
                   "agents": int(batch["agent_mask"].sum()),
@@ -257,7 +273,8 @@ print(json.dumps({"points": list(batch["inputs_m1"]["points"].shape),
                   "late": [list(late["points"].shape),
                            len(late["agent_samples"][0]),
                            "data_augment" in fcfgs["late"]],
-                  "pose": pose, "loaded": loaded}))
+                  "pose": pose, "anchor_free": anchor_free,
+                  "loaded": loaded}))
 """
 
 
@@ -276,6 +293,7 @@ def test_port_never_imports_jax(tmp_path):
     from heal_tpu_torch.config import save_yaml
     from heal_tpu_torch.models.layers import init_weights
     from heal_tpu_torch.utils.bridge import to_flax
+    from test_torch_center_point import cp_cfg
     from test_torch_heter_baseline import baseline_cfg
 
     model = init_weights(build_torch(load_yaml(TINY)["model"]),
@@ -286,12 +304,15 @@ def test_port_never_imports_jax(tmp_path):
     w2c = baseline_cfg("where2comm")
     w2c["fusion"]["args"].update(num_scenes_train=1, num_scenes_test=1)
     save_yaml(w2c, str(tmp_path / "w2c.yaml"))
+    cp = cp_cfg("where2comm_transformer_ss")
+    cp["fusion"]["args"].update(num_scenes_train=1, num_scenes_test=1)
+    save_yaml(cp, str(tmp_path / "cp.yaml"))
     out = _run_blocked(_NO_JAX, os.path.join(REPO, TINY), ckpt,
                        os.path.join(REPO, "tests/configs/tiny_heter_m1m2.yaml"),
                        os.path.join(REPO, "tests/configs/entry_m3_single.yaml"),
                        str(tmp_path / "w2c.yaml"),
                        os.path.join(REPO, "tests/configs/tiny_late.yaml"),
-                       str(tmp_path / "stage1"))
+                       str(tmp_path / "stage1"), str(tmp_path / "cp.yaml"))
     assert out == {"frames": 1, "steps": 2, "falling": True,
                    "camera": [1, 3, 4, 128, 192, 3], "second": [1, 32, 32, 2],
                    "comm": True, "baseline_step": ["comm_rate"],
@@ -301,7 +322,8 @@ def test_port_never_imports_jax(tmp_path):
                            "When2comFusion", "TransformerFusion"],
                    "late_heads": 2,
                    "precalc": [1, 2, ["centers", "scores", "uncertainty"]],
-                   "compressor": [1, 8, 8, 8], "loaded": []}
+                   "compressor": [1, 8, 8, 8],
+                   "center_point": [[1, 64, 64, 1], True], "loaded": []}
 
 
 def test_chip_smoke_never_imports_jax():
@@ -350,4 +372,9 @@ def test_chip_smoke_never_imports_jax():
                        "compress": ["HeterPyramidCollab",
                                     ["branch_m1", *frozen],
                                     "PointPillarPyramidLoss"]},
+                   "anchor_free": {
+                       "center_point": ["CenterPointWhere2comm",
+                                        "CenterPointLoss", 5, 4, True],
+                       "second": ["SecondIntermediate", "PointPillarLoss", 2,
+                                  2, False]},
                    "loaded": []}
