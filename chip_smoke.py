@@ -153,7 +153,32 @@ Phases, in order; any failure raises and the exit code is non-zero:
      batch AF_BATCH (finite loss, every trainable parameter moved but
      the softmax shifts, which need only a gradient; kernel 2 as often
      backward as forward, kernel 1 never), ms and peak memory;
- 11. the input pipeline: epochs of heal_tpu/configs/demo_heal_full/
+ 11. the disk datasets: trees written under a temporary directory by the
+     port's own writers at DISK_SEED (heal_tpu_torch/data/{opv2v,
+     dairv2x,v2xsim}.py): an OPV2V tree of DISK_CAVS agents and
+     DISK_TIMESTAMPS timestamps with 4 camera PNGs an agent at OPV2V's
+     600x800, a DAIR-V2X-C tree and a V2X-Sim pickle, every lidar agent
+     at least max_points (30000) points in range (DISK_GROUND_POINTS /
+     DISK_BOX_POINTS); the native and numpy PCD readers held equal on an
+     ascii and a binary PCD and timed, a frame's five sweeps; then, from
+     the files, at full width with seeded random weights: the published
+     heal_tpu/configs/opv2v/heal/final_infer/m1m2m3m4.yaml (its modalities
+     drawn by the backend; the m2 agents read their PNGs, the config's
+     data_aug_conf given the images' size and the crop policy of
+     demo_heal_full/final_m1m2m3m4.yaml: DISK_AUG),
+     dairv2x/m1_pyramid.yaml (a vehicle and a roadside unit) and
+     v2xsim/point_pillar_fcooper.yaml served f32 and bf16 through
+     tools.inference.run_inference (the host's read and assemble time a
+     frame on the host clock, apart), kernel 1 on the first OPV2V frame's
+     m1 encoder against its plain version, exact launches a frame
+     (DISK_LAUNCHES), the f32 heads within HEADS_TOL of the plain kernel
+     versions; opv2v/heal/stage1/m1_pyramid.yaml trained through
+     tools/train.py's host-fed loop (epoch_batches: the backend
+     reinitialised, the prefetch worker) at the published batch of 4, a
+     warm and two timed steps (every trainable parameter moved; kernel 2
+     15 times a step forward and backward, kernel 1 never), ms and peak
+     memory;
+ 12. the input pipeline: epochs of heal_tpu/configs/demo_heal_full/
      stage2_m2.yaml (PIPELINE_SCENES train scenes) timed on the host
      clock, batches assembled serially, through the prefetch pipeline
      (tools/train.py, data/prefetch.py), and from the device cache of
@@ -316,6 +341,30 @@ AF_AGENTS = {"second": 2}  # DAIR-V2X-C: one vehicle, one roadside unit
 # and two integer shifts), the where2comm or att fusion's one warp. A
 # train step launches kernel 2 as often again backward, kernel 1 never
 AF_LAUNCHES = {"center_point": (1, 5), "second": (0, 5)}
+# phase 11: the disk datasets, published configs read from files the
+# phase writes (heal_tpu/configs/...)
+DISK_CFGS = {"opv2v": "opv2v/heal/final_infer/m1m2m3m4.yaml",
+             "dairv2x": "dairv2x/m1_pyramid.yaml",
+             "v2xsim": "v2xsim/point_pillar_fcooper.yaml"}
+DISK_TRAIN_CFG = "opv2v/heal/stage1/m1_pyramid.yaml"
+# the published camera configs give only final_dim, cams and Ncams: the
+# image size is the written one, the crop policy the demo alliance's m2
+DISK_AUG = "demo_heal_full/final_m1m2m3m4.yaml"
+DISK_SEED = 0
+DISK_CAVS = 5
+DISK_TIMESTAMPS = 6
+DISK_IMG_HW = (600, 800)  # OPV2V's camera images
+# a 64-line sweep's density: ~60000 of ~80000 points in range an agent
+DISK_GROUND_POINTS = 60000
+DISK_BOX_POINTS = 2000
+DISK_FRAMES = {"opv2v": 6, "dairv2x": 4, "v2xsim": 4}
+DISK_BATCH = 4  # published
+# (kernel 1, kernel 2) launches a served frame: every branch runs on its
+# fixed-capacity packing whatever modalities the backend drew, so kernel
+# 1 runs once per PointPillars branch (the alliance's m1 and m4; the m1
+# of DAIR-V2X's pyramid; V2X-Sim's one encoder) and kernel 2 five times
+# a warp call (the pyramid's 3 levels; fcooper's one ego warp)
+DISK_LAUNCHES = {"opv2v": (2, 15), "dairv2x": (1, 15), "v2xsim": (1, 5)}
 
 
 def rel_err(a: torch.Tensor, b: torch.Tensor) -> tuple[float, float]:
@@ -2427,6 +2476,284 @@ def phase_anchor_free(cfgs: dict) -> dict:
     return {"launches": total, "rows": rows}
 
 
+def disk_trees(root: str) -> dict:
+    """The phase's trees under ``root``, by the port's writers at
+    DISK_SEED: OPV2V (DISK_CAVS agents, DISK_TIMESTAMPS timestamps, 4
+    camera PNGs an agent), DAIR-V2X-C and V2X-Sim, each lidar sweep as
+    dense as DISK_GROUND_POINTS / DISK_BOX_POINTS make it."""
+    from heal_tpu_torch.data import dairv2x, opv2v, v2xsim
+
+    dense = dict(ground_points=DISK_GROUND_POINTS,
+                 points_per_box=DISK_BOX_POINTS)
+    t0 = time.perf_counter()
+    out = {"opv2v": os.path.join(root, "opv2v"),
+           "dair": os.path.join(root, "dair")}
+    opv2v.write_synthetic_opv2v_tree(
+        out["opv2v"], num_cavs=DISK_CAVS, num_timestamps=DISK_TIMESTAMPS,
+        num_vehicles=14, seed=DISK_SEED, cameras=True, img_hw=DISK_IMG_HW,
+        **dense)
+    out["dair_split"] = dairv2x.write_synthetic_dair_tree(
+        out["dair"], num_frames=DISK_FRAMES["dairv2x"], seed=DISK_SEED,
+        **dense)
+    out["v2xsim_pkl"] = v2xsim.write_synthetic_v2xsim_pickle(
+        os.path.join(root, "v2xsim"), num_frames=DISK_FRAMES["v2xsim"],
+        num_agents=DISK_CAVS, seed=DISK_SEED, **dense)
+    out["write_s"] = time.perf_counter() - t0
+    return out
+
+
+def disk_cfgs(trees: dict) -> dict:
+    """The phase's published configs read through the port's loader,
+    only their directories pointed at ``trees``; the OPV2V alliance's m2
+    ``data_aug_conf`` given the written images' size and DISK_AUG's crop
+    policy; the train config as published (batch 4)."""
+    from heal_tpu_torch.tools.train import load_config
+
+    root = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                        "heal_tpu", "configs")
+    demo = load_config(os.path.join(root, DISK_AUG))
+    policy = {k: demo["heter"]["modality_setting"]["m2"]["data_aug_conf"][k]
+              for k in ("resize_lim", "bot_pct_lim", "rot_lim", "rand_flip")}
+    out = {}
+    for name, rel in dict(DISK_CFGS, train=DISK_TRAIN_CFG).items():
+        cfg = load_config(os.path.join(root, rel))
+        if cfg["fusion"]["dataset"] == "opv2v":
+            cfg.update(root_dir=trees["opv2v"], validate_dir=trees["opv2v"],
+                       test_dir=trees["opv2v"])
+        elif cfg["fusion"]["dataset"] == "dairv2x":
+            cfg.update(root_dir=trees["dair_split"],
+                       validate_dir=trees["dair_split"],
+                       test_dir=trees["dair_split"], data_dir=trees["dair"])
+        else:
+            cfg.update(root_dir=trees["v2xsim_pkl"],
+                       validate_dir=trees["v2xsim_pkl"],
+                       test_dir=trees["v2xsim_pkl"])
+        for setting in (cfg.get("heter") or {}).get("modality_setting",
+                                                     {}).values():
+            if "data_aug_conf" in setting:
+                setting["data_aug_conf"].update(
+                    H=DISK_IMG_HW[0], W=DISK_IMG_HW[1], **policy)
+        out[name] = cfg
+    return out
+
+
+def _binary_pcd(path: str, pts) -> str:
+    """``pts`` (N, 4) f32 as a binary PCD."""
+    header = ("VERSION .7\nFIELDS x y z intensity\nSIZE 4 4 4 4\n"
+              "TYPE F F F F\nCOUNT 1 1 1 1\n"
+              f"WIDTH {len(pts)}\nHEIGHT 1\nVIEWPOINT 0 0 0 1 0 0 0\n"
+              f"POINTS {len(pts)}\nDATA binary\n")
+    with open(path, "wb") as f:
+        f.write(header.encode() + pts.tobytes())
+    return path
+
+
+def pcd_readers(tree: str, tmp: str) -> dict:
+    """The first OPV2V frame's sweeps (one an agent, ascii as written, and
+    binary copies) read by the native reader and by its numpy version:
+    the arrays equal, and each reader's host ms for the frame."""
+    import numpy as np
+
+    from heal_tpu_torch import native
+    from heal_tpu_torch.data import opv2v
+
+    ascii_files = sorted(
+        os.path.join(tree, scen, cav, "000000.pcd")
+        for scen in os.listdir(tree)
+        for cav in os.listdir(os.path.join(tree, scen)))
+    binary_files = [_binary_pcd(os.path.join(tmp, f"{i}.pcd"),
+                                native.read_pcd(p))
+                    for i, p in enumerate(ascii_files)]
+    out, arrays = {}, {}
+    for kind, files in (("ascii", ascii_files), ("binary", binary_files)):
+        for reader, fn in (("native", native.read_pcd),
+                           ("numpy", opv2v._load_pcd_numpy)):
+            t0 = time.perf_counter()
+            arrays[kind, reader] = [fn(p) for p in files]
+            out[f"{reader}_{kind}_ms"] = 1e3 * (time.perf_counter() - t0)
+    for key, got in arrays.items():
+        want = arrays["ascii", "native"]
+        if not all(g.dtype == np.float32 and np.array_equal(g, w)
+                   for g, w in zip(got, want)):
+            raise AssertionError(f"PCD reader {key} disagrees with the "
+                                 "native reader on the ascii files")
+    out["sweeps"] = len(ascii_files)
+    out["points"] = [len(a) for a in arrays["ascii", "native"]]
+    return out
+
+
+def disk_frames(cfg, n: int, dev) -> tuple[list, dict]:
+    """The first ``n`` test frames of ``cfg``'s disk backend, assembled
+    once as tools/inference.device_frames does: -> (frames, the host's
+    read (backend.scene: yaml, sweeps, images) and assemble ms a frame,
+    the points each lidar agent has in range, each frame's modalities)."""
+    from heal_tpu_torch.data import build_dataset
+    from heal_tpu_torch.data.scene import collate
+    from heal_tpu_torch.tools.inference import batch_keys, frame_inputs
+
+    ds = build_dataset(cfg, train=False)
+    keys = batch_keys(cfg)
+    asm = ds.assembler
+    frames, read, assemble, in_range, mods = [], [], [], [], []
+    for i in range(n):
+        t0 = time.perf_counter()
+        scene = ds.backend.scene(i)
+        t1 = time.perf_counter()
+        sample = asm.assemble(scene)
+        t2 = time.perf_counter()
+        read.append(1e3 * (t1 - t0))
+        assemble.append(1e3 * (t2 - t1))
+        mods.append([a["modality"] for a in scene["agents"]])
+        in_range.append({j: len(asm._range_filter(a["points"]))
+                         for j, a in enumerate(scene["agents"])
+                         if asm.sensor_type(a["modality"]) == "lidar"})
+        batch = collate([sample])
+        frames.append((batch, frame_inputs(batch, keys, dev, False)))
+    host = {"read_ms": statistics.mean(read),
+            "assemble_ms": statistics.mean(assemble),
+            "in_range": in_range, "modalities": mods}
+    return frames, host
+
+
+def phase_disk(cfgs: dict, trees: dict, readers: dict, smi: str) -> dict:
+    """The disk datasets (module docstring, phase 11): each published
+    config served from its files, the OPV2V stage-1 config trained;
+    returns each kernel's launches over the phase, kernel 1's cases on
+    the disk frame and the measurements."""
+    from heal_tpu_torch.data import build_dataset
+    from heal_tpu_torch.kernels.cases import branch_frame_inputs
+    from heal_tpu_torch.models.fuse import softmax_shift_biases
+    from heal_tpu_torch.models.layers import channels_last
+    from heal_tpu_torch.tools import train as train_tool
+    from heal_tpu_torch.tools.inference import build_weights
+
+    dev = torch.device("cuda")
+    t_phase = time.perf_counter()
+    total = {k: 0 for k in _counts()}
+    rows, cases = {}, []
+    for name in DISK_CFGS:
+        cfg = cfgs[name]
+        torch.cuda.empty_cache()
+        k1, k2 = DISK_LAUNCHES[name]
+        frames, host = disk_frames(cfg, DISK_FRAMES[name], dev)
+        # every lidar sweep holds max_points in range, but DAIR-V2X's
+        # roadside unit (agent 1): the writer (JAX's) puts it 4 m up, its
+        # ground below the configs' z range, so it sees the boxes only
+        max_points = cfg["preprocess"]["args"]["max_points"]
+        short = [(i, j, n) for i, f in enumerate(host["in_range"])
+                 for j, n in f.items() if n < max_points
+                 and not (name == "dairv2x" and j == 1)]
+        if short:
+            raise AssertionError(f"{name}: sweeps with fewer points in "
+                                 f"range than max_points: {short}")
+        model32 = channels_last(build_weights(cfg, seed=SEED).to(dev))
+        if name == "opv2v":
+            # kernel 1 on the first frame's sweeps through the first
+            # PointPillars type the backend drew (m1, else the 16-line m4)
+            m = next(m for m in ("m1", "m4") if m in host["modalities"][0])
+            for dt in (torch.float32, torch.bfloat16):
+                cases.append(pillar_case(
+                    f"disk frame {m}", branch_frame_inputs(
+                        model32, frames[0][1], m, dt), dt))
+        runs, served = _serve(cfg, model32, frames, f"disk {name}")
+        n = len(frames)
+        want = {"pillar_tables": 2 * n * k1, "shift_rows": 2 * n * k2,
+                "shift_rows_backward": 0}
+        if served != want:
+            raise AssertionError(f"disk {name} served: launches {served}, "
+                                 f"want {want}")
+        for k in total:
+            total[k] += served[k]
+        row = dict(host, frames=n,
+                   heads_rel=heads_vs_plain(model32, frames, f"disk {name}"),
+                   **{f"serve_ms_{d}": _steady_ms(r["serve_s"])
+                      for d, r in runs.items()})
+        if "depth_rmse_m2" in runs["f32"]:
+            row["depth_rmse_m2"] = runs["f32"]["depth_rmse_m2"]
+        rows[name] = row
+        del model32, frames, runs
+        pts = [c for f in row["in_range"] for c in f.values()]
+        print(f"[disk] {DISK_CFGS[name]} on the {name} tree ({n} frames; "
+              f"modalities drawn {row['modalities'][0]}..; points in range "
+              f"a lidar agent {min(pts)}-{max(pts)}): host a frame, read "
+              f"{row['read_ms']:.1f} ms + assemble "
+              f"{row['assemble_ms']:.1f} ms (host clock); serve ms/frame "
+              f"(after the first) f32 {row['serve_ms_f32']:.3f}, bf16 "
+              f"{row['serve_ms_bf16']:.3f}; launches a frame kernel 1 {k1}, "
+              f"kernel 2 {k2}; f32 heads vs plain max rel err "
+              f"{row['heads_rel']:.3e} (tol {HEADS_TOL})"
+              + (f"; depth RMSE m2 {row['depth_rmse_m2']:.3f} m"
+                 if "depth_rmse_m2" in row else "") + f"; {smi}")
+
+    # training through tools/train.py's host-fed loop: one batch an
+    # epoch (DISK_TIMESTAMPS frames), a warm step then two timed ones
+    cfg = cfgs["train"]
+    torch.cuda.empty_cache()
+    ds = build_dataset(cfg, train=True)
+    tr = train_tool.build_trainer(cfg, dev, len(ds) // DISK_BATCH)
+    start = {n: p.detach().clone()
+             for n, p in tr.model.named_parameters() if p.requires_grad}
+    _zero_counts()
+    torch.cuda.reset_peak_memory_stats()
+    steps, waits, losses = [], [], []
+    for epoch in range(3):
+        t0 = time.perf_counter()
+        for batch in train_tool.epoch_batches(ds, DISK_BATCH, epoch, dev):
+            t1 = time.perf_counter()
+            aux = tr.train_step(batch)
+            torch.cuda.synchronize()
+            steps.append(1e3 * (time.perf_counter() - t1))
+            waits.append(1e3 * (t1 - t0))
+            losses.append(float(aux["total_loss"]))
+            t0 = time.perf_counter()
+    trained = _counts()
+    want = {"pillar_tables": 0, "shift_rows": 15 * len(steps),
+            "shift_rows_backward": 15 * len(steps)}
+    if len(steps) != 3 or trained != want:
+        raise AssertionError(f"disk training: {len(steps)} steps, launches "
+                             f"{trained}, want {want}")
+    if not all(map(math.isfinite, losses)):
+        raise AssertionError(f"disk training losses {losses}")
+    for k in total:
+        total[k] += trained[k]
+    shifts = softmax_shift_biases(tr.model)
+    still = [n for n, p in tr.model.named_parameters()
+             if n in start and n not in shifts
+             and torch.equal(p.detach(), start[n])]
+    still += no_gradient({n: p for n, p in tr.model.named_parameters()
+                          if n in start and n in shifts}, tr.model)
+    if still:
+        raise AssertionError(f"disk training: trainable parameters that "
+                             f"did not move: {still[:5]}")
+    rows["train"] = {"step_ms": steps[1:], "input_wait_ms": waits,
+                     "losses": losses, "trainable": len(start),
+                     "peak_gib": torch.cuda.max_memory_allocated() / 2**30}
+    del tr, ds, start
+    t = rows["train"]
+    print(f"[disk] {DISK_TRAIN_CFG} trained on the opv2v tree through "
+          f"tools/train.py's epoch_batches (batch {DISK_BATCH}, one an "
+          f"epoch): step ms f32 (after a warm one) "
+          + ", ".join(f"{x:.3f}" for x in t["step_ms"])
+          + f"; waiting for input (the prefetch worker reading and "
+          f"assembling) " + ", ".join(f"{x:.1f}" for x in t["input_wait_ms"])
+          + f" ms; peak {t['peak_gib']:.3f} GiB; losses "
+          + ", ".join(f"{x:.4f}" for x in losses)
+          + f"; all {t['trainable']} trainable parameters moved; launches "
+          f"a step {({k: v // 3 for k, v in trained.items()})}; {smi}")
+    print(f"[disk] PCD readers, the first OPV2V frame's {readers['sweeps']} "
+          f"sweeps ({min(readers['points'])}-{max(readers['points'])} points"
+          f" each; host clock, ms a frame): native ascii "
+          f"{readers['native_ascii_ms']:.1f}, numpy ascii "
+          f"{readers['numpy_ascii_ms']:.1f}, native binary "
+          f"{readers['native_binary_ms']:.1f}, numpy binary "
+          f"{readers['numpy_binary_ms']:.1f}; the arrays equal; trees "
+          f"written in {trees['write_s']:.1f} s; {smi}")
+    print(f"[disk] phase {time.perf_counter() - t_phase:.1f} s; launches "
+          f"{total}")
+    return {"launches": total, "rows": rows, "kernels": cases,
+            "readers": readers}
+
+
 def phase_pipeline() -> None:
     """Epochs of the demo stage-2 m2 config on the host clock: batches
     assembled serially, through the prefetch pipeline, and from the
@@ -2515,6 +2842,11 @@ def main() -> int:
     pose = phase_pose(pose_cfgs())
     torch.cuda.empty_cache()
     anchor_free = phase_anchor_free(anchor_free_cfgs())
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as tmp:
+        trees = disk_trees(tmp)
+        readers = pcd_readers(trees["opv2v"], tmp)
+        disk = phase_disk(disk_cfgs(trees), trees, readers, smi)
     phase_pipeline()
     for name in rows:
         rows[name]["protocol_launches"] = protocol["launches"][name]
@@ -2539,10 +2871,16 @@ def main() -> int:
         rows[name]["anchor_free_launches"] = anchor_free["launches"][name]
         rows[name]["anchor_free_launches_per_frame"] = {
             c: AF_LAUNCHES[c][name == "shift_rows"] for c in AF_CFGS}
-    # phase 10's own kernel cases (the CenterPoint frame's kernel 1, the
-    # fusion warps' kernel 2) join the rows' cases and worst errors
-    for r in anchor_free["rows"].values():
-        for case in r["kernels"]:
+        rows[name]["disk_launches"] = disk["launches"][name]
+        rows[name]["disk_launches_per_frame"] = {
+            c: DISK_LAUNCHES[c][name == "shift_rows"] for c in DISK_CFGS}
+    rows["shift_rows"]["disk_launches_per_step"] = 15
+    # phases 10 and 11's own kernel cases (the CenterPoint frame's and
+    # the disk frame's kernel 1, the fusion warps' kernel 2) join the
+    # rows' cases and worst errors
+    for case_list in [r["kernels"] for r in anchor_free["rows"].values()] + [
+            disk["kernels"]]:
+        for case in case_list:
             row = rows["pillar_tables" if "u" in case else "shift_rows"]
             row["cases"].append(case)
             err = ("backward_max_abs_err"
@@ -2581,6 +2919,8 @@ def main() -> int:
               f"forward: {k['pose_launches_per_forward']})"
               f", {k['anchor_free_launches']} in the anchor-free and SECOND "
               f"phase (a frame: {k['anchor_free_launches_per_frame']})"
+              f", {k['disk_launches']} in the disk phase (a frame: "
+              f"{k['disk_launches_per_frame']})"
               + f"; {k['bytes']} bytes, bound {k['bound_ms']:.4f} ms "
               f"({k['bound_by']}), {k['ms']:.4f} ms = {k['pct_of_bound']:.1f}%"
               f" of bound, plain {k['plain_ms']:.4f} ms, library call "

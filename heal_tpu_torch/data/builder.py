@@ -1,14 +1,19 @@
 """Dataset builder: (fusion assembler) x (scene backend).
 
-The port's copy of heal_tpu/data/builder.py with the synthetic backend
-and the intermediate, late and early assemblers (data/late_early.py).
-A backend yields scenes (agents, poses, sensors, world objects); the
-assembler turns them into fixed-shape samples. With
-``box_align.precalc_path`` (a tools/pose_graph_pre_calc.py dump), each
-scene's agents carry their stage-1 detections (``pred_centers``,
-``pred_uncertainty``), which the assembler's CoAlign branch refines the
-noisy poses with. The disk backends and two-stage fusion raise
-NotImplementedError naming the ROADMAP item (queue 1) that ports them.
+The port's copy of heal_tpu/data/builder.py: the synthetic backend and
+the disk backends (``fusion.dataset`` opv2v and v2xset: data/opv2v.py;
+dairv2x; v2xsim), and the intermediate, late and early assemblers
+(data/late_early.py). A backend yields scenes (agents, poses, sensors,
+world objects); the assembler turns them into fixed-shape samples. A
+disk backend reads the config's own directories (``root_dir`` for
+training; ``test_dir``, or ``validate_dir`` for DAIR-V2X, whose
+``data_dir`` is the dataset's root). With ``box_align.precalc_path`` (a
+tools/pose_graph_pre_calc.py dump), each scene's agents carry their
+stage-1 detections (``pred_centers``, ``pred_uncertainty``), which the
+assembler's CoAlign branch refines the noisy poses with. Two-stage
+fusion raises NotImplementedError naming the ROADMAP item (queue 1)
+that ports it. ``native_iou=False`` labels the anchors with numpy's IoU
+instead of the native library's (postprocess/targets.py).
 """
 from __future__ import annotations
 
@@ -19,16 +24,15 @@ import warnings
 import numpy as np
 
 from ..utils.box_align import uncertainty_to_weights
+from .dairv2x import DAIRV2XBackend
 from .late_early import EarlyAssembler, LateAssembler
+from .opv2v import OPV2VBackend
 from .scene import IntermediateAssembler, collate
 from .synthetic import SyntheticDataset
+from .v2xsim import V2XSimBackend
 
-# backend / fusion method -> the ROADMAP item (queue 1) that ports it
+# fusion method -> the ROADMAP item (queue 1) that ports it
 _NOT_PORTED = {
-    "opv2v": "item 16 (disk dataset backends: data/opv2v.py)",
-    "v2xset": "item 16 (disk dataset backends: data/opv2v.py)",
-    "dairv2x": "item 16 (disk dataset backends: data/dairv2x.py)",
-    "v2xsim": "item 16 (disk dataset backends: data/v2xsim.py)",
     "intermediate2stage": "item 9 (two-stage models)",
 }
 
@@ -76,18 +80,20 @@ def _build_backend(params: dict, train: bool):
             num_agents=args.get("num_agents", 3),
             num_vehicles=args.get("num_vehicles", 10),
         )
-    if name in _NOT_PORTED:
-        raise NotImplementedError(
-            f"dataset backend {name!r} is not ported: ROADMAP queue 1, "
-            f"{_NOT_PORTED[name]}"
-        )
+    if name in ("opv2v", "v2xset"):
+        return OPV2VBackend(params, train=train)
+    if name == "dairv2x":
+        return DAIRV2XBackend(params, train=train)
+    if name == "v2xsim":
+        return V2XSimBackend(params, train=train)
     raise KeyError(f"unknown dataset backend {name!r}")
 
 
 class FusionDataset:
     """Iterable over assembled samples + batch iterator."""
 
-    def __init__(self, params: dict, train: bool = True):
+    def __init__(self, params: dict, train: bool = True,
+                 native_iou: bool = True):
         self.params = params
         self.train = train
         self.backend = _build_backend(params, train)
@@ -109,7 +115,8 @@ class FusionDataset:
                 "model.args presorted=true requires "
                 "preprocess.args.presort=true (host point ordering)"
             )
-        self.assembler = assembler_class(params)(params, train)
+        self.assembler = assembler_class(params)(params, train,
+                                                 native_iou=native_iou)
         self.modalities = self.assembler.modalities
         # CoAlign: the stage-1 detections of tools/pose_graph_pre_calc.py
         self._precalc = None
@@ -155,5 +162,6 @@ class FusionDataset:
             yield collate([self[i] for i in idxs])
 
 
-def build_dataset(params: dict, train: bool = True) -> FusionDataset:
-    return FusionDataset(params, train=train)
+def build_dataset(params: dict, train: bool = True,
+                  native_iou: bool = True) -> FusionDataset:
+    return FusionDataset(params, train=train, native_iou=native_iou)

@@ -87,7 +87,8 @@ class LateAssembler(IntermediateAssembler):
         points[:n] = self._presort(pts[:n])
         pmask[:n] = True
         label = generate_targets(
-            gt, gt_mask, self.anchors, self.pos_thr, self.neg_thr, self.order
+            gt, gt_mask, self.anchors, self.pos_thr, self.neg_thr, self.order,
+            native_iou=self.native_iou,
         )
         # the evaluation GT is the ego's, in the ego frame
         gt_ego, gt_ego_mask = self._gt_in_frame(
@@ -170,7 +171,8 @@ class EarlyAssembler(IntermediateAssembler):
         points[:n] = self._presort(pts[:n])
         pmask[:n] = True
         label = generate_targets(
-            gt, gt_mask, self.anchors, self.pos_thr, self.neg_thr, self.order
+            gt, gt_mask, self.anchors, self.pos_thr, self.neg_thr, self.order,
+            native_iou=self.native_iou,
         )
         return {
             "points": points,

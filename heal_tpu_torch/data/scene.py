@@ -10,8 +10,8 @@ conventions:
     (B*L + 1) scatter space (last slot = dump for padding);
   * per-agent point clouds padded to ``max_points``, presorted by pillar;
   * GT boxes padded to ``max_num``;
-  * camera agents (the synthetic rig) packed as images, calibration,
-    depth-bin targets and the host-presorted splat plans
+  * camera agents (disk images or the synthetic rig) packed as images,
+    calibration, depth-bin targets and the host-presorted splat plans
     (``_pack_cameras``); ``label_type: camera`` keeps the GT a camera rig
     can see.
 
@@ -19,17 +19,18 @@ The same scene (and numpy's global random state) gives the same arrays
 as the JAX package, but for the synthetic rig's images: like JAX, they
 are drawn from a seed of ``id(scene)``, a memory address, so they differ
 between processes and packages (ROADMAP §3, known faults in the
-reference). SECOND agents (m3) get their points in their own order, by
-the encoder's full voxel key (``_presort_voxel``). Branches the slice
-does not run raise NotImplementedError and name the ROADMAP item (queue
-1) that ports them: camera images from disk (item 16) and the
-distillation teacher view (item 13). CenterPoint configs
-(``center_point*``) also get the anchor-free labels ``heatmap``,
-``box_targets`` and ``reg_mask`` on the anchor grid. With ``box_align``
-in the config and every agent carrying its stage-1 detections
-(``pred_centers``), the noisy poses are refined by CoAlign's box
-alignment (utils/box_align.py) before the comm-range filter; the labels
-stay on the clean poses.
+reference). Camera agents of the disk backends carry their images
+(``cameras_raw``), augmented and normalised here (``_disk_cameras``),
+with their depth targets from the agent's own lidar. SECOND agents (m3)
+get their points in their own order, by the encoder's full voxel key
+(``_presort_voxel``). The distillation teacher view raises
+NotImplementedError naming its ROADMAP item (queue 1, item 13).
+CenterPoint configs (``center_point*``) also get the anchor-free labels
+``heatmap``, ``box_targets`` and ``reg_mask`` on the anchor grid. With
+``box_align`` in the config and every agent carrying its stage-1
+detections (``pred_centers``), the noisy poses are refined by CoAlign's
+box alignment (utils/box_align.py) before the comm-range filter; the
+labels stay on the clean poses.
 """
 from __future__ import annotations
 
@@ -54,9 +55,13 @@ class IntermediateAssembler:
     # emits the per-agent ``*_single`` labels that ``supervise_single`` reads
     single_labels = True
 
-    def __init__(self, params: dict, train: bool = True):
+    def __init__(self, params: dict, train: bool = True,
+                 native_iou: bool = True):
         self.params = params
         self.train = train
+        # anchor IoU of the labels: the native library's, or numpy's
+        # (postprocess/targets.py)
+        self.native_iou = native_iou
         post = params["postprocess"]
         self.order = post["order"]
         self.anchors = generate_anchor_box(post["anchor_args"], self.order)
@@ -196,7 +201,7 @@ class IntermediateAssembler:
         )
         label = generate_targets(
             gt_ego, gt_mask, self.anchors, self.pos_thr, self.neg_thr,
-            self.order,
+            self.order, native_iou=self.native_iou,
         )
         core = self.params.get("model", {}).get("core_method", "")
         if core.startswith("center_point"):
@@ -244,7 +249,7 @@ class IntermediateAssembler:
                     )
                     lab = generate_targets(
                         gt_a, m_a, self.anchors, self.pos_thr, self.neg_thr,
-                        self.order,
+                        self.order, native_iou=self.native_iou,
                     )
                     pos_s.append(lab["pos_equal_one"])
                     neg_s.append(lab["neg_equal_one"])
@@ -362,10 +367,7 @@ class IntermediateAssembler:
             agent = scene["agents"][keep[slot]]
             cams = agent.get("cameras")
             if cams is None and agent.get("cameras_raw") is not None:
-                raise NotImplementedError(
-                    "camera images from disk (cameras_raw) are not ported: "
-                    "ROADMAP queue 1, item 16 (disk dataset backends)"
-                )
+                cams = self._disk_cameras(agent["cameras_raw"], aug, m, ncam)
             if cams is None:
                 # synthesize a rig: structured noise images + exact calib,
                 # depth maps rendered from the agent's own lidar geometry.
@@ -443,6 +445,53 @@ class IntermediateAssembler:
                     )
                     out["depth_bins"][j, ci] = bins
         return out
+
+    def _disk_cameras(self, raw: dict, aug: dict, m: str, ncam: int):
+        """Images read from disk (the backend's ``cameras_raw``): each
+        camera's resize / crop / flip / rotate policy applied with its
+        pixel homography, then normalised; the calibration padded with
+        identities to ``ncam`` cameras."""
+        need = ("H", "W", "bot_pct_lim") + (("resize_lim",) if self.train
+                                            else ())
+        missing = [k for k in need if k not in aug]
+        if missing:
+            # the JAX package stops at a bare KeyError on the first one
+            raise ValueError(
+                f"heter.modality_setting.{m}.data_aug_conf lacks "
+                f"{missing}: camera images from disk need the original "
+                "image size (H, W) and the crop policy; the published "
+                "configs give only final_dim, cams and Ncams (ROADMAP §3)")
+        ih, iw = aug["final_dim"]
+        n_real = min(len(raw["imgs"]), ncam)
+        imgs = np.zeros((ncam, ih, iw, 3), np.float32)
+        post_rots = np.tile(np.eye(3, dtype=np.float32), (ncam, 1, 1))
+        post_trans = np.zeros((ncam, 3), np.float32)
+        for ci in range(n_real):
+            policy = cam_utils.sample_augmentation(aug, self.train)
+            img_t, pr, pt = cam_utils.img_transform(raw["imgs"][ci],
+                                                    *policy[1:])
+            imgs[ci] = cam_utils.normalize_img(img_t)
+            post_rots[ci] = pr.astype(np.float32)
+            post_trans[ci] = pt.astype(np.float32)
+        cams = {
+            "imgs": imgs,
+            "intrins": np.asarray(raw["intrins"], np.float32)[:ncam],
+            "rots": np.asarray(raw["rots"], np.float32)[:ncam],
+            "trans": np.asarray(raw["trans"], np.float32)[:ncam],
+            "post_rots": post_rots,
+            "post_trans": post_trans,
+        }
+        # a rig of fewer than ncam cameras: identity calibration pads it
+        for key in ("intrins", "rots"):
+            if len(cams[key]) < ncam:
+                pad = np.tile(np.eye(3, dtype=np.float32),
+                              (ncam - len(cams[key]), 1, 1))
+                cams[key] = np.concatenate([cams[key], pad])
+        if len(cams["trans"]) < ncam:
+            cams["trans"] = np.concatenate(
+                [cams["trans"],
+                 np.zeros((ncam - len(cams["trans"]), 3), np.float32)])
+        return cams
 
     def _range_filter(self, points: np.ndarray) -> np.ndarray:
         r = self.cav_range

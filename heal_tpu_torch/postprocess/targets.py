@@ -10,14 +10,17 @@ The port's copy of heal_tpu/postprocess/targets.py ``generate_targets``:
   * regression targets: VoxelNet residual encoding vs the matched anchor;
 and CenterPoint's anchor-free targets (``gaussian_radius``,
 ``generate_center_targets``): a Gaussian heatmap, and the box itself at
-each GT centre's cell. The IoU matrix is numpy's (the JAX package's
-fallback when its C++ host loader is not built; the loader is not
-ported).
+each GT centre's cell. The IoU matrix is the native host loader's
+f32 ``bbox_overlaps`` (native/), the JAX package's path when its library
+is built; ``native_iou=False`` takes the numpy one
+(``box_np.standup_iou_matrix``), its path when it is not. The two label
+a few anchors near the thresholds differently (ROADMAP §3, fault 4).
 """
 from __future__ import annotations
 
 import numpy as np
 
+from .. import native
 from ..utils import box_np
 
 
@@ -28,6 +31,7 @@ def generate_targets(
     pos_threshold: float,
     neg_threshold: float,
     order: str = "hwl",
+    native_iou: bool = True,
 ) -> dict:
     """Dense training targets.
 
@@ -62,7 +66,9 @@ def generate_targets(
     gt_standup = box_np.corners_to_standup_2d(gt_corners[:, :4, :])
 
     # (num_anchors, num_gt), +1 convention, in f32 as the JAX package's
-    iou = box_np.standup_iou_matrix(
+    iou_matrix = (native.bbox_overlaps if native_iou
+                  else box_np.standup_iou_matrix)
+    iou = iou_matrix(
         anchor_standup.astype(np.float32),
         gt_standup.astype(np.float32),
         plus_one=True,

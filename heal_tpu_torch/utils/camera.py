@@ -1,35 +1,149 @@
 """Camera geometry (host side, numpy).
 
-The port's copy of heal_tpu/utils/camera.py, trimmed to what the synthetic
-camera path needs: the BEV grid (``gen_dx_bx``), depth discretisation and
-its inverse, depth-bin targets and the depth RMSE, the synthetic rig and
-its depth maps, and the host-presorted LSS splat plans. The disk-image
-helpers (``load_camera_images``, ``sample_augmentation``,
-``img_transform``, ``normalize_img``) wait for the disk dataset backends
-and raise NotImplementedError naming their ROADMAP item.
+The port's copy of heal_tpu/utils/camera.py: the BEV grid
+(``gen_dx_bx``), depth discretisation and its inverse, depth-bin targets
+and the depth RMSE, the synthetic rig and its depth maps, the
+host-presorted LSS splat plans, and the camera images from disk: reading
+them (``load_camera_images``), the calibration of an OPV2V frame
+(``get_ext_int``), the resize / crop / flip / rotate augmentation with
+its pixel homography (``sample_augmentation``, ``img_transform``) and
+the normalisation.
 """
 from __future__ import annotations
 
 import numpy as np
 
-_DISK = ("is not ported: ROADMAP queue 1, item 16 (disk dataset backends; "
-         "the synthetic rig needs no image file)")
+IMG_MEAN = np.array([0.485, 0.456, 0.406], np.float32)
+IMG_STD = np.array([0.229, 0.224, 0.225], np.float32)
+
+# UE4 camera frame (x fwd, y right, z up) -> opencv optical frame
+# (z fwd, x right, y down)
+UE4_TO_OPENCV = np.array(
+    [[0, 0, 1, 0], [1, 0, 0, 0], [0, -1, 0, 0], [0, 0, 0, 1]],
+    dtype=np.float64,
+)
+
+
+def normalize_img(img: np.ndarray) -> np.ndarray:
+    """uint8/float (H, W, 3) RGB -> normalized float32 (H, W, 3)."""
+    img = np.asarray(img, np.float32)
+    if img.max() > 1.5:  # uint8 range
+        img = img / 255.0
+    return (img - IMG_MEAN) / IMG_STD
+
+
+def denormalize_img(img: np.ndarray) -> np.ndarray:
+    return np.clip(np.asarray(img) * IMG_STD + IMG_MEAN, 0, 1)
+
+
+def get_ext_int(frame_meta: dict, camera_id: int):
+    """Frame yaml camera block -> (camera_to_lidar 4x4, intrinsic 3x3).
+
+    The camera's world cords into the lidar frame, then the UE4 -> opencv
+    axis correction, so that the rotation and translation map
+    optical-frame camera points into the agent (lidar) frame.
+    """
+    from . import transform_np
+
+    cam = frame_meta[f"camera{camera_id}"]
+    cam_coords = np.asarray(cam["cords"], dtype=np.float64)
+    lidar_pose = np.asarray(
+        frame_meta.get("lidar_pose_clean", frame_meta["lidar_pose"]),
+        dtype=np.float64,
+    )
+    camera_to_lidar = transform_np.x1_to_x2(cam_coords, lidar_pose)
+    camera_to_lidar = camera_to_lidar @ UE4_TO_OPENCV
+    intrinsic = np.asarray(cam["intrinsic"], dtype=np.float64)
+    return camera_to_lidar, intrinsic
 
 
 def load_camera_images(paths):
-    raise NotImplementedError(f"load_camera_images {_DISK}")
+    """PNG/JPG paths -> list of (H, W, 3) uint8 RGB arrays."""
+    from PIL import Image
+
+    out = []
+    for p in paths:
+        with Image.open(p) as im:
+            out.append(np.asarray(im.convert("RGB")))
+    return out
 
 
 def sample_augmentation(data_aug_conf: dict, is_train: bool, rng=None):
-    raise NotImplementedError(f"sample_augmentation {_DISK}")
+    """A resize / crop / flip / rotate policy for one camera.
+
+    Lift-Splat-Shoot's: in training the resize scale, the bottom crop and
+    the flip are drawn from the conf (from OS entropy when ``rng`` is
+    None, as the JAX package's); in evaluation the deterministic centre
+    policy. Returns (resize, resize_dims (W, H), crop (x0, y0, x1, y1),
+    flip, rotate_deg).
+    """
+    rng = rng or np.random.default_rng()
+    H, W = data_aug_conf["H"], data_aug_conf["W"]
+    fH, fW = data_aug_conf["final_dim"]
+    if is_train:
+        resize = float(rng.uniform(*data_aug_conf["resize_lim"]))
+        new_w, new_h = int(W * resize), int(H * resize)
+        crop_h = (
+            int((1 - rng.uniform(*data_aug_conf["bot_pct_lim"])) * new_h)
+            - fH
+        )
+        crop_w = int(rng.uniform(0, max(0, new_w - fW)))
+        flip = bool(data_aug_conf.get("rand_flip") and rng.integers(2))
+        rotate = float(rng.uniform(*data_aug_conf.get("rot_lim", (0, 0))))
+    else:
+        resize = max(fH / H, fW / W)
+        new_w, new_h = int(W * resize), int(H * resize)
+        crop_h = (
+            int((1 - np.mean(data_aug_conf["bot_pct_lim"])) * new_h) - fH
+        )
+        crop_w = int(max(0, new_w - fW) / 2)
+        flip = False
+        rotate = 0.0
+    crop = (crop_w, crop_h, crop_w + fW, crop_h + fH)
+    return resize, (new_w, new_h), crop, flip, rotate
+
+
+def _rot2(deg: float) -> np.ndarray:
+    h = np.radians(deg)
+    return np.array(
+        [[np.cos(h), np.sin(h)], [-np.sin(h), np.cos(h)]], np.float64
+    )
 
 
 def img_transform(img, resize_dims, crop, flip, rotate):
-    raise NotImplementedError(f"img_transform {_DISK}")
+    """Apply the policy to one image, tracking the pixel homography.
 
+    img: (H, W, 3) array. Returns (transformed (fH, fW, 3) uint8 array,
+    post_rot (3, 3), post_tran (3,)) such that
+    ``px_final[:2] = post_rot[:2, :2] @ px_orig + post_tran[:2]``.
+    """
+    from PIL import Image
 
-def normalize_img(img):
-    raise NotImplementedError(f"normalize_img {_DISK}")
+    pil = Image.fromarray(np.asarray(img).astype(np.uint8))
+    pil = pil.resize(resize_dims)
+    pil = pil.crop(crop)
+    if flip:
+        pil = pil.transpose(method=Image.FLIP_LEFT_RIGHT)
+    if rotate:
+        pil = pil.rotate(rotate)
+
+    # the actual per-axis scale of the int-rounded resize_dims
+    ih, iw = np.asarray(img).shape[:2]
+    post_rot = np.diag([resize_dims[0] / iw, resize_dims[1] / ih])
+    post_tran = -np.asarray(crop[:2], np.float64)
+    if flip:
+        A = np.array([[-1.0, 0.0], [0.0, 1.0]])
+        b = np.array([crop[2] - crop[0], 0.0])
+        post_rot = A @ post_rot
+        post_tran = A @ post_tran + b
+    A = _rot2(rotate)
+    b = np.array([crop[2] - crop[0], crop[3] - crop[1]]) / 2.0
+    b = A @ (-b) + b
+    post_rot3 = np.eye(3)
+    post_tran3 = np.zeros(3)
+    post_rot3[:2, :2] = A @ post_rot
+    post_tran3[:2] = A @ post_tran + b
+    return np.asarray(pil), post_rot3, post_tran3
 
 
 def gen_dx_bx(xbound, ybound, zbound):

@@ -2,8 +2,9 @@
 
 The port's copy of heal_tpu/utils/transform_np.py, trimmed to what the
 host side uses: x_to_world (CARLA pose -> world transform with its
-roll/pitch sign conventions), x1_to_x2 (late and early fusion), the
-pairwise transforms and their normalised BEV affines.
+roll/pitch sign conventions) and its inverse ``tfm_to_pose`` (the
+DAIR-V2X and V2X-Sim poses), x1_to_x2 (late and early fusion, camera
+calibration), the pairwise transforms and their normalised BEV affines.
 
 Poses are 6-dof lists/arrays ``[x, y, z, roll, yaw, pitch]`` in DEGREES
 (CARLA convention).
@@ -36,6 +37,17 @@ def x_to_world(pose) -> np.ndarray:
 def x1_to_x2(x1, x2) -> np.ndarray:
     """T_x2_x1: maps coordinates in the frame of pose x1 into that of x2."""
     return np.linalg.solve(x_to_world(x2), x_to_world(x1))
+
+
+def tfm_to_pose(tfm: np.ndarray):
+    """4x4 -> [x, y, z, roll, yaw, pitch] degrees (CARLA sign convention)."""
+    yaw = np.degrees(np.arctan2(tfm[1, 0], tfm[0, 0]))
+    roll = np.degrees(np.arctan2(-tfm[2, 1], tfm[2, 2]))
+    pitch = np.degrees(
+        np.arctan2(tfm[2, 0], np.sqrt(tfm[2, 1] ** 2 + tfm[2, 2] ** 2))
+    )
+    x, y, z = tfm[:3, 3]
+    return [x, y, z, roll, yaw, pitch]
 
 
 def get_pairwise_transformation(lidar_poses: list, max_cav: int) -> np.ndarray:

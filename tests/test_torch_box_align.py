@@ -53,7 +53,8 @@ NOISE = {"add_noise": True, "args": {"pos_std": 0.6, "rot_std": 0.6,
 
 @pytest.fixture(autouse=True)
 def _numpy_host(monkeypatch):
-    # heal_tpu's C++ anchor IoU rounds in f32; the port has the numpy path
+    # heal_tpu on its numpy host path, built library or not; the port's
+    # batches compared with its take numpy's anchor IoU too
     monkeypatch.setattr(heal_tpu.native, "load", lambda: None)
 
 
@@ -157,7 +158,8 @@ def _collab_cfg() -> dict:
 
 def _samples(build, cfg) -> list:
     np.random.seed(0)
-    ds = build(cfg, train=False)
+    ds = build(cfg, train=False, **({"native_iou": False}
+                                    if build is build_dataset else {}))
     return [ds[i] for i in range(len(ds))]
 
 

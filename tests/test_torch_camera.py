@@ -159,16 +159,6 @@ def test_camera_labels_equal_heal_tpu():
     assert (vis > 0).sum() > 25  # objects seen beside the rig's own cells
 
 
-def test_disk_image_helpers_name_their_item():
-    for fn, args in ((cam.load_camera_images, ([],)),
-                     (cam.sample_augmentation, ({}, True)),
-                     (cam.img_transform, (None, (1, 1), (0, 0, 1, 1), False,
-                                          0.0)),
-                     (cam.normalize_img, (np.zeros((2, 2, 3)),))):
-        with pytest.raises(NotImplementedError, match="item 16"):
-            fn(*args)
-
-
 # ------------------------------------------------------------------ modules
 def _bridged(jm, port, inputs, seed, **kw):
     """A JAX init (running statistics randomised) loaded into ``port``."""

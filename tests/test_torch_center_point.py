@@ -86,7 +86,8 @@ MODELS = {
 
 @pytest.fixture(autouse=True)
 def _numpy_host(monkeypatch):
-    # heal_tpu's C++ anchor IoU rounds in f32; the port has the numpy path
+    # heal_tpu on its numpy host path, built library or not; the port's
+    # batches compared with its take numpy's anchor IoU too
     monkeypatch.setattr(heal_tpu.native, "load", lambda: None)
 
 
@@ -102,8 +103,11 @@ def cp_cfg(name: str) -> dict:
 
 def _batch(cfg, train=False, size=1, build=jax_build_dataset):
     np.random.seed(0)
-    kw = {} if build is build_dataset else {"process_split": False}
-    batch = next(build(cfg, train=train).batches(size, shuffle=False, **kw))
+    if build is build_dataset:
+        ds, kw = build(cfg, train=train, native_iou=False), {}
+    else:
+        ds, kw = build(cfg, train=train), {"process_split": False}
+    batch = next(ds.batches(size, shuffle=False, **kw))
     if cfg["model"]["core_method"] == "center_point":  # one agent: the ego
         batch = dict(batch, points=batch["points"][:, 0],
                      point_mask=batch["point_mask"][:, 0])

@@ -4,14 +4,17 @@ heal_tpu_torch keeps a copy of the numpy host side it needs (config/,
 data/, postprocess/anchors.py and targets.py, utils/*_np.py) and imports
 nothing of heal_tpu. Both sides are the same numpy arithmetic on the same
 seeds, so every comparison here is exact: same keys, dtypes and shapes,
-``np.array_equal``. Parity holds against heal_tpu's numpy anchor IoU
-only: its C++ host loader (heal_tpu/native, which the port does not copy)
-is turned off for the comparison, and the test of the native path
-records the labels it gives differently.
+``np.array_equal``. heal_tpu labels the anchors with its C++ host
+loader's f32 IoU where its library is built and with numpy's otherwise,
+and the two differ on a few flagship labels (ROADMAP §3, fault 4). The
+port has both: its own native library (heal_tpu_torch/native, the
+default) and ``native_iou=False``. So each comparison pins both packages
+to one path: numpy (heal_tpu's library turned off), or the native
+libraries (heal_tpu's built from its source into a temporary directory
+with the same flags).
 """
 import copy
 import os
-import shutil
 import subprocess
 
 import numpy as np
@@ -23,6 +26,7 @@ from heal_tpu.config import load_yaml
 from heal_tpu.data import build_dataset as jax_build_dataset
 from heal_tpu.utils import box_np as jax_box_np
 from heal_tpu.utils import eval_np as jax_eval_np
+from heal_tpu_torch import native
 from heal_tpu_torch.data import build_dataset
 from heal_tpu_torch.tools.train import load_config
 from heal_tpu_torch.utils import box_np, eval_np
@@ -52,7 +56,8 @@ def test_collated_batches_equal_heal_tpu(path, train, monkeypatch):
     cfg = load_yaml(path)
     cfg["fusion"]["args"].update(num_scenes_train=2, num_scenes_test=2)
 
-    got, got_anchors = _first_batch(build_dataset, cfg, train)
+    got, got_anchors = _first_batch(build_dataset, cfg, train,
+                                    native_iou=False)
     want, want_anchors = _first_batch(jax_build_dataset, cfg, train,
                                       process_split=False)
     assert want["agent_mask"].sum() >= 3  # collaborations on both scenes
@@ -60,9 +65,12 @@ def test_collated_batches_equal_heal_tpu(path, train, monkeypatch):
     _assert_same(got_anchors, want_anchors)
 
 
-def _first_batch(build, cfg, train, **kw):
+def _first_batch(build, cfg, train, native_iou=None, **kw):
+    """``native_iou`` for the port's dataset; ``kw`` for heal_tpu's
+    ``batches``."""
     np.random.seed(0)  # the train split's point subsampling
-    ds = build(copy.deepcopy(cfg), train=train)
+    build_kw = {} if native_iou is None else {"native_iou": native_iou}
+    ds = build(copy.deepcopy(cfg), train=train, **build_kw)
     return next(ds.batches(2, shuffle=train, seed=3, **kw)), ds.anchors
 
 
@@ -74,9 +82,9 @@ def _leaves(tree, path=""):
             yield f"{path}/{k}", np.asarray(v)
 
 
-# elements that heal_tpu's C++ f32 anchor IoU labels differently from the
-# numpy IoU both packages share: a few flagship single-agent labels near
-# the matching thresholds, in the test split's first batch
+# elements that the C++ f32 anchor IoU labels differently from the numpy
+# IoU: a few flagship single-agent labels near the matching thresholds,
+# in the test split's first batch (ROADMAP §3, fault 4)
 NATIVE_DIFF = {
     ("flagship", False): {"/pos_equal_one_single": 8,
                           "/neg_equal_one_single": 2,
@@ -88,18 +96,16 @@ NATIVE_DIFF = {
 @pytest.mark.parametrize("path", CONFIGS, ids=["entry_tiny", "flagship"])
 def test_native_anchor_iou_label_differences(path, train, tmp_path,
                                              monkeypatch):
-    """With heal_tpu's native loader on, its batches differ from the
-    port's exactly by NATIVE_DIFF: a JAX run with the library built trains
-    on these labels, the port on the numpy ones."""
-    if shutil.which("g++") is None:
-        pytest.skip("no g++ to build heal_tpu's native loader")
-    # built into tmp_path, not beside heal_tpu's sources, where another
-    # test may be building it at the same time
+    """The port's native labels equal heal_tpu's native labels: both
+    libraries built from their sources with the same flags (heal_tpu's
+    into tmp_path, not beside its sources, where another test may be
+    building it). Each differs from its numpy labels by NATIVE_DIFF, the
+    labels a JAX run trains on when its library is built."""
     src = os.path.join(os.path.dirname(heal_tpu.native.__file__),
                        "loader.cpp")
     lib = tmp_path / "libheal_loader.so"
-    subprocess.run(["g++", "-O3", "-march=native", "-shared", "-fPIC",
-                    "-std=c++17", src, "-o", str(lib)], check=True)
+    subprocess.run(["g++", *native.GXX_FLAGS, src, "-o", str(lib)],
+                   check=True)
     monkeypatch.setattr(heal_tpu.native, "_LIB_PATH", str(lib))
     monkeypatch.setattr(heal_tpu.native, "_LIB", None)
     assert heal_tpu.native.available()
@@ -108,12 +114,12 @@ def test_native_anchor_iou_label_differences(path, train, tmp_path,
     got = dict(_leaves(_first_batch(build_dataset, cfg, train)[0]))
     want = dict(_leaves(_first_batch(jax_build_dataset, cfg, train,
                                      process_split=False)[0]))
-    assert sorted(got) == sorted(want)
-    diff = {}
-    for key, w in want.items():
-        assert got[key].dtype == w.dtype and got[key].shape == w.shape, key
-        if not np.array_equal(got[key], w):
-            diff[key] = int((got[key] != w).sum())
+    _assert_same(got, want)
+    numpy_labels = dict(_leaves(_first_batch(build_dataset, cfg, train,
+                                             native_iou=False)[0]))
+    diff = {key: int((numpy_labels[key] != g).sum())
+            for key, g in got.items()
+            if not np.array_equal(numpy_labels[key], g)}
     name = "entry_tiny" if path == CONFIGS[0] else "flagship"
     assert diff == NATIVE_DIFF.get((name, train), {})
 
@@ -135,7 +141,7 @@ def test_camera_batches_equal_heal_tpu(train, labels, monkeypatch):
     monkeypatch.setattr(heal_tpu.native, "load", lambda: None)
     cfg = load_yaml("tests/configs/tiny_heter_m1m2.yaml")
     cfg["label_type"] = labels
-    got, _ = _first_batch(build_dataset, cfg, train)
+    got, _ = _first_batch(build_dataset, cfg, train, native_iou=False)
     want, _ = _first_batch(jax_build_dataset, cfg, train,
                            process_split=False)
     imgs, want_imgs = got["inputs_m2"].pop("imgs"), want["inputs_m2"].pop(
@@ -168,7 +174,7 @@ def test_second_batches_equal_heal_tpu(path, train, monkeypatch):
 
     monkeypatch.setattr(heal_tpu.native, "load", lambda: None)
     cfg = load_yaml(path)
-    got, _ = _first_batch(build_dataset, cfg, train)
+    got, _ = _first_batch(build_dataset, cfg, train, native_iou=False)
     want, _ = _first_batch(jax_build_dataset, cfg, train,
                            process_split=False)
     _assert_same(got, want)
@@ -245,13 +251,9 @@ def _set(key, value):
 
 
 @pytest.mark.parametrize("edit", [
-    _set("fusion.dataset", "opv2v"),
-    _set("fusion.dataset", "v2xset"),
-    _set("fusion.dataset", "dairv2x"),
-    _set("fusion.dataset", "v2xsim"),
     _set("fusion.core_method", "intermediate2stage"),
     _set("kd_flag", True),
-], ids=["opv2v", "v2xset", "dairv2x", "v2xsim", "two_stage", "kd_teacher"])
+], ids=["two_stage", "kd_teacher"])
 def test_unported_host_paths_raise(edit):
     cfg = load_config(CONFIGS[0])
     edit(cfg)

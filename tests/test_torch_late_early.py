@@ -4,8 +4,9 @@ heal_tpu_torch/data/{augmentor,late_early}.py, the late-heter packing,
 ``collate`` of late fusion's ``agent_samples`` and the
 ``load_point_pillar_params`` parser against their heal_tpu copies. Both
 are the same numpy arithmetic on the same seeds, so each comparison is
-exact (keys, dtypes, shapes, ``np.array_equal``), with heal_tpu's C++
-anchor IoU turned off (tests/test_torch_host.py) and numpy's global
+exact (keys, dtypes, shapes, ``np.array_equal``), both on numpy's
+anchor IoU (heal_tpu's C++ library turned off, the port's
+``native_iou=False``; tests/test_torch_host.py) and numpy's global
 state seeded before each package draws (``LateAssembler`` picks its
 train agent and ``EarlyAssembler`` subsamples with it). The camera
 images alone are compared by shape, dtype, padding and moments: both
@@ -59,13 +60,16 @@ def _assert_same(got, want, path=""):
     assert np.array_equal(got, want), path
 
 
-def _batches(build, cfg, train, size=2, **kw):
+def _batches(build, cfg, train, size=2, build_kw=(), **kw):
     np.random.seed(11)
-    return list(build(cfg, train=train).batches(size, shuffle=False, **kw))
+    return list(build(cfg, train=train, **dict(build_kw)).batches(
+        size, shuffle=False, **kw))
 
 
 def _pair(cfg, train, size=2):
-    return (_batches(build_dataset, copy.deepcopy(cfg), train, size),
+    # both on numpy's anchor IoU (heal_tpu's library is off here)
+    return (_batches(build_dataset, copy.deepcopy(cfg), train, size,
+                     build_kw={"native_iou": False}),
             _batches(jax_build_dataset, copy.deepcopy(cfg), train, size,
                      process_split=False))
 

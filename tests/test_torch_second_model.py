@@ -55,7 +55,7 @@ CASES = {"second": ("second", "max"),
 
 @pytest.fixture(autouse=True)
 def _numpy_host(monkeypatch):
-    # heal_tpu's C++ anchor IoU rounds in f32; the port has the numpy path
+    # heal_tpu on its numpy host path, built library or not
     monkeypatch.setattr(heal_tpu.native, "load", lambda: None)
 
 

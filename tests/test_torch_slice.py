@@ -258,6 +258,23 @@ for n, c in chip_smoke.anchor_free_cfgs().items():
                       c["train_params"]["max_cav"],
                       c["fusion"]["args"]["num_agents"],
                       "heatmap" in build_dataset(c, train=True)[0]]
+# the disk phase's host side, its trees written small: the readers, one
+# frame of each published config from its files, the train split
+import tempfile
+chip_smoke.DISK_IMG_HW = (150, 200)
+chip_smoke.DISK_GROUND_POINTS, chip_smoke.DISK_BOX_POINTS = 1500, 300
+disk = {}
+with tempfile.TemporaryDirectory() as tmp:
+    trees = chip_smoke.disk_trees(tmp)
+    readers = chip_smoke.pcd_readers(trees["opv2v"], tmp)
+    dcfgs = chip_smoke.disk_cfgs(trees)
+    for n in chip_smoke.DISK_CFGS:
+        frames, host = chip_smoke.disk_frames(dcfgs[n], 1, "cpu")
+        disk[n] = [type(build_model(dcfgs[n]["model"], max_cav=dcfgs[n][
+            "train_params"]["max_cav"])).__name__, len(host["in_range"][0]),
+            sorted(k for k in frames[0][1] if k.startswith("inputs_"))]
+    disk["train"] = len(build_dataset(dcfgs["train"], train=True))
+    disk["sweeps"] = readers["sweeps"]
 """ + _LOADED + """
 print(json.dumps({"points": list(batch["inputs_m1"]["points"].shape),
                   "agents": int(batch["agent_mask"].sum()),
@@ -273,7 +290,7 @@ print(json.dumps({"points": list(batch["inputs_m1"]["points"].shape),
                   "late": [list(late["points"].shape),
                            len(late["agent_samples"][0]),
                            "data_augment" in fcfgs["late"]],
-                  "pose": pose, "anchor_free": anchor_free,
+                  "pose": pose, "anchor_free": anchor_free, "disk": disk,
                   "loaded": loaded}))
 """
 
@@ -377,4 +394,11 @@ def test_chip_smoke_never_imports_jax():
                                         "CenterPointLoss", 5, 4, True],
                        "second": ["SecondIntermediate", "PointPillarLoss", 2,
                                   2, False]},
+                   "disk": {
+                       "opv2v": ["HeterPyramidCollab", 3,
+                                 ["inputs_m1", "inputs_m2", "inputs_m3",
+                                  "inputs_m4"]],
+                       "dairv2x": ["HeterPyramidCollab", 2, ["inputs_m1"]],
+                       "v2xsim": ["PointPillarBaseline", 5, ["inputs_m1"]],
+                       "train": 6, "sweeps": 5},
                    "loaded": []}
