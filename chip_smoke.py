@@ -178,7 +178,33 @@ Phases, in order; any failure raises and the exit code is non-zero:
      warm and two timed steps (every trainable parameter moved; kernel 2
      15 times a step forward and backward, kernel 1 never), ms and peak
      memory;
- 12. the input pipeline: epochs of heal_tpu/configs/demo_heal_full/
+ 12. the camera-only table and the models' other options
+     (camera_and_options), at full width with seeded random weights on
+     synthetic scenes with the flagship's scene arguments: the eight
+     heal_tpu/configs/opv2v/camera_only/*.yaml as published (4 cameras at
+     384x512, 48 depth bins, the 128x128 camera grid padded to the
+     128x256 label grid), one set of CAMERA_FRAMES frames served f32 and
+     bf16 by each (kernel 1 never, kernel 2 CAMERA_LAUNCHES a frame, heads
+     vs plain) and two f32 train steps at CAMERA_BATCH (published 4;
+     kernel 2 CAMERA_BACKWARD times backward, every fusion parameter with
+     a gradient, nonzero but the softmax shifts);
+     heal/stage2/m4_alignto_m1.yaml with each of the scaligner, sdta, cbam
+     and fanet aligners (derived): a warm and a timed stage-2 step at the
+     published batch (the frozen base bit-equal, every aligner parameter
+     moved), ALIGNER_FRAMES frames served (kernel 1 once a frame);
+     use_iou on lidar_only/att.yaml (derived; JAX's multiscale baseline of
+     coalign.yaml builds no IoU head): IOU_FRAMES frames served, two steps
+     at batch 4 with a nonzero iou_loss (kernel 1 once, kernel 2 5 times a
+     frame); JAX's default group norm on more_modality/m1m2_lateheter.yaml
+     (norm removed): GROUP_FRAMES late frames served and a warm and a
+     timed step at its batch of 4, no kernel launched (the m1 encoder's
+     general path); lift_splat_shoot_intermediate (max fusion, kernel 2 5
+     times a frame) and lift_splat_shoot (late frames) from
+     camera_only/fcooper.yaml's m2 block (derived), LSS_FRAMES frames on
+     the 128x128 camera grid; serve ms a frame (median and range after
+     the first) with the serving peak, step ms and peak GiB; exact
+     launches throughout;
+ 13. the input pipeline: epochs of heal_tpu/configs/demo_heal_full/
      stage2_m2.yaml (PIPELINE_SCENES train scenes) timed on the host
      clock, batches assembled serially, through the prefetch pipeline
      (tools/train.py, data/prefetch.py), and from the device cache of
@@ -365,6 +391,46 @@ DISK_BATCH = 4  # published
 # of DAIR-V2X's pyramid; V2X-Sim's one encoder) and kernel 2 five times
 # a warp call (the pyramid's 3 levels; fcooper's one ego warp)
 DISK_LAUNCHES = {"opv2v": (2, 15), "dairv2x": (1, 15), "v2xsim": (1, 5)}
+# phase 12, the camera-only table and the models' other options
+# (heal_tpu/configs/opv2v/...): the eight camera_only configs as published
+# (CAMERA_FRAMES test frames, one train batch of CAMERA_BATCH), the four
+# other aligners on a stage-2 config, use_iou, group norm and the
+# standalone Lift-Splat-Shoot detectors on derived configs (camera_cfgs)
+CAMERA_ONLY = ("fcooper", "attfuse", "disconet", "v2vnet", "cobevt",
+               "v2xvit", "coalign", "m2_pyramid")
+CAMERA_FRAMES = 4
+CAMERA_BATCH = 2  # published 4
+# kernel-2 launches a served camera-only frame, 5 a warp call (one ego
+# warp; V2VNet's field-of-view and two pairwise warps; CoAlign's two
+# fused levels; the pyramid's three levels); kernel 1 never (no lidar
+# branch). A train step launches kernel 2 as often backward, but for
+# V2VNet's field-of-view warp of a mask, which has no gradient
+CAMERA_LAUNCHES = {"fcooper": 5, "attfuse": 5, "disconet": 5, "v2vnet": 15,
+                   "cobevt": 5, "v2xvit": 5, "coalign": 10, "m2_pyramid": 15}
+CAMERA_BACKWARD = {**CAMERA_LAUNCHES, "v2vnet": 10}
+ALIGNERS = ("scaligner", "sdta", "cbam", "fanet")
+ALIGNER_CFG = "heal/stage2/m4_alignto_m1.yaml"  # published batch 4
+ALIGNER_FRAMES = 2
+# use_iou on a derived lidar_only/att.yaml (point_pillar_baseline, which
+# JAX gives the IoU head; its heter_model_baseline_ms, coalign.yaml's
+# model, builds none), the published batch of 4
+IOU_CFG = "lidar_only/att.yaml"
+IOU_FRAMES = 4
+IOU_BATCH = 4
+# JAX's default group norm on heter_model_late: norm removed
+GROUP_CFG = "more_modality/m1m2_lateheter.yaml"
+GROUP_BATCH = 4  # published
+GROUP_FRAMES = 2  # a late frame timed after a warm one
+# the standalone LSS detectors from camera_only/fcooper.yaml's m2 block
+LSS_FROM = "camera_only/fcooper.yaml"
+LSS_FRAMES = 4
+# (kernel 1, kernel 2) launches a forward: use_iou's att baseline (its one
+# encoder call, one ego warp); the late m1 + m2 model on group norm (the
+# PointPillars branch on the encoder's general path, no warp); the
+# stage-2 m4 model (its branch, forward_single: no warp); LSS
+# intermediate's max fusion (one ego warp) and LSS alone (neither)
+OPTION_LAUNCHES = {"iou": (1, 5), "group": (0, 0), "aligner": (1, 0),
+                   "lss_intermediate": (0, 5), "lss": (0, 0)}
 
 
 def rel_err(a: torch.Tensor, b: torch.Tensor) -> tuple[float, float]:
@@ -1717,9 +1783,10 @@ def _forwards(frames) -> list:
     return [x for _, f in frames for x in (f if isinstance(f, list) else [f])]
 
 
-def heads_vs_plain(model, frames, what: str) -> float:
-    """The f32 heads (and the uncertainty detector's ``unc_preds``) of
-    every forward of ``frames``, kernels against the plain versions,
+def heads_vs_plain(model, frames, what: str, hw=(128, 256)) -> float:
+    """The f32 heads (and the uncertainty detector's ``unc_preds``, the
+    IoU head's ``iou_preds``) of every forward of ``frames``, on the
+    (1, *hw) grid, kernels against the plain versions,
     both with deterministic algorithms; -> the worst
     max |d| / (1 + max |plain|). Fails past HEADS_TOL, on a bad output,
     or if the plain run launched a kernel."""
@@ -1729,7 +1796,7 @@ def heads_vs_plain(model, frames, what: str) -> float:
         with torch.inference_mode():
             return [{k: v.float() for k, v in model(x).items()
                      if k in ("cls_preds", "reg_preds", "dir_preds",
-                              "unc_preds")}
+                              "unc_preds", "iou_preds")}
                     for x in inputs]
 
     torch.use_deterministic_algorithms(True, warn_only=True)
@@ -1744,7 +1811,7 @@ def heads_vs_plain(model, frames, what: str) -> float:
         raise AssertionError(f"{what}: the plain run launched a kernel")
     for h in det:
         for k, t in h.items():
-            if t.shape[:3] != (1, 128, 256) or not torch.isfinite(t).all():
+            if t.shape[:3] != (1, *hw) or not torch.isfinite(t).all():
                 raise AssertionError(f"{what} {k}: bad output")
     worst = max(rel_err(a[k], b[k])[1] for a, b in zip(det, ref) for k in a)
     if not worst <= HEADS_TOL:
@@ -1752,9 +1819,11 @@ def heads_vs_plain(model, frames, what: str) -> float:
     return worst
 
 
-def _serve(cfg, model32, frames, what: str) -> tuple[dict, dict]:
+def _serve(cfg, model32, frames, what: str,
+           hw=(128, 256)) -> tuple[dict, dict]:
     """``frames`` served f32 and bf16 through run_inference; -> (the
-    runs, the kernels' launches over both); heads checked finite."""
+    runs, the kernels' launches over both); heads checked finite and of
+    the (1, *hw) grid."""
     from heal_tpu_torch.tools.inference import run_inference
 
     model16 = copy.deepcopy(model32).to(torch.bfloat16)
@@ -1768,8 +1837,7 @@ def _serve(cfg, model32, frames, what: str) -> tuple[dict, dict]:
     for dname, r in runs.items():
         for i, h in enumerate(r["heads"]):
             for k, t in h.items():
-                if t.shape[:3] != (1, 128, 256) or not torch.isfinite(
-                        t).all():
+                if t.shape[:3] != (1, *hw) or not torch.isfinite(t).all():
                     raise AssertionError(f"{what} {dname} forward {i} {k}: "
                                          "bad output")
     return runs, served
@@ -1810,20 +1878,24 @@ def no_gradient(params: dict, model) -> list:
 
 def _steps(tr, batch, n: int) -> dict:
     """``n`` train steps on ``batch`` (the first warm, the rest timed);
-    -> losses, the mean ms of the timed steps, peak GiB."""
+    -> losses, each step's loss terms, the mean ms of the timed steps,
+    peak GiB."""
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    losses, times = [], []
+    losses, terms, times = [], [], []
     for _ in range(n):
         t0 = time.perf_counter()
         aux = tr.train_step(batch)
         torch.cuda.synchronize()
         times.append(time.perf_counter() - t0)
         losses.append(float(aux["total_loss"]))
+        terms.append({k: float(v) for k, v in aux.items()
+                      if k.endswith("_loss")})
     if not all(map(math.isfinite, losses)):
         raise AssertionError(f"train losses {losses}")
     timed = times[1:] or times
-    return {"losses": losses, "ms": 1e3 * sum(timed) / len(timed),
+    return {"losses": losses, "terms": terms,
+            "ms": 1e3 * sum(timed) / len(timed),
             "batch": int(batch["pos_equal_one"].shape[0]),
             "peak_gib": torch.cuda.max_memory_allocated() / 2**30}
 
@@ -2754,6 +2826,318 @@ def phase_disk(cfgs: dict, trees: dict, readers: dict, smi: str) -> dict:
             "readers": readers}
 
 
+def camera_cfgs() -> dict:
+    """Phase 12's configs at full width, read through the port's loader,
+    on the synthetic backend with the flagship's scene arguments:
+      * the eight opv2v/camera_only/*.yaml by name (CAMERA_ONLY) as
+        published but the batch (CAMERA_BATCH);
+      * ``aligner_<method>``: heal/stage2/m4_alignto_m1.yaml with the m4
+        aligner's core_method switched to each of ALIGNERS (derived);
+      * ``iou``: IOU_CFG with ``use_iou`` and the loss's ``iou`` term
+        (weight 1, sigma 1; derived, no published config sets them);
+      * ``group``: GROUP_CFG with ``norm`` removed, JAX's default group
+        norm (derived);
+      * ``lss_intermediate`` and ``lss``: lift_splat_shoot_intermediate
+        (max fusion, intermediate frames) and lift_splat_shoot (late
+        frames: one agent a forward) built from LSS_FROM's m2 block
+        (its grid, images, encoder, backbone), the shrink, heads and
+        loss of that config, ``load_lift_splat_shoot_params`` and the
+        labels on the camera grid (derived: the repo publishes none)."""
+    from heal_tpu_torch.config import reparse
+    from heal_tpu_torch.tools.train import load_config
+
+    root = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                        "heal_tpu", "configs", "opv2v")
+    scene_args = flagship_cfg()["fusion"]["args"]
+
+    def synthetic(rel, n_train, n_test):
+        cfg = load_config(os.path.join(root, rel))
+        cfg["fusion"]["dataset"] = "synthetic"
+        cfg["fusion"]["args"] = dict(scene_args, num_scenes_train=n_train,
+                                     num_scenes_test=n_test)
+        cfg["train_params"]["batch_size"] = n_train
+        return cfg
+
+    out = {name: synthetic(f"camera_only/{name}.yaml", CAMERA_BATCH,
+                           CAMERA_FRAMES) for name in CAMERA_ONLY}
+    for method in ALIGNERS:
+        cfg = synthetic(ALIGNER_CFG, 4, ALIGNER_FRAMES)
+        cfg["model"]["args"]["m4"]["aligner_args"]["core_method"] = method
+        out[f"aligner_{method}"] = cfg
+    out["iou"] = synthetic(IOU_CFG, IOU_BATCH, IOU_FRAMES)
+    out["iou"]["model"]["args"]["use_iou"] = True
+    out["iou"]["loss"]["args"]["iou"] = {"weight": 1.0, "sigma": 1.0}
+    out["group"] = synthetic(GROUP_CFG, GROUP_BATCH, GROUP_FRAMES)
+    del out["group"]["model"]["args"]["norm"]
+    for name, fusion, model in (
+            ("lss_intermediate", "intermediateheter",
+             "lift_splat_shoot_intermediate"),
+            ("lss", "lateheter", "lift_splat_shoot")):
+        cfg = synthetic(LSS_FROM, CAMERA_BATCH, LSS_FRAMES)
+        a = cfg["model"]["args"]
+        m2 = a["m2"]
+        grid = m2["encoder_args"]["grid_conf"]
+        square = [grid["xbound"][0], grid["ybound"][0], -3,
+                  grid["xbound"][1], grid["ybound"][1], 1]
+        cfg["yaml_parser"] = "load_lift_splat_shoot_params"
+        cfg["fusion"]["core_method"] = fusion
+        cfg["fusion"]["args"]["grid_conf"] = grid
+        cfg["cav_lidar_range"] = square
+        cfg["preprocess"]["cav_lidar_range"] = square
+        post = cfg["postprocess"]
+        post["gt_range"] = square
+        post["anchor_args"].update(cav_lidar_range=square, feature_stride=1)
+        cfg["model"] = {"core_method": model, "args": {
+            **m2["encoder_args"], "base_bev_backbone": m2["backbone_args"],
+            "shrink_header": a["shrink_header"],
+            "anchor_number": a["anchor_number"], "dir_args": a["dir_args"],
+            "fusion_method": "max", "max": {}}}
+        out[name] = reparse(cfg)
+    return out
+
+
+def _stats_ms(serve_s) -> dict:
+    """Median, min and max ms of the frames after the first."""
+    ms = [1e3 * s for s in (serve_s[1:] or serve_s)]
+    return {"median": statistics.median(ms), "min": min(ms), "max": max(ms)}
+
+
+def _fmt(st: dict) -> str:
+    return f"{st['median']:.3f} [{st['min']:.3f}, {st['max']:.3f}]"
+
+
+def _snapshot(model, prefixes) -> dict:
+    return {n: t.detach().clone() for n, t in model.state_dict().items()
+            if n.split(".")[0] in prefixes}
+
+
+def phase_camera_options(cfgs: dict) -> dict:
+    """The camera-only table, the four other aligners, use_iou, group
+    norm and the standalone LSS detectors (module docstring, phase 12);
+    returns each kernel's launches over the phase and the measurements."""
+    from heal_tpu_torch.models.fuse import softmax_shift_biases
+    from heal_tpu_torch.models.layers import channels_last
+    from heal_tpu_torch.tools import train as train_tool
+    from heal_tpu_torch.tools.inference import build_weights, device_frames
+
+    dev = torch.device("cuda")
+    t_phase = time.perf_counter()
+    total = {k: 0 for k in _counts()}
+    rows = {}
+
+    def add(counts):
+        for k in total:
+            total[k] += counts[k]
+
+    def served_path(name, cfg, frames, launches, hw=(128, 256),
+                    model32=None):
+        """Serve ``frames`` f32 and bf16; exact launches, heads vs plain;
+        -> the row."""
+        torch.cuda.empty_cache()
+        if model32 is None:
+            model32 = channels_last(build_weights(cfg, seed=SEED).to(dev))
+        model32.eval()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        runs, served = _serve(cfg, model32, frames, name, hw)
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        forwards = 2 * len(_forwards(frames))
+        want = {"pillar_tables": forwards * launches[0],
+                "shift_rows": forwards * launches[1],
+                "shift_rows_backward": 0}
+        if served != want:
+            raise AssertionError(f"{name} served: launches {served}, want "
+                                 f"{want}")
+        add(served)
+        row = {"launches_per_forward": dict(zip(
+            ("pillar_tables", "shift_rows"), launches)),
+            "heads_rel": heads_vs_plain(model32, frames, name, hw),
+            "serve_peak_gib": peak}
+        for d, r in runs.items():
+            row[f"serve_ms_{d}"] = _stats_ms(r["serve_s"])
+        return row
+
+    def trained_path(name, cfg, batch, steps, launches, backward=None):
+        """``steps`` f32 train steps (the first warm) through
+        build_trainer; exact launches (kernel 2 ``backward`` times a step
+        backward, by default as often as forward), every fusion parameter
+        with a gradient (nonzero but the softmax shifts); -> (the
+        trainer, the row)."""
+        torch.cuda.empty_cache()
+        _zero_counts()
+        tr = train_tool.build_trainer(cfg, dev, 1)
+        step = _steps(tr, batch, steps)
+        trained = _counts()
+        back = launches[1] if backward is None else backward
+        want = {"pillar_tables": 0, "shift_rows": steps * launches[1],
+                "shift_rows_backward": steps * back}
+        if trained != want:
+            raise AssertionError(f"{name} training launches {trained}, "
+                                 f"want {want}")
+        add(trained)
+        fusion = {n: p for n, p in tr.model.named_parameters()
+                  if p.requires_grad and (
+                      n.split(".")[0] in ("fusion", "pyramid_backbone")
+                      or n.startswith("fusions_"))}
+        dead = no_gradient(fusion, tr.model)
+        if dead:
+            raise AssertionError(f"{name}: fusion parameters without a "
+                                 f"gradient: {dead[:5]}")
+        step["fusion_params"] = len(fusion)
+        step["shifts"] = len(set(fusion) & softmax_shift_biases(tr.model))
+        return tr, step
+
+    # the camera-only table: one set of frames and one train batch
+    t0 = time.perf_counter()
+    first = cfgs[CAMERA_ONLY[0]]
+    frames = device_frames(first, dev, CAMERA_FRAMES)
+    batch, _ = next(train_tool.device_batches(first, CAMERA_BATCH, dev))
+    torch.cuda.synchronize()
+    print(f"[camera] {len(frames)} camera-only test frames and one train "
+          f"batch of {CAMERA_BATCH} assembled and copied once in "
+          f"{time.perf_counter() - t0:.2f} s")
+    for name in CAMERA_ONLY:
+        cfg = cfgs[name]
+        k2 = CAMERA_LAUNCHES[name]
+        row = served_path(name, cfg, frames, (0, k2))
+        tr, row["train"] = trained_path(name, cfg, batch, 2, (0, k2),
+                                        CAMERA_BACKWARD[name])
+        del tr
+        rows[name] = row
+        st = row["train"]
+        print(f"[camera] camera_only/{name}.yaml "
+              f"({cfg['model']['core_method']}): serve ms/frame median "
+              f"[min, max] of {CAMERA_FRAMES - 1} after the first, f32 "
+              f"{_fmt(row['serve_ms_f32'])}, bf16 "
+              f"{_fmt(row['serve_ms_bf16'])} (peak "
+              f"{row['serve_peak_gib']:.3f} GiB); launches a frame kernel 1 "
+              f"0, kernel 2 {k2} (a step {CAMERA_BACKWARD[name]} backward); f32 "
+              "heads vs plain max rel err "
+              f"{row['heads_rel']:.3e} (tol {HEADS_TOL}); train step "
+              f"{st['ms']:.3f} ms f32 (batch {st['batch']}, after a warm "
+              f"one), peak {st['peak_gib']:.3f} GiB, losses "
+              + ", ".join(f"{x:.4f}" for x in st["losses"])
+              + f"; {st['fusion_params']} fusion parameters with a gradient"
+              f" ({st['shifts']} softmax shifts)")
+    del frames, batch
+
+    # the four other aligners on the m4 stage-2 model: a warm and a timed
+    # step at the published batch, the base bit-equal, every aligner
+    # parameter moved; then ALIGNER_FRAMES frames served
+    for method in ALIGNERS:
+        name = f"aligner_{method}"
+        cfg = cfgs[name]
+        batch, _ = next(train_tool.device_batches(
+            cfg, cfg["train_params"]["batch_size"], dev))
+        torch.cuda.empty_cache()
+        _zero_counts()
+        tr = train_tool.build_trainer(cfg, dev, 1)
+        fixed = tuple(tr.model.fix_modules)
+        base = _snapshot(tr.model, fixed)
+        aligner = {n: p.detach().clone()
+                   for n, p in tr.model.named_parameters()
+                   if ".aligner." in n}
+        step = _steps(tr, batch, 2)
+        trained = _counts()
+        if trained != {"pillar_tables": 0, "shift_rows": 0,
+                       "shift_rows_backward": 0}:
+            raise AssertionError(f"{name} training launches {trained}")
+        moved = _snapshot(tr.model, fixed)
+        bad = [n for n, t in base.items() if not torch.equal(t, moved[n])]
+        if bad or not base:
+            raise AssertionError(f"{name}: base entries moved: {bad[:3]}")
+        still = [n for n, p in tr.model.named_parameters()
+                 if n in aligner and torch.equal(p.detach(), aligner[n])]
+        if still or not aligner:
+            raise AssertionError(f"{name}: aligner parameters that did not "
+                                 f"move: {still[:5]}")
+        model = tr.model
+        del tr, batch
+        frames = device_frames(cfg, dev, ALIGNER_FRAMES)
+        row = served_path(name, cfg, frames, OPTION_LAUNCHES["aligner"],
+                          model32=model)
+        row["train"] = step
+        row["aligner_params"] = len(aligner)
+        row["base_entries"] = len(base)
+        del model, frames
+        rows[name] = row
+        print(f"[camera] {ALIGNER_CFG} with aligner {method}: stage-2 step "
+              f"{step['ms']:.3f} ms f32 (batch {step['batch']}, after a warm "
+              f"one), peak {step['peak_gib']:.3f} GiB, losses "
+              + ", ".join(f"{x:.4f}" for x in step["losses"])
+              + f"; {len(base)} base entries "
+              f"bit-equal, all {len(aligner)} aligner parameters moved; "
+              f"serve ms/frame f32 {_fmt(row['serve_ms_f32'])}, bf16 "
+              f"{_fmt(row['serve_ms_bf16'])} (peak "
+              f"{row['serve_peak_gib']:.3f} GiB); launches a frame kernel 1 "
+              f"1, kernel 2 0; heads vs plain {row['heads_rel']:.3e}")
+
+    # use_iou: served, two steps with a nonzero IoU term
+    cfg = cfgs["iou"]
+    frames = device_frames(cfg, dev, IOU_FRAMES)
+    row = served_path("iou", cfg, frames, OPTION_LAUNCHES["iou"])
+    del frames
+    batch, _ = next(train_tool.device_batches(cfg, IOU_BATCH, dev))
+    tr, step = trained_path("iou", cfg, batch, 2, OPTION_LAUNCHES["iou"])
+    iou_terms = [t.get("iou_loss", 0.0) for t in step["terms"]]
+    if not all(math.isfinite(x) and x > 0 for x in iou_terms):
+        raise AssertionError(f"iou_loss {iou_terms}")
+    row["train"], row["iou_loss"] = step, iou_terms
+    rows["iou"] = row
+    k2 = OPTION_LAUNCHES["iou"][1]
+    del tr, batch
+    print(f"[camera] {IOU_CFG} with use_iou (derived): serve ms/frame f32 "
+          f"{_fmt(row['serve_ms_f32'])}, bf16 {_fmt(row['serve_ms_bf16'])} "
+          f"(peak {row['serve_peak_gib']:.3f} GiB);"
+          f" launches a frame kernel 1 1, kernel 2 {k2}; heads and iou_preds"
+          f" vs plain {row['heads_rel']:.3e}; train step {step['ms']:.3f} ms"
+          f" f32 (batch {step['batch']}), peak {step['peak_gib']:.3f} GiB, "
+          "iou_loss " + ", ".join(f"{x:.5f}" for x in iou_terms))
+
+    # group norm on heter_model_late: a late frame, one step
+    cfg = cfgs["group"]
+    frames = device_frames(cfg, dev, GROUP_FRAMES)
+    row = served_path("group", cfg, frames, OPTION_LAUNCHES["group"])
+    del frames
+    batch, _ = next(train_tool.device_batches(cfg, GROUP_BATCH, dev))
+    tr, row["train"] = trained_path("group", cfg, batch, 2,
+                                    OPTION_LAUNCHES["group"])
+    kinds = {m.kind for m in tr.model.modules()
+             if type(m).__name__ == "Norm"}
+    if kinds != {"group"} or tr.model.branch_m1.encoder.fused:
+        raise AssertionError(f"group: norms {kinds}")
+    del tr, batch
+    rows["group"] = row
+    st = row["train"]
+    print(f"[camera] {GROUP_CFG} on group norm (derived): a late frame "
+          f"after a warm one f32 {row['serve_ms_f32']['median']:.3f} ms, bf16 "
+          f"{row['serve_ms_bf16']['median']:.3f} ms (peak "
+          f"{row['serve_peak_gib']:.3f} GiB); no kernel launched "
+          f"(the m1 encoder on its general path); heads vs plain "
+          f"{row['heads_rel']:.3e}; train step {st['ms']:.3f} ms f32 "
+          f"(batch {st['batch']}, after a warm one), peak "
+          f"{st['peak_gib']:.3f} GiB, losses "
+          + ", ".join(f"{x:.4f}" for x in st["losses"]))
+
+    # the standalone LSS detectors, their BEV the 128 x 128 camera grid
+    for name in ("lss_intermediate", "lss"):
+        cfg = cfgs[name]
+        frames = device_frames(cfg, dev, LSS_FRAMES)
+        row = served_path(name, cfg, frames, OPTION_LAUNCHES[name],
+                          hw=(128, 128))
+        del frames
+        rows[name] = row
+        print(f"[camera] {cfg['model']['core_method']} (derived from "
+              f"{LSS_FROM}): serve ms/frame f32 {_fmt(row['serve_ms_f32'])},"
+              f" bf16 {_fmt(row['serve_ms_bf16'])} (peak "
+              f"{row['serve_peak_gib']:.3f} GiB); launches a forward "
+              f"{row['launches_per_forward']}; heads vs plain "
+              f"{row['heads_rel']:.3e}")
+    print(f"[camera] phase {time.perf_counter() - t_phase:.1f} s; launches "
+          f"{total}")
+    return {"launches": total, "rows": rows}
+
+
 def phase_pipeline() -> None:
     """Epochs of the demo stage-2 m2 config on the host clock: batches
     assembled serially, through the prefetch pipeline, and from the
@@ -2847,6 +3231,9 @@ def main() -> int:
         trees = disk_trees(tmp)
         readers = pcd_readers(trees["opv2v"], tmp)
         disk = phase_disk(disk_cfgs(trees), trees, readers, smi)
+    torch.cuda.empty_cache()
+    camera = phase_camera_options(camera_cfgs())
+    torch.cuda.empty_cache()
     phase_pipeline()
     for name in rows:
         rows[name]["protocol_launches"] = protocol["launches"][name]
@@ -2874,6 +3261,10 @@ def main() -> int:
         rows[name]["disk_launches"] = disk["launches"][name]
         rows[name]["disk_launches_per_frame"] = {
             c: DISK_LAUNCHES[c][name == "shift_rows"] for c in DISK_CFGS}
+        rows[name]["camera_and_options_launches"] = camera["launches"][name]
+        rows[name]["camera_and_options_launches_per_forward"] = {
+            c: r["launches_per_forward"][name]
+            for c, r in camera["rows"].items()}
     rows["shift_rows"]["disk_launches_per_step"] = 15
     # phases 10 and 11's own kernel cases (the CenterPoint frame's and
     # the disk frame's kernel 1, the fusion warps' kernel 2) join the
@@ -2921,6 +3312,9 @@ def main() -> int:
               f"phase (a frame: {k['anchor_free_launches_per_frame']})"
               f", {k['disk_launches']} in the disk phase (a frame: "
               f"{k['disk_launches_per_frame']})"
+              f", {k['camera_and_options_launches']} in the camera and "
+              f"options phase (a forward: "
+              f"{k['camera_and_options_launches_per_forward']})"
               + f"; {k['bytes']} bytes, bound {k['bound_ms']:.4f} ms "
               f"({k['bound_by']}), {k['ms']:.4f} ms = {k['pct_of_bound']:.1f}%"
               f" of bound, plain {k['plain_ms']:.4f} ms, library call "

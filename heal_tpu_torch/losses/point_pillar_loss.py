@@ -9,8 +9,16 @@ are mask-based over fixed shapes.
 
 Prediction layout NHWC: cls (B, H, W, A), reg (B, H, W, A*7),
 dir (B, H, W, A*bins), depth_items_mX (N, fH, fW, D); targets from
-postprocess/targets.py and the camera packing's ``depth_bins``. The
-IoU-quality branch is not ported: it raises when it would contribute.
+postprocess/targets.py and the camera packing's ``depth_bins``.
+
+The IoU-quality branch (``iou`` in the config, the heads' ``iou_preds``;
+point_pillar_loss.py:111-155,213-222) runs once ``set_anchors`` gave it
+the anchor grid, as JAX's trainer does: per sample the top K =
+``max_positive_anchors`` (512) anchors by regression weight, taken by a
+stable descending sort (JAX's ``lax.top_k`` keeps the lower index among
+equal weights, and every positive of a sample weighs the same), the
+detached predictions and the targets decoded against their anchors, and
+a smooth-L1 of the IoU head on 2 * IoU - 1, weighted by the top weights.
 """
 from __future__ import annotations
 
@@ -21,7 +29,9 @@ import torch
 import torch.nn.functional as F
 
 from ..models.registry import register_loss
+from ..ops.geometry import decode_boxes
 from ..utils.common import limit_period
+from ..utils.rotated_iou import aligned_boxes_iou3d
 
 
 def sigmoid_focal_loss(logits, labels, weights, alpha: float, gamma: float):
@@ -99,6 +109,37 @@ class PointPillarLoss:
         self.reg = args["reg"]
         self.dir = args.get("dir")
         self.iou = args.get("iou")
+        self.iou_cap = (self.iou or {}).get("max_positive_anchors", 512)
+        self.anchors = None
+
+    def set_anchors(self, anchors):
+        """The (H, W, A, 7) anchor grid the IoU branch decodes against
+        (tools/train.py passes the dataset's)."""
+        self.anchors = torch.as_tensor(np.asarray(anchors, np.float32))
+
+    def _iou_loss(self, output_dict, target_dict, suffix, reg_weights, b):
+        # one copy to the loss's device, kept
+        self.anchors = self.anchors.to(reg_weights.device)
+        anchors = self.anchors.reshape(-1, 7)
+        iou_preds = output_dict[f"iou_preds{suffix}"].reshape(b, -1)
+        reg_preds = output_dict[f"reg_preds{suffix}"].reshape(b, -1, 7)
+        reg_targets = target_dict["targets"].reshape(b, -1, 7)
+        w = reg_weights.squeeze(-1)  # (B, N), > 0 at the positives
+        k = min(self.iou_cap, w.shape[1])
+        top_w, idx = torch.sort(w, dim=1, descending=True, stable=True)
+        top_w, idx = top_w[:, :k], idx[:, :k]
+        anc = anchors[idx]
+
+        def take(t):
+            return torch.gather(t, 1, idx[..., None].expand(
+                -1, -1, t.shape[-1]))
+
+        boxes_pred = decode_boxes(take(reg_preds.detach()), anc)
+        boxes_tgt = decode_boxes(take(reg_targets), anc)
+        iou = aligned_boxes_iou3d(boxes_pred.float(), boxes_tgt.float())
+        loss = weighted_smooth_l1(torch.gather(iou_preds, 1, idx),
+                                  2.0 * iou - 1.0, top_w, self.iou["sigma"])
+        return loss.sum() * self.iou["weight"] / b
 
     def __call__(self, output_dict, target_dict, suffix: str = ""):
         cls_preds = output_dict[f"cls_preds{suffix}"]
@@ -142,8 +183,12 @@ class PointPillarLoss:
             total = total + dir_loss
             aux["dir_loss"] = dir_loss
 
-        if self.iou is not None and f"iou_preds{suffix}" in output_dict:
-            raise NotImplementedError("the IoU loss branch is not ported yet")
+        if (self.iou is not None and f"iou_preds{suffix}" in output_dict
+                and self.anchors is not None):
+            iou_loss = self._iou_loss(output_dict, target_dict, suffix,
+                                      reg_weights, b)
+            total = total + iou_loss
+            aux["iou_loss"] = iou_loss
         # LSS depth supervision of every camera type present
         if "depth" in self.args:
             terms = [

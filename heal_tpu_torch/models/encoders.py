@@ -19,7 +19,17 @@ come from the same algebra over point sums and per-pillar table sums
 (encoders.py:268-329), stay in the graph, and the segment sums and max
 are plain ``index_add_`` / ``scatter_reduce`` (XLA segment ops in JAX).
 
-The general decorate + PFNLayer path is not ported yet.
+Every other configuration (several PFN layers, group or no norm,
+relative xyz, the distance channel) takes the general path, in both
+modes and on every device, as JAX's does (encoders.py:149-175), and
+never calls kernel 1: ``_decorate``'s 10 (7 without absolute xyz, + 1
+with the distance) channels per point, ``pfn_i`` layers (a Dense, then
+the padding-aware ``MaskedBatchNorm``, a LayerNorm with eps 1e-3 under
+"group", or nothing and a biased Dense under "none"; ReLU), then the
+pillar max (``scatter_reduce`` "amax" from -inf, JAX's ``segment_max``),
+non-finite cells 0 and ``torch.maximum(., 0)``: ties at the max split
+the gradient evenly, as JAX's ``segment_max`` and ``jnp.maximum`` do.
+It computes in f32 and hands the canvas on in the weights' dtype.
 """
 from __future__ import annotations
 
@@ -30,7 +40,65 @@ import torch.nn as nn
 
 from ..ops import pillar as _pillar
 from ..ops import voxelize
-from .layers import DEFAULT_BN_MOMENTUM, parse_norm, update_running
+from .layers import (DEFAULT_BN_MOMENTUM, Dense, LayerNorm, parse_norm,
+                     update_running)
+
+
+class MaskedBatchNorm(nn.Module):
+    """heal_tpu encoders.py ``MaskedBatchNorm``: batch norm over the valid
+    points only. Train mode: the mean and the biased variance (two
+    passes) of the rows where ``mask`` is set, kept in the graph, and the
+    flax running update; eval mode: the running statistics. eps 1e-3."""
+
+    def __init__(self, channels: int, momentum: float | None = None,
+                 epsilon: float = 1e-3):
+        super().__init__()
+        self.momentum = DEFAULT_BN_MOMENTUM if momentum is None else momentum
+        self.epsilon = epsilon
+        self.scale = nn.Parameter(torch.ones(channels))
+        self.bias = nn.Parameter(torch.zeros(channels))
+        self.register_buffer("mean", torch.zeros(channels))
+        self.register_buffer("var", torch.ones(channels))
+
+    def forward(self, x: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+        if self.training:
+            w = mask.to(x.dtype)[:, None]
+            denom = torch.clamp(w.sum(), min=1.0)
+            mean = (x * w).sum(0) / denom
+            var = (((x - mean) ** 2) * w).sum(0) / denom
+            update_running(self.mean, mean, self.momentum)
+            update_running(self.var, var, self.momentum)
+        else:
+            mean, var = self.mean.to(x.dtype), self.var.to(x.dtype)
+        y = (x - mean) * torch.rsqrt(var + self.epsilon)
+        return y * self.scale.to(x.dtype) + self.bias.to(x.dtype)
+
+
+class PFNLayer(nn.Module):
+    """heal_tpu encoders.py ``PFNLayer``: Dense -> norm -> ReLU per point
+    (the max over a pillar comes at the scatter)."""
+
+    def __init__(self, cin: int, features: int, norm: str = "batch"):
+        super().__init__()
+        self.kind, momentum = parse_norm(norm)
+        self.Dense_0 = Dense(cin, features, use_bias=self.kind == "none")
+        if self.kind == "batch":
+            self.MaskedBatchNorm_0 = MaskedBatchNorm(features, momentum)
+        elif self.kind == "group":
+            self.LayerNorm_0 = LayerNorm(features, epsilon=1e-3)
+        elif self.kind != "none":
+            raise ValueError(f"unknown norm kind {norm!r}")
+
+    def forward(self, x: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+        d = self.Dense_0
+        x = x @ d.kernel.to(x.dtype)
+        if d.bias is not None:
+            x = x + d.bias.to(x.dtype)
+        if self.kind == "batch":
+            x = self.MaskedBatchNorm_0(x, mask)
+        elif self.kind == "group":
+            x = self.LayerNorm_0(x)
+        return torch.relu(x)
 
 
 class PointPillarEncoder(nn.Module):
@@ -46,19 +114,26 @@ class PointPillarEncoder(nn.Module):
                  use_absolute_xyz: bool = True, with_distance: bool = False,
                  norm: str = "batch", presorted: bool = False):
         super().__init__()
-        if not (len(num_filters) == 1 and parse_norm(norm)[0] == "batch"
-                and use_absolute_xyz and not with_distance):
-            raise NotImplementedError(
-                "only the fused PointPillars encoder is ported (one PFN "
-                "layer, batch norm, absolute xyz, no distance)"
-            )
         self.voxel_size = tuple(float(v) for v in voxel_size)
         self.lidar_range = tuple(float(v) for v in lidar_range)
         self.presorted = presorted
+        self.use_absolute_xyz = use_absolute_xyz
+        self.with_distance = with_distance
+        # JAX's condition for the gather-free fused path (kernel 1 in eval)
+        self.fused = (len(num_filters) == 1
+                      and parse_norm(norm)[0] == "batch"
+                      and use_absolute_xyz and not with_distance)
+        self.out_channels = int(num_filters[-1])
+        if not self.fused:
+            cin = (10 if use_absolute_xyz else 7) + int(with_distance)
+            self.num_layers = len(num_filters)
+            for i, f in enumerate(num_filters):
+                self.add_module(f"pfn_{i}", PFNLayer(cin, int(f), norm))
+                cin = int(f)
+            return
         mom = parse_norm(norm)[1]
         self.momentum = DEFAULT_BN_MOMENTUM if mom is None else mom
-        f = int(num_filters[0])
-        self.out_channels = f
+        f = self.out_channels
         self.pfn_kernel = nn.Parameter(torch.empty(10, f))
         self.bn_scale = nn.Parameter(torch.ones(f))
         self.bn_bias = nn.Parameter(torch.zeros(f))
@@ -84,10 +159,10 @@ class PointPillarEncoder(nn.Module):
             cx0=x0 + vx / 2, cy0=y0 + vy / 2, cz=z0 + vz / 2,
         )
 
-    def _point_terms(self, points: torch.Tensor, mask: torch.Tensor):
-        """Pillar ids and the per-point GEMM operands shared by both
-        modes: (grid, fi, w, pfeat, local, cdt), sorted by id."""
-        b, n, _ = points.shape
+    def _sorted_points(self, points: torch.Tensor, mask: torch.Tensor):
+        """-> (grid, fi, fv, fp): the flat batch-wide pillar ids, validity
+        and points, sorted by id."""
+        b = points.shape[0]
         grid = self.grid()
         ids, valid = voxelize.pillar_ids(
             points, mask, self.lidar_range, self.voxel_size, grid.nx,
@@ -105,7 +180,13 @@ class PointPillarEncoder(nn.Module):
         else:
             order = torch.argsort(fi, stable=True)
             fi, fv, fp = fi[order], fv[order], fp[order]
+        return grid, fi, fv, fp
 
+    def _point_terms(self, points: torch.Tensor, mask: torch.Tensor):
+        """Pillar ids and the per-point GEMM operands shared by both
+        modes of the fused path: (grid, fi, w, pfeat, local, cdt), sorted
+        by id."""
+        grid, fi, fv, fp = self._sorted_points(points, mask)
         # compute dtype follows the weights (bf16 serving), never the
         # points': pillar binning stays f32, and only pillar-LOCAL offsets
         # and intensity enter the per-point GEMM
@@ -199,7 +280,53 @@ class PointPillarEncoder(nn.Module):
         return torch.where(torch.isfinite(m_seg), torch.relu(m_seg + tb),
                            torch.zeros_like(m_seg))
 
+    def _decorate(self, pts, ids, valid, grid, b: int) -> torch.Tensor:
+        """PillarVFE's per-point decoration over the flat sorted batch:
+        [xyz, intensity] (intensity only without absolute xyz), xyz minus
+        the pillar's mean, xyz minus the pillar's center (+ the range
+        with the distance); padded rows 0."""
+        w = valid.to(pts.dtype)[:, None]
+        idx = ids.long()
+        seg = torch.zeros((b * grid.cells, 4), dtype=pts.dtype,
+                          device=pts.device).index_add(
+            0, idx, torch.cat([pts[:, :3] * w, w], dim=-1))
+        mean = seg[:, :3] / torch.clamp(seg[:, 3:4], min=1.0)
+        f_cluster = pts[:, :3] - mean[idx]
+        f_center = pts[:, :3] - self._centers(ids % grid.cells, grid).to(
+            pts.dtype)
+        feats = [pts if self.use_absolute_xyz else pts[:, 3:], f_cluster,
+                 f_center]
+        if self.with_distance:
+            feats.append(torch.linalg.vector_norm(pts[:, :3], dim=-1,
+                                                  keepdim=True))
+        return torch.cat(feats, dim=-1) * w
+
+    def _general(self, points: torch.Tensor, mask: torch.Tensor):
+        """The decorate + PFN layers + pillar-max path (no kernel) ->
+        (B, ny, nx, F) in the weights' dtype."""
+        b = points.shape[0]
+        grid, fi, fv, fp = self._sorted_points(points, mask)
+        fp = fp.to(torch.promote_types(fp.dtype, torch.float32))
+        feats = self._decorate(fp, fi, fv, grid, b)
+        for i in range(self.num_layers):
+            feats = getattr(self, f"pfn_{i}")(feats, fv)
+        feats = feats * fv.to(feats.dtype)[:, None]
+        f = feats.shape[1]
+        idx = fi.long()[:, None].expand(-1, f)
+        canvas = torch.full((b * grid.cells, f), float("-inf"),
+                            dtype=feats.dtype, device=feats.device
+                            ).scatter_reduce(0, idx, feats, "amax",
+                                             include_self=True)
+        zero = torch.zeros((), dtype=feats.dtype, device=feats.device)
+        canvas = torch.maximum(
+            torch.where(torch.isfinite(canvas), canvas, zero), zero)
+        canvas = canvas.reshape(b, grid.cells, f)[:, :grid.stride]
+        wdt = self.pfn_0.Dense_0.kernel.dtype
+        return canvas.reshape(b, grid.stride // grid.nx, grid.nx, f).to(wdt)
+
     def forward(self, points: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+        if not self.fused:
+            return self._general(points, mask)
         b = points.shape[0]
         grid = self.grid()
         ny = grid.stride // grid.nx

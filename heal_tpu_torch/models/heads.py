@@ -2,8 +2,9 @@
 
 Counterpart of heal_tpu/models/heads.py. Runs NCHW inside and returns
 the JAX layout, NHWC: cls (B, H, W, A), reg (B, H, W, A*7),
-dir (B, H, W, A*num_bins), as postprocess/decode.py expects. The IoU
-branch of the CoAlign configs is not ported yet.
+dir (B, H, W, A*num_bins), as postprocess/decode.py expects; with
+``use_iou`` also iou (B, H, W, A), the IoU-quality branch (``iou_head``)
+that the loss's ``iou`` term trains.
 """
 from __future__ import annotations
 
@@ -15,11 +16,12 @@ from .layers import Conv
 
 class DetectionHeads(nn.Module):
     def __init__(self, cin: int, anchor_number: int, use_dir: bool = True,
-                 num_bins: int = 2):
+                 num_bins: int = 2, use_iou: bool = False):
         super().__init__()
         self.cls_head = Conv(cin, anchor_number)
         self.reg_head = Conv(cin, 7 * anchor_number)
         self.dir_head = Conv(cin, num_bins * anchor_number) if use_dir else None
+        self.iou_head = Conv(cin, anchor_number) if use_iou else None
 
     def forward(self, x: torch.Tensor) -> dict:
         def nhwc(t):
@@ -31,4 +33,6 @@ class DetectionHeads(nn.Module):
         }
         if self.dir_head is not None:
             out["dir_preds"] = nhwc(self.dir_head(x))
+        if self.iou_head is not None:
+            out["iou_preds"] = nhwc(self.iou_head(x))
         return out

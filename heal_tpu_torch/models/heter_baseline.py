@@ -5,8 +5,9 @@ heter_model_baseline.py, heter_model_baseline_ms.py), on the
 ``ModalityBranch`` and slot packing of heter_pyramid.py:
 
   * ``HeterModelBaseline``: per-type branches in ``lidar_first`` order
-    (a camera BEV is cropped or padded only to a lidar canvas that already
-    exists) -> slot scatter into (B, L) -> the shrink header PER AGENT ->
+    (a camera BEV is center-cropped or zero-padded to the lidar canvas
+    before it, else to the lidar range at its own stride) -> slot
+    scatter into (B, L) -> the shrink header PER AGENT ->
     the shared heads on every agent (the ``_single`` outputs, and
     Where2comm's transmission confidence) -> the fusion method -> the
     heads;
@@ -21,6 +22,13 @@ heter_model_baseline.py, heter_model_baseline_ms.py), on the
     every sample (the types it is not get zero inputs) and its features
     are multiplied by that type's column of ``modality_flags``, then
     summed, shrunk and read by the shared heads.
+
+With no lidar type (the published ``opv2v/camera_only/*.yaml``: a
+128x128 camera BEV against a 128x256 label grid) heal_tpu's baselines
+leave the camera BEV uncropped, and their heads and loss disagree with
+the labels' shape; the port pads it, as the reference (its crop
+ratios), the collab, single and late models do. Where the camera grid
+covers the lidar range the two packages agree.
 
 Outputs are NHWC, as in JAX: cls / reg / dir preds, their ``_single``
 twins, each camera type's ``depth_items_mX``, and for Where2comm
@@ -43,10 +51,11 @@ from .registry import register_model
 from .resnet_bev import ResNetBEVBackbone
 
 
-def _heads(a: dict, cin: int) -> DetectionHeads:
+def _heads(a: dict, cin: int, use_iou: bool = False) -> DetectionHeads:
     return DetectionHeads(cin, anchor_number=a["anchor_number"],
                           use_dir="dir_args" in a,
-                          num_bins=a.get("dir_args", {}).get("num_bins", 2))
+                          num_bins=a.get("dir_args", {}).get("num_bins", 2),
+                          use_iou=use_iou)
 
 
 class _Baseline(nn.Module):
@@ -76,8 +85,13 @@ class _Baseline(nn.Module):
             feat = feat.permute(0, 2, 3, 1)  # NHWC view
             if depth is not None:
                 out_aux[f"depth_items_{m}"] = depth
-            if is_camera(self.args[m]) and feat_all is not None:
-                feat = center_crop_or_pad(feat, *feat_all.shape[1:3])
+            if is_camera(self.args[m]):
+                # to the lidar canvas, else to the lidar range at the
+                # camera's stride (the reference's crop ratios)
+                feat = center_crop_or_pad(feat, *(
+                    feat_all.shape[1:3] if feat_all is not None else
+                    camera_canvas(self.args[m], self.args["lidar_range"],
+                                  *feat.shape[1:3])))
             feat = feat.reshape((b, lm) + feat.shape[1:])
             if feat_all is None:
                 feat_all = feat.new_zeros((b * (l + 1),) + feat.shape[2:])
@@ -106,8 +120,6 @@ class HeterModelBaseline(_Baseline):
     def __init__(self, args: dict, max_cav: int | None = None):
         super().__init__()
         a = args
-        if a.get("use_iou"):
-            raise NotImplementedError("use_iou is not ported yet")
         norm = a.get("norm", "batch")
         width = self._branches(a, norm)
         method = a["fusion_method"]
@@ -117,7 +129,8 @@ class HeterModelBaseline(_Baseline):
         if self.shrink is not None:
             width = a["shrink_header"]["dim"][-1]
         self.fusion = build_fusion(method, fusion_args, width, max_cav)
-        self.heads = _heads(a, out_width(self.fusion, width))
+        self.heads = _heads(a, out_width(self.fusion, width),
+                            a.get("use_iou", False))
 
     def forward(self, batch: dict) -> dict:
         a = self.args
@@ -229,8 +242,9 @@ class HeterModelLate(nn.Module):
 
     JAX's default norm is group norm (every branch sees the zero inputs
     of the other types' samples, which train-mode batch norm would fold
-    into its statistics); every published config sets ``norm: batch``,
-    and group norm is not ported (ROADMAP queue 1, item 2).
+    into its statistics): per sample, so the PointPillars branches take
+    the encoder's general path (no kernel 1). Every published config
+    sets ``norm: batch``. ``use_iou`` adds the heads' IoU branch.
 
     A camera BEV is center-cropped or zero-padded to the lidar branch's
     canvas, and with no lidar type (``single/m2_pretrain.yaml``) to the
@@ -245,14 +259,7 @@ class HeterModelLate(nn.Module):
     def __init__(self, args: dict):
         super().__init__()
         a = args
-        if a.get("use_iou"):
-            raise NotImplementedError(
-                "use_iou is not ported: ROADMAP queue 1, item 2")
         norm = a.get("norm", "group")
-        if norm.split("@")[0] != "batch":
-            raise NotImplementedError(
-                f"heter_model_late with norm {norm!r} is not ported (batch "
-                "only): ROADMAP queue 1, item 2")
         self.args = a
         self.modalities = modality_list(a)
         for m in self.modalities:
@@ -261,7 +268,7 @@ class HeterModelLate(nn.Module):
         self.shrink = _shrink_from_args(a, width)
         if self.shrink is not None:
             width = a["shrink_header"]["dim"][-1]
-        self.heads = _heads(a, width)
+        self.heads = _heads(a, width, a.get("use_iou", False))
 
     def forward(self, batch: dict) -> dict:
         a = self.args

@@ -30,7 +30,7 @@ scattered agent features pass through it before the pyramid, and every
 other module is in ``fix_modules``: the trainer
 (parallel/trainer.py) trains the compressor alone and runs the frozen
 modules in eval mode (``freezing.frozen_eval``), as JAX passes
-``train=False`` to them. The IoU head is not ported yet and raises.
+``train=False`` to them. ``use_iou`` adds the heads' IoU branch.
 """
 from __future__ import annotations
 
@@ -199,8 +199,6 @@ class HeterPyramidCollab(nn.Module):
     def __init__(self, args: dict):
         super().__init__()
         a = args
-        if a.get("use_iou"):
-            raise NotImplementedError("use_iou is not ported yet")
         norm = a.get("norm", "batch")
         self.modalities = modality_list(a)
         self.lidar_range = a["lidar_range"]
@@ -221,6 +219,7 @@ class HeterPyramidCollab(nn.Module):
             anchor_number=a["anchor_number"],
             use_dir="dir_args" in a,
             num_bins=a.get("dir_args", {}).get("num_bins", 2),
+            use_iou=a.get("use_iou", False),
         )
         self.compressor = None
         if "compressor" in a:
@@ -330,8 +329,6 @@ class HeterPyramidSingle(nn.Module):
     def __init__(self, args: dict):
         super().__init__()
         a = args
-        if a.get("use_iou"):
-            raise NotImplementedError("use_iou is not ported yet")
         norm = a.get("norm", "batch")
         mods = modality_list(a)
         if len(mods) != 1:
@@ -354,6 +351,7 @@ class HeterPyramidSingle(nn.Module):
             anchor_number=a["anchor_number"],
             use_dir="dir_args" in a,
             num_bins=a.get("dir_args", {}).get("num_bins", 2),
+            use_iou=a.get("use_iou", False),
         )
 
     def train(self, mode: bool = True):

@@ -42,8 +42,48 @@ def _kernel_param(cout: int, cin: int, k: int) -> nn.Parameter:
     return nn.Parameter(torch.empty(cout, cin, k, k))
 
 
+class GroupNorm(nn.Module):
+    """flax ``nn.GroupNorm(num_groups, epsilon)`` over the channel axis 1
+    of an NCHW (or (N, C, ...)) input: per sample and group, the moments
+    over the group's channels and every spatial position, in f32 (f64 for
+    f64 inputs), the variance E[x^2] - E[x]^2 clamped at 0, as flax's
+    fast variance; then the per-channel ``scale`` and ``bias``."""
+
+    def __init__(self, channels: int, num_groups: int, epsilon: float):
+        super().__init__()
+        self.num_groups = num_groups
+        self.epsilon = epsilon
+        self.scale = nn.Parameter(torch.ones(channels))
+        self.bias = nn.Parameter(torch.zeros(channels))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        n, c = x.shape[:2]
+        xf = x.to(torch.promote_types(x.dtype, torch.float32))
+        g = xf.reshape(n, self.num_groups, -1)
+        m = g.mean(-1)
+        v = torch.clamp((g * g).mean(-1) - m * m, min=0.0)
+        per = c // self.num_groups
+        shape = (n, c) + (1,) * (x.dim() - 2)
+        mean = m.repeat_interleave(per, 1).reshape(shape)
+        # flax's order: mul = rsqrt(var + eps) * scale, then (x - mean) * mul
+        mul = (torch.rsqrt(v + self.epsilon).repeat_interleave(per, 1)
+               * self.scale.to(xf.dtype)).reshape(shape)
+        y = (xf - mean) * mul + self.bias.to(xf.dtype).reshape(
+            (1, c) + (1,) * (x.dim() - 2))
+        return y.to(x.dtype)
+
+
+def group_count(channels: int) -> int:
+    """heal_tpu's group count: min(32, C), halved until it divides C."""
+    groups = min(32, channels)
+    while channels % groups:
+        groups //= 2
+    return groups
+
+
 class Norm(nn.Module):
-    """BatchNorm (heal_tpu/models/layers.py ``Norm``), or "none".
+    """BatchNorm (heal_tpu/models/layers.py ``Norm``), group norm or
+    "none".
 
     Train mode normalises with the batch moments over N, H and W, taken
     in f32 (f64 for f64 inputs) and kept in the graph (JAX differentiates through them):
@@ -53,7 +93,9 @@ class Norm(nn.Module):
     (1-mom)*batch, with mom from the "batch@m" suffix, else
     DEFAULT_BN_MOMENTUM. Eval mode uses the running statistics. eps
     differs by call site, as in JAX: 1e-5 inside the resblocks, 1e-3 in
-    the deblocks.
+    the deblocks. "group" is flax's ``GroupNorm`` under ``GroupNorm_0``
+    (``group_count`` groups, eps 1e-3 at every call site, layers.py
+    :91-97): per sample, no running statistics, the same in both modes.
     """
 
     def __init__(self, channels: int, kind: str = "batch",
@@ -67,14 +109,17 @@ class Norm(nn.Module):
             self.bias = nn.Parameter(torch.zeros(channels))
             self.register_buffer("mean", torch.zeros(channels))
             self.register_buffer("var", torch.ones(channels))
+        elif self.kind == "group":
+            self.GroupNorm_0 = GroupNorm(channels, group_count(channels),
+                                         1e-3)
         elif self.kind != "none":
-            raise NotImplementedError(
-                f"norm kind {kind!r} is not ported (batch, none)"
-            )
+            raise ValueError(f"unknown norm kind {kind!r}")
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if self.kind == "none":
             return x
+        if self.kind == "group":
+            return self.GroupNorm_0(x)
         if self.training:
             xf = x.to(torch.promote_types(x.dtype, torch.float32))
             axes = [0] + list(range(2, x.dim()))
@@ -380,19 +425,48 @@ class _PixelShuffleDeconv(nn.Module):
         return F.conv_transpose2d(x, self.kernel, stride=self.stride)
 
 
-class DeconvNormAct(nn.Module):
-    """Transposed-conv upsample + norm + relu (the deblocks)."""
+class SameConv(nn.Module):
+    """flax ``nn.Conv(features, (k, k), strides=(s, s), use_bias=False)``
+    under its SAME padding: ceil(H / s) outputs, the missing
+    (ceil(H / s) - 1) * s + k - H rows (and columns) padded total // 2
+    before and the rest after, so a stride that does not divide H pads
+    at the end first."""
 
-    def __init__(self, cin: int, features: int, stride: int,
+    def __init__(self, cin: int, features: int, kernel: int,
+                 stride: int = 1):
+        super().__init__()
+        self.stride = stride
+        self.kernel = _kernel_param(features, cin, kernel)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        s, k = self.stride, self.kernel.shape[-1]
+        pads = []
+        for size in (x.shape[-1], x.shape[-2]):  # F.pad's order: W, H
+            total = max((-(-size // s) - 1) * s + k - size, 0)
+            pads += [total // 2, total - total // 2]
+        return F.conv2d(F.pad(x, pads), self.kernel, None, s)
+
+
+class DeconvNormAct(nn.Module):
+    """Transposed-conv upsample + norm + relu (the deblocks). A stride
+    below 1 is a strided-down deblock (heal_tpu layers.py:239-245): a
+    bias-free s x s conv of stride s = round(1 / stride), ``Conv_0``."""
+
+    def __init__(self, cin: int, features: int, stride: float,
                  norm: str = "batch"):
         super().__init__()
-        if stride < 1:
-            raise NotImplementedError("strided-down deblocks are not ported")
-        self.ConvTranspose_0 = _PixelShuffleDeconv(cin, features, int(stride))
+        if stride >= 1:
+            self.ConvTranspose_0 = _PixelShuffleDeconv(cin, features,
+                                                       int(stride))
+        else:
+            s = int(round(1 / stride))
+            self.Conv_0 = SameConv(cin, features, s, s)
         self.Norm_0 = Norm(features, norm)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return F.relu(self.Norm_0(self.ConvTranspose_0(x)))
+        up = getattr(self, "ConvTranspose_0", None)
+        x = up(x) if up is not None else self.Conv_0(x)
+        return F.relu(self.Norm_0(x))
 
 
 class BasicBlock(nn.Module):

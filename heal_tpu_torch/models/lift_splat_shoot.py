@@ -30,6 +30,19 @@ ops, not a Pallas kernel; chip_smoke.py times it on the card.
 Layouts are JAX's at the boundary: images (B, N, H, W, 3), the BEV
 (B, ny, nx, C) and the depth logits (B*N, fH, fW, D) are NHWC views of
 the NCHW convolutions' outputs.
+
+The standalone camera-only detectors (heal_tpu lift_splat_shoot.py
+:306-430) sit on the same encoder, under flax's names (``encoder``,
+``ResNetBEVBackbone_0``, ``DownsampleConv_0``, ``DetectionHeads_0``):
+``lift_splat_shoot`` (one agent's cameras -> BEV -> backbone -> shrink ->
+heads; a (B, L) camera batch is run per agent), ``lift_splat_shoot_voxel``
+(the same with the max pool, under ``lss_max``) and
+``lift_splat_shoot_intermediate`` (every agent slot's map fused by the
+config's ``fusion_method`` of the zoo on ``pairwise_affine``, the
+fusion under ``<Class>_0``). Their BEV is the camera grid's, with no
+crop or pad: configs give them ``load_lift_splat_shoot_params``, which
+derives the anchor map from that grid. The depth logits come out as
+``depth_items``.
 """
 from __future__ import annotations
 
@@ -39,7 +52,11 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from ..utils.camera import depth_discretization, gen_dx_bx
+from .fuse.fusion_in_one import build_fusion
+from .heads import DetectionHeads
 from .layers import Conv, ConvNormAct
+from .point_pillar import _backbone_from_args, _shrink_from_args, out_width
+from .registry import register_model
 
 
 def _accumulated(x: torch.Tensor) -> torch.Tensor:
@@ -224,3 +241,132 @@ class LiftSplatShootEncoder(nn.Module):
         agent = torch.arange(b, device=geom.device)[:, None]
         seg = (ids.reshape(b, -1) + agent * (self.cells + 1)).reshape(-1)
         return self._segment(seg, vals, b)
+
+
+def camera_inputs(batch: dict) -> dict:
+    """The camera arrays (imgs, rots, trans, intrins, post_*) of a batch:
+    the batch itself, its ``camera`` entry, or its first camera-typed
+    ``inputs_m*`` block (heal_tpu's ``_camera_inputs``)."""
+    if "imgs" in batch:
+        return batch
+    if "camera" in batch:
+        return batch["camera"]
+    for k in sorted(batch):
+        if (k.startswith("inputs_") and isinstance(batch[k], dict)
+                and "imgs" in batch[k]):
+            return batch[k]
+    raise KeyError("no camera inputs in batch")
+
+
+class _CameraDetector(nn.Module):
+    """Encoder -> backbone -> shrink of the standalone detectors;
+    ``_build`` -> the map's width."""
+
+    def _build(self, a: dict) -> int:
+        norm = a.get("norm", "batch")
+        self.encoder = LiftSplatShootEncoder(a, norm=norm)
+        self.ResNetBEVBackbone_0 = _backbone_from_args(
+            a, self.encoder.out_channels, norm)
+        width = self.ResNetBEVBackbone_0.out_channels
+        shrink = _shrink_from_args(a, width)
+        if shrink is not None:
+            self.DownsampleConv_0 = shrink
+            width = a["shrink_header"]["dim"][-1]
+        return width
+
+    @staticmethod
+    def _heads(a: dict, cin: int) -> DetectionHeads:
+        # JAX's standalone detectors pass no use_iou
+        return DetectionHeads(cin, anchor_number=a["anchor_number"],
+                              use_dir="dir_args" in a,
+                              num_bins=a.get("dir_args", {}).get("num_bins",
+                                                                 2))
+
+    def features(self, cams: dict):
+        """Flat-agent camera arrays -> ((N, C, H, W) map, depth logits)."""
+        bev, depth = self.encoder(cams)
+        feat = self.ResNetBEVBackbone_0(bev.permute(0, 3, 1, 2))
+        shrink = getattr(self, "DownsampleConv_0", None)
+        return (feat if shrink is None else shrink(feat)), depth
+
+
+@register_model("lift_splat_shoot")
+class LiftSplatShoot(_CameraDetector):
+    """args: grid_conf, img_downsample, img_features, base_bev_backbone,
+    anchor_number, (dir_args), (shrink_header), (pool: sum | max),
+    (norm). Batch: the camera arrays (:func:`camera_inputs`) of one agent
+    a sample, (B, N, H, W, 3) images; with (B, L, N, ...) ones each agent
+    slot is detected on its own, the outputs keep the flat B*L axis and
+    ``spatial_features_2d`` the (B, L) one."""
+
+    batch_keys = ()
+
+    def __init__(self, args: dict):
+        super().__init__()
+        self.DetectionHeads_0 = self._heads(args, self._build(args))
+
+    def forward(self, batch: dict) -> dict:
+        cams = camera_inputs(batch)
+        lead = None
+        if cams["imgs"].dim() == 6:  # (B, L, N, H, W, 3): agents flat
+            lead = tuple(cams["imgs"].shape[:2])
+            cams = {k: v.reshape((-1,) + v.shape[2:])
+                    for k, v in cams.items()}
+        feat, depth = self.features(cams)
+        out = self.DetectionHeads_0(feat)
+        nhwc = feat.permute(0, 2, 3, 1)
+        out["spatial_features_2d"] = (nhwc if lead is None else
+                                      nhwc.reshape(lead + nhwc.shape[1:]))
+        out["depth_items"] = depth
+        return out
+
+
+@register_model("lift_splat_shoot_voxel")
+class LiftSplatShootVoxel(nn.Module):
+    """``lift_splat_shoot`` with the max pool over each BEV cell (the
+    reference's voxel pooling), under ``lss_max``."""
+
+    batch_keys = ()
+
+    def __init__(self, args: dict):
+        super().__init__()
+        self.lss_max = LiftSplatShoot({**args, "pool": "max"})
+
+    def forward(self, batch: dict) -> dict:
+        return self.lss_max(batch)
+
+
+@register_model("lift_splat_shoot_intermediate")
+class LiftSplatShootIntermediate(_CameraDetector):
+    """args: LiftSplatShoot's + fusion_method (default max) and its block
+    (``in_channels`` defaults to the map's width). Batch: the camera
+    arrays with a (B, L) agent axis, agent_mask (B, L), pairwise_affine
+    (B, L, L, 2, 3)."""
+
+    needs_max_cav = True
+    batch_keys = ("agent_mask", "pairwise_affine")
+
+    def __init__(self, args: dict, max_cav: int | None = None):
+        super().__init__()
+        width = self._build(args)
+        method = args.get("fusion_method", "max")
+        fargs = dict(args.get(method, {}) or {})
+        fargs.setdefault("in_channels", width)
+        fusion = build_fusion(method, fargs, width, max_cav)
+        self.fusion_name = f"{type(fusion).__name__}_0"
+        self.add_module(self.fusion_name, fusion)
+        self.DetectionHeads_0 = self._heads(args, out_width(fusion, width))
+
+    def forward(self, batch: dict) -> dict:
+        cams = camera_inputs(batch)
+        b, l = cams["imgs"].shape[:2]
+        feat, depth = self.features(
+            {k: v.reshape((b * l,) + v.shape[2:]) for k, v in cams.items()})
+        nhwc = feat.permute(0, 2, 3, 1)
+        fused = getattr(self, self.fusion_name)(
+            nhwc.reshape((b, l) + nhwc.shape[1:]), batch["pairwise_affine"],
+            batch["agent_mask"])
+        out = self.DetectionHeads_0(fused.permute(0, 3, 1, 2))
+        out["spatial_features_2d"] = fused
+        out["depth_items"] = depth
+        return out

@@ -23,8 +23,8 @@ Modules carry flax's auto-names (``PointPillarEncoder_0``,
 ``ResNetBEVBackbone_0``, ``DownsampleConv_0``, the fusion's
 ``<Class>_0``, ``DetectionHeads_0``, ``NaiveCompressor_0``), so heal_tpu
 checkpoints load strictly. Outputs are NHWC, as in JAX, with
-``spatial_features_2d`` the map the heads read. ``use_iou`` is not
-ported (ROADMAP queue 1, item 2) and raises. ``DetectorChain`` (one
+``spatial_features_2d`` the map the heads read; ``use_iou`` adds the
+heads' IoU branch (``iou_preds``). ``DetectorChain`` (one
 agent) and ``IntermediateChain`` (the (B, L) batch and its fusion) are
 shared with the CenterPoint (models/center_point.py) and SECOND
 (models/second_model.py) detectors.
@@ -117,12 +117,10 @@ class DetectorChain(nn.Module):
 
     def _heads(self, cin: int) -> DetectionHeads:
         a = self.args
-        if a.get("use_iou"):
-            raise NotImplementedError(
-                "use_iou is not ported: ROADMAP queue 1, item 2")
         return DetectionHeads(
             cin, anchor_number=a["anchor_number"], use_dir="dir_args" in a,
-            num_bins=a.get("dir_args", {}).get("num_bins", 2))
+            num_bins=a.get("dir_args", {}).get("num_bins", 2),
+            use_iou=a.get("use_iou", False))
 
     def shrink(self, feat: torch.Tensor) -> torch.Tensor:
         shrink = getattr(self, "DownsampleConv_0", None)

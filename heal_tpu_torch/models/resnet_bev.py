@@ -2,7 +2,10 @@
 
 Counterpart of heal_tpu/models/resnet_bev.py: ResNet stages producing
 per-level features, transposed-conv deblocks upsampling each level back
-to the level-0 stride, concatenated along channels. NCHW.
+to the level-0 stride, concatenated along channels; with more
+``upsample_strides`` than levels, the last deblock runs on the
+concatenation (resnet_bev.py:74-75; flax builds no parameters for the
+ones in between, which are never called). NCHW.
 """
 from __future__ import annotations
 
@@ -32,12 +35,7 @@ class ResNetBEVBackbone(nn.Module):
             ))
             c = num_filters[i]
         self.num_deblocks = len(upsample_strides)
-        if self.num_deblocks > self.num_levels:
-            raise NotImplementedError(
-                "a trailing deblock over the concatenated levels is not "
-                "ported yet"
-            )
-        for i in range(self.num_deblocks):
+        for i in range(min(self.num_deblocks, self.num_levels)):
             self.add_module(f"deblocks_{i}", DeconvNormAct(
                 num_filters[i], num_upsample_filter[i], upsample_strides[i],
                 norm=norm,
@@ -46,6 +44,14 @@ class ResNetBEVBackbone(nn.Module):
             num_upsample_filter[i] if i < self.num_deblocks else num_filters[i]
             for i in range(self.num_levels)
         )
+        self.trailing = None
+        if self.num_deblocks > self.num_levels:
+            self.trailing = f"deblocks_{self.num_deblocks - 1}"
+            self.add_module(self.trailing, DeconvNormAct(
+                self.out_channels, num_upsample_filter[-1],
+                upsample_strides[-1], norm=norm,
+            ))
+            self.out_channels = num_upsample_filter[-1]
 
     def encode(self, x: torch.Tensor) -> list[torch.Tensor]:
         """-> list of per-level features (NCHW)."""
@@ -63,7 +69,10 @@ class ResNetBEVBackbone(nn.Module):
             if i < self.num_deblocks:
                 f = getattr(self, f"deblocks_{i}")(f)
             ups.append(f)
-        return torch.cat(ups, dim=1) if len(ups) > 1 else ups[0]
+        x = torch.cat(ups, dim=1) if len(ups) > 1 else ups[0]
+        if self.trailing is not None:
+            x = getattr(self, self.trailing)(x)
+        return x
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return self.decode(self.encode(x))

@@ -60,6 +60,7 @@ from ..models import build_loss
 from ..models.layers import channels_last
 from ..parallel import Trainer, build_optimizer, pin, to_device
 from ..parallel.freezing import freeze, trainable_parameters
+from ..postprocess.anchors import generate_anchor_box
 from . import checkpoint as ckpt_lib
 from .inference import build_weights
 from .logging import MetricLogger
@@ -171,7 +172,9 @@ def build_trainer(cfg: dict, device, steps_per_epoch: int, *,
     ``init_from`` loaded loosely (its left-out keys printed), ``resume``
     loaded strictly, then the model's ``fix_modules`` frozen and the
     optimizer built from the parameters left to train. Its update count
-    starts at 0 whatever is loaded, as JAX's ``TrainState.step`` does."""
+    starts at 0 whatever is loaded, as JAX's ``TrainState.step`` does.
+    A loss with an IoU branch gets the anchor grid the assemblers label
+    with (JAX's train.py passes ``train_ds.anchors``)."""
     model = build_weights(cfg, seed=0)
     if init_from:
         left = ckpt_lib.loose_load(model, init_from)
@@ -190,8 +193,13 @@ def build_trainer(cfg: dict, device, steps_per_epoch: int, *,
     optimizer, schedule = build_optimizer(
         trainable_parameters(model), cfg["optimizer"],
         cfg.get("lr_scheduler"), steps_per_epoch)
+    criterion = build_loss(cfg["loss"])
+    if hasattr(criterion, "set_anchors"):
+        post = cfg["postprocess"]
+        criterion.set_anchors(generate_anchor_box(post["anchor_args"],
+                                                  post["order"]))
     return Trainer(
-        model=model, criterion=build_loss(cfg["loss"]), optimizer=optimizer,
+        model=model, criterion=criterion, optimizer=optimizer,
         schedule=schedule, supervise_single=supervise_single(cfg),
         single_weight=cfg["loss"]["args"].get("single_weight", 1.0),
         bf16=bool(cfg["train_params"].get("bf16", False)),

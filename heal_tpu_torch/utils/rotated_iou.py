@@ -6,13 +6,28 @@ inside B} ∪ {parts of ∂B inside A}; each edge is Liang-Barsky-clipped
 against the other rectangle's four half-planes and its shoelace
 contribution ½·cross(P(t0), P(t1)) is summed. The numpy module picks its
 array backend by input type and sends torch tensors to jax.numpy, so the
-port keeps this torch version.
+port keeps this torch version, with ``box2d_to_corners`` and the IoU
+loss's ``aligned_boxes_iou3d`` (rotated_iou.py:37-55, 148-169).
 """
 from __future__ import annotations
 
 import torch
 
 _EPS = 1e-8
+
+
+def box2d_to_corners(boxes: torch.Tensor) -> torch.Tensor:
+    """(..., 5) [x, y, dx, dy, yaw] -> (..., 4, 2) CCW corners, in the
+    reference template's order (+,-), (+,+), (-,+), (-,-)."""
+    x, y, dx, dy, yaw = boxes.unbind(-1)
+    template = torch.tensor([[0.5, -0.5], [0.5, 0.5], [-0.5, 0.5],
+                             [-0.5, -0.5]], dtype=boxes.dtype,
+                            device=boxes.device)
+    local = torch.stack([dx, dy], dim=-1)[..., None, :] * template
+    c, s = torch.cos(yaw)[..., None], torch.sin(yaw)[..., None]
+    cx = local[..., 0] * c - local[..., 1] * s
+    cy = local[..., 0] * s + local[..., 1] * c
+    return torch.stack([cx + x[..., None], cy + y[..., None]], dim=-1)
 
 
 def polygon_area(corners: torch.Tensor) -> torch.Tensor:
@@ -92,3 +107,22 @@ def rotated_iou_matrix(
     ca = corners_a[:, None].expand(n, m, 4, 2)
     cb = corners_b[None, :].expand(n, m, 4, 2)
     return rotated_iou_corners(ca, cb)
+
+
+def aligned_boxes_iou3d(boxes_a: torch.Tensor,
+                        boxes_b: torch.Tensor) -> torch.Tensor:
+    """Element-wise 3D IoU of (..., 7) hwl boxes [x, y, z, h, w, l, yaw]:
+    the BEV polygon intersection times the z overlap, over the union
+    (floored at 1e-8)."""
+    order = [0, 1, 5, 4, 6]
+    inter_bev = rect_intersection_area(box2d_to_corners(boxes_a[..., order]),
+                                       box2d_to_corners(boxes_b[..., order]))
+    ha, hb = boxes_a[..., 3], boxes_b[..., 3]
+    za0, za1 = boxes_a[..., 2] - ha / 2, boxes_a[..., 2] + ha / 2
+    zb0, zb1 = boxes_b[..., 2] - hb / 2, boxes_b[..., 2] + hb / 2
+    inter_z = torch.clamp(torch.minimum(za1, zb1) - torch.maximum(za0, zb0),
+                          min=0.0)
+    inter = inter_bev * inter_z
+    vol_a = boxes_a[..., 4] * boxes_a[..., 5] * ha
+    vol_b = boxes_b[..., 4] * boxes_b[..., 5] * hb
+    return inter / torch.clamp(vol_a + vol_b - inter, min=_EPS)

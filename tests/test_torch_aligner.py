@@ -1,13 +1,20 @@
-"""The ported aligners, port vs JAX ``AlignNet``, on the CPU.
+"""The aligners, port vs JAX ``AlignNet``, on the CPU.
 
-identity, res1x1, res3x3 and convnext (the backends the shipped configs
-use) at width 8 with two blocks: a flax init (batch-norm parameters,
-running statistics, LayerNorm parameters and ConvNeXt's ``gamma``
-randomised so that every term matters) bridged into the port. Compared in
-eval mode (the output) and in train mode (the output, the updated running
-statistics, and the input and parameter gradients of a seeded
-cotangent). Stated tolerance: 1e-5 relative and absolute, as the other
-module tests (f32 sums in another order).
+All eight backends (identity, res1x1, res3x3 and convnext, which the
+shipped configs use, and scaligner, sdta, cbam and fanet) at width 8
+with two blocks: a flax init (batch-norm parameters, running statistics,
+LayerNorm parameters, the layer scales ``gamma`` / ``gamma_xca`` and
+XCA's ``temperature`` randomised so that every term matters) bridged
+strictly into the port. Inputs are 6x7 maps, fanet's 8x12 (its U needs
+multiples of 4; the borders of its bilinear 2x upsampling are held
+there). Compared in eval mode (the output) and in train mode (the
+output, the updated running statistics, and the input and parameter
+gradients of a seeded cotangent). Stated tolerance: 1e-5 relative and
+absolute, as the other module tests (f32 sums in another order). sdta's
+train case runs both packages in f64 (JAX under x64): its f32 gradients
+are ill-conditioned at these scales, JAX's and the port's each up to
+6e-5 off their own f64 values, so neither f32 run is a witness for the
+other; in f64 they agree far inside the tolerance.
 """
 import jax
 import jax.numpy as jnp
@@ -19,12 +26,29 @@ from heal_tpu.models.aligner import AlignNet as JaxAlignNet
 from heal_tpu_torch.models.aligner import AlignNet
 from heal_tpu_torch.models.layers import init_weights
 from heal_tpu_torch.utils.bridge import load_flax, to_flax
-from test_torch_train_layers import _check_tree, _flax_train, _random_stats
+from test_torch_train_layers import _check_tree, _random_stats
 
 torch.set_num_threads(1)
 TOL = dict(rtol=1e-5, atol=1e-5)
 DIM = 8
-METHODS = ["identity", "res1x1", "res3x3", "convnext"]
+METHODS = ["identity", "res1x1", "res3x3", "convnext", "scaligner", "sdta",
+           "cbam", "fanet"]
+SIZE = {"fanet": (8, 12)}
+F64 = ("sdta",)
+
+
+def _flax_train(module, variables, x, cot):
+    """-> (out, new batch_stats, grads of params, grad of x), jitted."""
+    def f(params, xx):
+        out, mut = module.apply(
+            {"params": params, "batch_stats": variables["batch_stats"]}, xx,
+            train=True, mutable=["batch_stats"])
+        return (out * cot).sum(), (out, mut["batch_stats"])
+
+    (_, (out, stats)), (gp, gx) = jax.jit(jax.value_and_grad(
+        f, argnums=(0, 1), has_aux=True))(variables["params"],
+                                          jnp.asarray(x))
+    return jax.device_get((out, stats, gp, gx))
 
 
 def _args(method):
@@ -35,7 +59,7 @@ def _randomise(params, rng):
     """Non-default values for every scale, bias and ``gamma`` leaf."""
     def leaf(path, x):
         name = path[-1].key
-        if name in ("scale", "gamma"):
+        if name in ("scale", "gamma", "gamma_xca", "temperature"):
             return rng.uniform(0.5, 1.5, x.shape).astype(np.float32)
         if name == "bias":
             return rng.uniform(-0.3, 0.3, x.shape).astype(np.float32)
@@ -45,10 +69,12 @@ def _randomise(params, rng):
 
 def _case(method):
     rng = np.random.RandomState(METHODS.index(method))
-    x = rng.randn(2, 6, 7, DIM).astype(np.float32)
-    cot = rng.randn(2, 6, 7, DIM).astype(np.float32)
+    hw = SIZE.get(method, (6, 7))
+    x = rng.randn(2, *hw, DIM).astype(np.float32)
+    cot = rng.randn(2, *hw, DIM).astype(np.float32)
     fm = JaxAlignNet(args=_args(method), dim=DIM)
-    v = jax.device_get(fm.init(jax.random.PRNGKey(0), jnp.asarray(x)))
+    v = jax.device_get(jax.jit(fm.init)(jax.random.PRNGKey(0),
+                                        jnp.asarray(x)))
     v = {"params": _randomise(v.get("params", {}), rng),
          "batch_stats": _random_stats(v.get("batch_stats", {}), rng)}
     tm = AlignNet(_args(method), dim=DIM)
@@ -59,7 +85,8 @@ def _case(method):
 @pytest.mark.parametrize("method", METHODS)
 def test_aligner_eval_matches_jax(method):
     fm, tm, v, x, _ = _case(method)
-    want = jax.device_get(fm.apply(v, jnp.asarray(x), train=False))
+    want = jax.device_get(jax.jit(lambda vv, xx: fm.apply(
+        vv, xx, train=False))(v, jnp.asarray(x)))
     with torch.no_grad():
         got = tm.eval()(torch.from_numpy(x).permute(0, 3, 1, 2))
     np.testing.assert_allclose(got.permute(0, 2, 3, 1).numpy(), want, **TOL)
@@ -70,6 +97,9 @@ def test_aligner_eval_matches_jax(method):
 @pytest.mark.parametrize("method", METHODS)
 def test_aligner_train_matches_jax(method):
     fm, tm, v, x, cot = _case(method)
+    dt = np.float64 if method in F64 else np.float32
+    x, cot = x.astype(dt), cot.astype(dt)
+    tm = tm.to(torch.float64) if method in F64 else tm
     xt = torch.from_numpy(x).permute(0, 3, 1, 2).requires_grad_()
     got = tm.train()(xt)
     (got.permute(0, 2, 3, 1) * torch.from_numpy(cot)).sum().backward()
@@ -78,7 +108,9 @@ def test_aligner_train_matches_jax(method):
         np.testing.assert_array_equal(xt.grad.permute(0, 2, 3, 1).numpy(),
                                       cot)
         return
-    out, stats, gp, gx = _flax_train(fm, v, x, cot)
+    with jax.enable_x64(method in F64):
+        v = jax.tree.map(lambda a: np.asarray(a, dt), v)
+        out, stats, gp, gx = _flax_train(fm, v, x, cot)
     np.testing.assert_allclose(got.detach().permute(0, 2, 3, 1).numpy(),
                                out, **TOL)
     _check_tree(to_flax(tm.state_dict())[1], stats)
@@ -117,6 +149,24 @@ def test_init_weights_convnext_gamma_is_flax_init():
 
 
 @pytest.mark.parametrize("method", ["scaligner", "sdta", "cbam", "fanet"])
-def test_unported_aligners_raise(method):
-    with pytest.raises(NotImplementedError, match="item 12"):
-        AlignNet({"core_method": method}, dim=DIM)
+def test_init_weights_follows_flax_for_the_other_aligners(method):
+    """``init_weights`` gives each backend flax's tree and its constant
+    leaves: ``temperature`` 1 and ``gamma_xca`` 1e-6 (sdta), unit
+    LayerNorm and batch-norm scales; and every parameter then has a
+    gradient in train mode."""
+    tm = init_weights(AlignNet(_args(method), dim=DIM),
+                      torch.Generator().manual_seed(0))
+    fm = JaxAlignNet(args=_args(method), dim=DIM)
+    want = jax.device_get(jax.jit(fm.init)(
+        jax.random.PRNGKey(0), jnp.zeros((1, 8, 8, DIM))))["params"]
+    got = to_flax(tm.state_dict())[0]
+    assert (jax.tree_util.tree_structure(got)
+            == jax.tree_util.tree_structure(want))
+    for (path, g), w in zip(jax.tree_util.tree_leaves_with_path(got),
+                            jax.tree_util.tree_leaves(want)):
+        assert g.shape == w.shape, path
+        if path[-1].key in ("temperature", "gamma_xca", "gamma", "scale"):
+            np.testing.assert_array_equal(g, w)
+    x = torch.randn(1, DIM, 8, 8, requires_grad=True)
+    tm.train()(x).sum().backward()
+    assert all(p.grad is not None for p in tm.parameters())

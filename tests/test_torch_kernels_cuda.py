@@ -413,3 +413,46 @@ def test_center_point_and_second_frames_launch_the_kernels(dev, core,
         for k in g:
             scale = 1.0 + w[k].abs().max().item()
             assert (g[k] - w[k]).abs().max().item() <= 1e-4 * scale, k
+
+
+@pytest.mark.parametrize("case,launches", [("group_late", (0, 0)),
+                                           ("iou_att", (1, 5))])
+def test_option_frames_launch_exactly_their_kernels(dev, case, launches):
+    """Kernel 1 stays on JAX's fused-path condition: the late m1 + m2
+    model on group norm (tests/configs/tiny_heter_m1m2.yaml as late
+    fusion, ``norm`` removed) runs its PointPillars encoder on the
+    general path and launches neither kernel; ``use_iou`` on the att
+    baseline (tests/configs/tiny_late.yaml as intermediate fusion)
+    launches kernel 1 once and kernel 2 five times a forward."""
+    from heal_tpu_torch.config import load_yaml, reparse
+    from heal_tpu_torch.tools.inference import (build_weights, device_frames,
+                                                run_inference)
+
+    if case == "group_late":
+        cfg = load_yaml("tests/configs/tiny_heter_m1m2.yaml")
+        cfg["fusion"]["core_method"] = "lateheter"
+        cfg["model"]["core_method"] = "heter_model_late"
+        a = cfg["model"]["args"]
+        a.pop("fusion_backbone")
+        a.pop("norm", None)
+        a["shrink_header"].update(dim=[32], input_dim=32)
+    else:
+        cfg = load_yaml("tests/configs/tiny_late.yaml")
+        cfg["fusion"]["core_method"] = "intermediate"
+        cfg["model"]["core_method"] = "point_pillar_baseline"
+        a = cfg["model"]["args"]
+        a["base_bev_backbone"].update(num_filters=[16, 32],
+                                      num_upsample_filter=[16, 16])
+        a["shrink_header"].update(dim=[32], input_dim=32)
+        a.update(fusion_method="att", att={"feat_dim": 32}, use_iou=True)
+        cfg = reparse(cfg)
+    model = build_weights(cfg, seed=0).to(dev)
+    frames = device_frames(cfg, dev, 2)
+    forwards = sum(len(f) if isinstance(f, list) else 1 for _, f in frames)
+    k1, k2 = pillar.pillar_tables.launches, shift_rows.shift_rows.launches
+    got = run_inference(cfg=cfg, device=dev, model=model, frames=frames,
+                        collect_heads=True)
+    assert pillar.pillar_tables.launches - k1 == forwards * launches[0]
+    assert shift_rows.shift_rows.launches - k2 == forwards * launches[1]
+    assert all(torch.isfinite(t).all() for h in got["heads"]
+               for t in h.values())

@@ -115,16 +115,17 @@ def test_point_pillar_loss_matches_jax(tiny):
     _compare(want, got)
 
 
-def test_unported_branches_raise(tiny):
+def test_iou_and_depth_branches_match_jax(tiny):
     cfg, batch = tiny
     preds = jax.tree.map(
         torch.from_numpy,
         _preds(cfg, batch, "collab", np.random.RandomState(0)))
     targets = jax.tree.map(torch.from_numpy, _label_targets(batch))
+    # the IoU term waits for the anchors, as JAX's
     args = dict(cfg["loss"]["args"], iou={"sigma": 1.0, "weight": 1.0})
     loss = build_loss(dict(cfg["loss"], args=args))
-    with pytest.raises(NotImplementedError, match="IoU"):
-        loss(dict(preds, iou_preds=preds["cls_preds"]), targets)
+    total, aux = loss(dict(preds, iou_preds=preds["cls_preds"]), targets)
+    assert "iou_loss" not in aux and torch.isfinite(total)
     # depth logits with their targets: the LSS depth term joins, as JAX's
     rng = np.random.RandomState(1)
     depth = {"depth_items_m2": rng.normal(size=(4, 3, 5, 8)).astype(

@@ -18,8 +18,8 @@ as max |d| / (1 + max |ref|):
     loss terms 1e-5 relative, every f32 gradient leaf within 1e-4 of
     JAX's own step in f64 (the witness of tests/test_torch_train.py).
 
-Also: a heal_tpu ``.ckpt`` of each model loads strictly, and the options
-that are not ported raise naming their ROADMAP item.
+Also: a heal_tpu ``.ckpt`` of each model loads strictly, and
+``use_iou`` with the loss's IoU term (heads and one step, as above).
 """
 import copy
 
@@ -237,9 +237,45 @@ def test_heal_tpu_checkpoint_loads_strictly(which, tmp_path):
         assert _rel(got[k].numpy(), w) <= TOL, k
 
 
-@pytest.mark.parametrize("key,value", [("use_iou", True)])
-def test_unported_options_raise(key, value):
+def test_use_iou_heads_and_step_match_jax():
+    """``use_iou`` on the max baseline with the loss's ``iou`` term (no
+    published config sets them): the heads' ``iou_preds`` at 1e-4, and
+    one step with the anchors handed to both losses, ``iou_loss`` among
+    the terms at 1e-5, every gradient leaf within 1e-4 of JAX's f64
+    step."""
     cfg = baseline_cfg("max")
-    cfg["model"]["args"][key] = value
-    with pytest.raises(NotImplementedError, match="item 2"):
-        build_model(cfg["model"], max_cav=3)
+    cfg["model"]["args"]["use_iou"] = True
+    cfg["loss"]["args"]["iou"] = {"weight": 1.0, "sigma": 1.0}
+    batch = _batch(cfg)
+    jm, v = _variables(cfg, batch, seed=5, jax_init=False)
+    want = _jax_heads(jm, v, batch, HEADS + ("iou_preds",))
+    model = _port(cfg, v)
+    with torch.no_grad():
+        got = model(_model_batch(batch))
+    for k, w in want.items():
+        assert _rel(got[k].numpy(), w) <= TOL, (k, _rel(got[k].numpy(), w))
+    assert got["iou_preds"].shape == got["cls_preds"].shape
+
+    train = _batch(cfg, train=True, size=2)
+    anchors = build_dataset(cfg, train=True).anchors
+    jloss = build_jax_loss(cfg["loss"])
+    jloss.set_anchors(anchors)
+    jt = JaxTrainer(model=jm, criterion=jloss, tx=None)
+    want_aux, _, grads = _jax_f64_step(jt, v["params"], v["batch_stats"],
+                                       train)
+    model = _port(cfg, v)
+    opt, schedule = build_optimizer(model.parameters(), cfg["optimizer"],
+                                    cfg["lr_scheduler"], 4)
+    loss = build_loss(cfg["loss"])
+    loss.set_anchors(anchors)
+    aux = Trainer(model, loss, opt, schedule, rng_seed=None).train_step(
+        to_device(train, "cpu"))
+    assert "iou_loss" in aux and aux["iou_loss"].item() > 0
+    assert sorted(aux) == sorted(want_aux)
+    for k, w in want_aux.items():
+        np.testing.assert_allclose(aux[k].item(), w, rtol=1e-5, err_msg=k)
+    got = _leaves(to_flax({k: p.grad for k, p in model.named_parameters()})[0])
+    want = _leaves(grads)
+    assert got.keys() == want.keys()
+    errs = {k: _rel(g, want[k]) for k, g in got.items()}
+    assert max(errs.values()) <= 1e-4, max(errs.items(), key=lambda x: x[1])

@@ -275,6 +275,12 @@ with tempfile.TemporaryDirectory() as tmp:
             sorted(k for k in frames[0][1] if k.startswith("inputs_"))]
     disk["train"] = len(build_dataset(dcfgs["train"], train=True))
     disk["sweeps"] = readers["sweeps"]
+# the camera and options phase: its models, losses and label grids
+camera = {}
+for n, c in chip_smoke.camera_cfgs().items():
+    m = build_model(c["model"], max_cav=c["train_params"]["max_cav"])
+    camera[n] = [type(m).__name__, type(build_loss(c["loss"])).__name__,
+                 list(build_dataset(c, train=False).anchors.shape[:2])]
 """ + _LOADED + """
 print(json.dumps({"points": list(batch["inputs_m1"]["points"].shape),
                   "agents": int(batch["agent_mask"].sum()),
@@ -291,7 +297,7 @@ print(json.dumps({"points": list(batch["inputs_m1"]["points"].shape),
                            len(late["agent_samples"][0]),
                            "data_augment" in fcfgs["late"]],
                   "pose": pose, "anchor_free": anchor_free, "disk": disk,
-                  "loaded": loaded}))
+                  "camera": camera, "loaded": loaded}))
 """
 
 
@@ -346,6 +352,7 @@ def test_port_never_imports_jax(tmp_path):
 def test_chip_smoke_never_imports_jax():
     out = _run_blocked(_CHIP_SMOKE)
     frozen = ["pyramid_backbone", "shrink", "heads"]
+    grid = [128, 256]
     assert out == {"points": [1, 5, 30000, 4], "agents": 4,
                    "alliance": [[1, 5, 30000, 4], [1, 5, 4, 384, 512, 3],
                                 [1, 5, 30000, 4], [1, 5, 30000, 4]],
@@ -401,4 +408,22 @@ def test_chip_smoke_never_imports_jax():
                        "dairv2x": ["HeterPyramidCollab", 2, ["inputs_m1"]],
                        "v2xsim": ["PointPillarBaseline", 5, ["inputs_m1"]],
                        "train": 6, "sweeps": 5},
+                   "camera": {
+                       **{n: ["HeterModelBaseline", "PointPillarLoss", grid]
+                          for n in ("fcooper", "attfuse", "disconet",
+                                    "v2vnet", "cobevt", "v2xvit")},
+                       "coalign": ["HeterModelBaselineMS", "PointPillarLoss",
+                                   grid],
+                       "m2_pyramid": ["HeterPyramidCollab",
+                                      "PointPillarPyramidLoss", grid],
+                       **{f"aligner_{a}": ["HeterPyramidSingle",
+                                           "PointPillarPyramidLoss", grid]
+                          for a in ("scaligner", "sdta", "cbam", "fanet")},
+                       "iou": ["PointPillarBaseline", "PointPillarLoss",
+                               grid],
+                       "group": ["HeterModelLate", "PointPillarLoss", grid],
+                       "lss_intermediate": ["LiftSplatShootIntermediate",
+                                            "PointPillarLoss", [128, 128]],
+                       "lss": ["LiftSplatShoot", "PointPillarLoss",
+                               [128, 128]]},
                    "loaded": []}
