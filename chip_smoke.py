@@ -204,7 +204,34 @@ Phases, in order; any failure raises and the exit code is non-zero:
      the 128x128 camera grid; serve ms a frame (median and range after
      the first) with the serving peak, step ms and peak GiB; exact
      launches throughout;
- 13. the input pipeline: epochs of heal_tpu/configs/demo_heal_full/
+ 13. the last detectors (legacy), at full width with seeded random
+     weights on synthetic scenes with the flagship's scene arguments, on
+     configs derived from published ones (legacy_cfgs: no published
+     config names these models): the multiscale PointPillars baseline
+     (opv2v/lidar_only/max.yaml), DiscoNet's teacher (early fusion) and
+     student (opv2v/lidar_only/disconet.yaml with kd_flag), VoxelNet and
+     PIXOR alone (early fusion) and intermediate (max), CIA-SSD and
+     SECOND-SSFA with and without its uncertainty head (early fusion) and
+     FPV-RCNN (intermediate2stage) on dairv2x/second_coalign.yaml's SECOND;
+     both kernels on the paths' own inputs against their plain versions
+     (kernel 1 on the multiscale frame and the teacher's merged view, f32
+     and bf16; kernel 2 on every distinct warp call of the multiscale
+     frame and of DiscoNet's, f32, the square shear canvases in bf16 too);
+     LEGACY_FRAMES frames served f32 and bf16 through
+     tools.inference.run_inference (FPV-RCNN's through decode_stage2),
+     exact launches a frame (LEGACY_LAUNCHES), the f32 heads within
+     HEADS_TOL of the plain kernel versions, then a warm and a timed f32
+     train step at LEGACY_BATCH (PIXOR's batch with CenterPoint's labels,
+     center_batch) through tools/train.build_trainer, every trainable
+     parameter moved but the softmax shifts and the ones the loss does not
+     reach (LEGACY_UNREACHED); DiscoNet's step is the KD step
+     (tools/train_w_kd.KDTrainer with the teacher saved to a temporary run
+     dir and loaded by load_teacher): kernel 1 once a step (the frozen
+     teacher), kernel 2 forward and backward, the teacher bit-equal after
+     it, kd_loss > 0; then tools.train_w_kd.main runs an epoch of one step
+     from that run dir; serve ms a frame (median and range after the
+     first) with the serving peak, step ms and peak GiB;
+ 14. the input pipeline: epochs of heal_tpu/configs/demo_heal_full/
      stage2_m2.yaml (PIPELINE_SCENES train scenes) timed on the host
      clock, batches assembled serially, through the prefetch pipeline
      (tools/train.py, data/prefetch.py), and from the device cache of
@@ -431,6 +458,41 @@ LSS_FRAMES = 4
 # intermediate's max fusion (one ego warp) and LSS alone (neither)
 OPTION_LAUNCHES = {"iou": (1, 5), "group": (0, 0), "aligner": (1, 0),
                    "lss_intermediate": (0, 5), "lss": (0, 0)}
+# phase 13 (legacy): the last detectors on configs derived from published
+# ones (legacy_cfgs), LEGACY_FRAMES test frames each and one train batch
+# of LEGACY_BATCH (published 4)
+LEGACY_FRAMES = 4
+LEGACY_BATCH = 2
+LEGACY_LIDAR = "opv2v/lidar_only/max.yaml"
+LEGACY_DISCONET = "opv2v/lidar_only/disconet.yaml"
+LEGACY_PIXOR = "opv2v/lidar_only/center_point_where2comm.yaml"
+LEGACY_SECOND = "dairv2x/second_coalign.yaml"
+# (kernel 1, kernel 2) launches a served frame, rehearsed on the CPU with
+# spies (the warp forced to the shear path): the multiscale baseline
+# warps its three levels (5 each), DiscoNet and the intermediate VoxelNet
+# and PIXOR their fused map once; the teacher is a PointPillars detector
+# on early frames; VoxelNet, PIXOR and the SECOND detectors alone launch
+# nothing, FPV-RCNN neither (it moves boxes and keypoints, not maps). A
+# train step: kernel 1 never (the KD step's frozen teacher: once), kernel
+# 2 as often backward as forward
+LEGACY_LAUNCHES = {
+    "multiscale": (1, 15), "disconet": (1, 5), "disconet_teacher": (1, 0),
+    "voxel_net": (0, 0), "voxel_net_intermediate": (0, 5), "pixor": (0, 0),
+    "pixor_intermediate": (0, 5), "ciassd": (0, 0), "second_ssfa": (0, 0),
+    "second_ssfa_uncertainty": (0, 0), "fpvrcnn": (0, 0)}
+# the paths whose own inputs the kernels are held on (kernel 1, kernel 2):
+# the multiscale baseline's frame and its three levels' warps, the KD
+# teacher's early-fused view, DiscoNet's fused-map warp (the intermediate
+# VoxelNet and PIXOR warp maps of its shape)
+LEGACY_CASES = {"multiscale": (True, True), "disconet_teacher": (True, False),
+                "disconet": (False, True)}
+# parameters a step's loss does not reach: VoxelNet's direction head
+# (voxel_net_loss has no direction term); FPV-RCNN's residual layer while
+# no RoI passes fg_thresh (rcnn_reg_loss 0, as at a seeded init). Their
+# gradient is 0, as in JAX, and a zero bias stays
+LEGACY_UNREACHED = {"voxel_net": "DetectionHeads_0.dir_head.",
+                    "voxel_net_intermediate": "DetectionHeads_0.dir_head.",
+                    "fpvrcnn": "roi_head.reg."}
 
 
 def rel_err(a: torch.Tensor, b: torch.Tensor) -> tuple[float, float]:
@@ -1783,10 +1845,12 @@ def _forwards(frames) -> list:
     return [x for _, f in frames for x in (f if isinstance(f, list) else [f])]
 
 
-def heads_vs_plain(model, frames, what: str, hw=(128, 256)) -> float:
+def heads_vs_plain(model, frames, what: str, hw=(128, 256),
+                   lead: int = 1) -> float:
     """The f32 heads (and the uncertainty detector's ``unc_preds``, the
     IoU head's ``iou_preds``) of every forward of ``frames``, on the
-    (1, *hw) grid, kernels against the plain versions,
+    (lead, *hw) grid (FPV-RCNN's stage-1 heads: one an agent slot),
+    kernels against the plain versions,
     both with deterministic algorithms; -> the worst
     max |d| / (1 + max |plain|). Fails past HEADS_TOL, on a bad output,
     or if the plain run launched a kernel."""
@@ -1811,7 +1875,7 @@ def heads_vs_plain(model, frames, what: str, hw=(128, 256)) -> float:
         raise AssertionError(f"{what}: the plain run launched a kernel")
     for h in det:
         for k, t in h.items():
-            if t.shape[:3] != (1, *hw) or not torch.isfinite(t).all():
+            if t.shape[:3] != (lead, *hw) or not torch.isfinite(t).all():
                 raise AssertionError(f"{what} {k}: bad output")
     worst = max(rel_err(a[k], b[k])[1] for a, b in zip(det, ref) for k in a)
     if not worst <= HEADS_TOL:
@@ -1820,10 +1884,10 @@ def heads_vs_plain(model, frames, what: str, hw=(128, 256)) -> float:
 
 
 def _serve(cfg, model32, frames, what: str,
-           hw=(128, 256)) -> tuple[dict, dict]:
+           hw=(128, 256), lead: int = 1) -> tuple[dict, dict]:
     """``frames`` served f32 and bf16 through run_inference; -> (the
     runs, the kernels' launches over both); heads checked finite and of
-    the (1, *hw) grid."""
+    the (lead, *hw) grid."""
     from heal_tpu_torch.tools.inference import run_inference
 
     model16 = copy.deepcopy(model32).to(torch.bfloat16)
@@ -1837,7 +1901,7 @@ def _serve(cfg, model32, frames, what: str,
     for dname, r in runs.items():
         for i, h in enumerate(r["heads"]):
             for k, t in h.items():
-                if t.shape[:3] != (1, *hw) or not torch.isfinite(t).all():
+                if t.shape[:3] != (lead, *hw) or not torch.isfinite(t).all():
                     raise AssertionError(f"{what} {dname} forward {i} {k}: "
                                          "bad output")
     return runs, served
@@ -3138,6 +3202,354 @@ def phase_camera_options(cfgs: dict) -> dict:
     return {"launches": total, "rows": rows}
 
 
+def legacy_cfgs() -> dict:
+    """Phase 13's configs, every one derived (no published config names
+    these models), each keeping its base config's published widths and
+    data blocks, read through the port's loader, on the synthetic backend
+    with the flagship's scene arguments (DAIR-V2X's with AF_AGENTS
+    agents): LEGACY_BATCH train scenes (the batch), LEGACY_FRAMES test
+    scenes. The new modules take heal_tpu's defaults (VoxelNet's VFE 32
+    and 3D convs 64, SSFA 128, FPV-RCNN's 16 proposals an agent, 512
+    keypoints, grid 4):
+      * ``multiscale``: LEGACY_LIDAR with point_pillar_baseline_multiscale
+        (max at each of its three levels);
+      * ``disconet``: LEGACY_DISCONET with point_pillar_disconet,
+        point_pillar_disconet_loss and ``kd_flag``; ``disconet_teacher``:
+        the same file with point_pillar_disconet_teacher on early fusion
+        (the merged view it is trained on);
+      * ``voxel_net`` (early fusion) and ``voxel_net_intermediate`` (max):
+        LEGACY_LIDAR with 0.4 m voxel cubes (10 z layers) and
+        voxel_net_loss;
+      * ``pixor`` (early) and ``pixor_intermediate`` (max): LEGACY_PIXOR at
+        ``bev_res`` 0.4 over 10 z slabs, the anchor-free heads, loss and
+        decode (its train batches get CenterPoint's labels from
+        ``center_batch``);
+      * ``ciassd``, ``second_ssfa`` and ``second_ssfa_uncertainty`` (early
+        fusion, ``presorted`` false): LEGACY_SECOND's SECOND widths and
+        0.1 m voxels, ``ciassd_loss`` with the IoU term (weight 1, sigma 1),
+        ``point_pillar_uncertainty_loss`` for the last;
+      * ``fpvrcnn``: LEGACY_SECOND on ``intermediate2stage``, its
+        ``anchor_args`` from the config's postprocess block, ``fpvrcnn_loss``
+        (stage 1: the config's loss with the IoU term)."""
+    from heal_tpu_torch.tools.train import load_config
+
+    root = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                        "heal_tpu", "configs")
+    scene_args = flagship_cfg()["fusion"]["args"]
+    iou = {"weight": 1.0, "sigma": 1.0}
+
+    def derived(rel, core, fusion=None, agents=None, **args):
+        cfg = load_config(os.path.join(root, rel))
+        cfg["fusion"]["dataset"] = "synthetic"
+        cfg["fusion"]["args"] = dict(
+            scene_args, num_scenes_train=LEGACY_BATCH,
+            num_scenes_test=LEGACY_FRAMES,
+            num_agents=agents or scene_args["num_agents"])
+        cfg["train_params"]["batch_size"] = LEGACY_BATCH
+        if fusion:
+            cfg["fusion"]["core_method"] = fusion
+        cfg["model"]["core_method"] = core
+        cfg["model"]["args"].update(copy.deepcopy(args))
+        return cfg
+
+    dair = AF_AGENTS["second"]
+    out = {"multiscale": derived(LEGACY_LIDAR,
+                                 "point_pillar_baseline_multiscale")}
+    out["disconet_teacher"] = derived(
+        LEGACY_DISCONET, "point_pillar_disconet_teacher", "early")
+    out["disconet"] = derived(LEGACY_DISCONET, "point_pillar_disconet")
+    out["disconet"]["kd_flag"] = True
+    out["disconet"]["loss"]["core_method"] = "point_pillar_disconet_loss"
+    for name, fusion in (("voxel_net", "early"),
+                         ("voxel_net_intermediate", "intermediate")):
+        out[name] = derived(LEGACY_LIDAR, name, fusion,
+                            voxel_size=[0.4, 0.4, 0.4], fusion_method="max",
+                            max={})
+        out[name]["loss"] = {"core_method": "voxel_net_loss",
+                             "args": {"alpha": 1.5, "beta": 1.0, "reg": 2.0}}
+    for name, fusion in (("pixor", "early"),
+                         ("pixor_intermediate", "intermediate")):
+        out[name] = derived(LEGACY_PIXOR, name, fusion, bev_res=0.4,
+                            z_slabs=10, fusion_method="max", max={})
+    for name in ("ciassd", "second_ssfa", "second_ssfa_uncertainty"):
+        cfg = derived(LEGACY_SECOND, name, "early", dair,
+                      ssfa={"feature_num": 128}, presorted=False)
+        if name.endswith("uncertainty"):
+            cfg["loss"]["core_method"] = "point_pillar_uncertainty_loss"
+        else:
+            cfg["loss"]["core_method"] = "ciassd_loss"
+            cfg["loss"]["args"]["iou"] = dict(iou)
+        out[name] = cfg
+    fpv = derived(LEGACY_SECOND, "fpvrcnn", "intermediate2stage", dair,
+                  ssfa={"feature_num": 128})
+    fpv["model"]["args"]["anchor_args"] = copy.deepcopy(
+        fpv["postprocess"]["anchor_args"])
+    fpv["loss"] = {"core_method": "fpvrcnn_loss", "args": {
+        "stage1": dict(copy.deepcopy(fpv["loss"]["args"]), iou=dict(iou)),
+        "stage2": {}}}
+    out["fpvrcnn"] = fpv
+    return out
+
+
+def center_batch(cfg, size: int, dev):
+    """The first train batch of ``cfg`` on ``dev`` with CenterPoint's
+    labels (``heatmap``, ``box_targets``, ``reg_mask``), made from each
+    sample's ground truth by the port's ``generate_center_targets`` as the
+    assemblers make them; they make them for ``center_point*`` models
+    only, as JAX's do, so PIXOR's anchor-free form gets them here (ROADMAP
+    §3)."""
+    import numpy as np
+
+    from heal_tpu_torch.data import build_dataset
+    from heal_tpu_torch.parallel import to_device
+    from heal_tpu_torch.postprocess.targets import generate_center_targets
+
+    ds = build_dataset(cfg, train=True)
+    batch = next(ds.batches(size, shuffle=False))
+    aa = cfg["postprocess"]["anchor_args"]
+    labels = [generate_center_targets(
+        g, m, ds.anchors.shape[:2], cfg["preprocess"]["cav_lidar_range"],
+        aa["vw"] * aa.get("feature_stride", 2), cfg["postprocess"]["order"])
+        for g, m in zip(batch["gt_boxes"], batch["gt_mask"])]
+    for key in labels[0]:
+        batch[key] = np.stack([lab[key] for lab in labels])
+    return to_device(batch, dev)
+
+
+def captured_shifts(model, inputs) -> list:
+    """Kernel 2's calls in one f32 forward of ``model`` on ``inputs``:
+    each distinct (shape, axis) once, with the path's own input, shifts
+    and bound."""
+    from heal_tpu_torch.ops import shift_rows
+
+    seen, real = {}, shift_rows._shift
+
+    def spy(x, s, m, axis, backward=False):
+        key = (tuple(x.shape), axis)
+        if key not in seen:
+            seen[key] = (x.detach().clone(), s.detach().clone(), m, axis)
+        return real(x, s, m, axis, backward)
+
+    shift_rows._shift = spy
+    try:
+        with torch.no_grad():  # not inference mode: the replays need grad
+            model(inputs)
+    finally:
+        shift_rows._shift = real
+    return list(seen.values())
+
+
+def legacy_kernels(name: str, model, inputs, gen) -> list:
+    """Both kernels on this path's own inputs against their plain
+    versions: kernel 1 on the first frame's encoder arguments (the
+    multiscale baseline's agents, the KD teacher's early-fused view), f32
+    and bf16; kernel 2 on each distinct call of the frame's warps, f32,
+    and on the square shear canvases in bf16 too."""
+    cases = []
+    pillar, shift = LEGACY_CASES.get(name, (False, False))
+    if pillar:
+        enc = (model.teacher.encoder if name == "disconet_teacher"
+               else model.student.encoder if name == "disconet"
+               else model.encoder)
+        points, mask = inputs["points"][0], inputs["point_mask"][0]
+        if points.dim() == 2:  # one agent (the teacher's view)
+            points, mask = points[None], mask[None]
+        for dt in (torch.float32, torch.bfloat16):
+            cases.append(pillar_case(f"{name} frame",
+                                     frame_inputs(enc, points, mask, dt), dt))
+    for x, s, m, axis in (captured_shifts(model, inputs) if shift else ()):
+        what = f"{name} "
+        dts = ((torch.float32, torch.bfloat16) if x.shape[1] == x.shape[2]
+               else (torch.float32,))
+        for dt in dts:
+            cases += shift_case(x.to(dt), s, m, ("rows", "cols")[axis], gen,
+                                what)
+    return cases
+
+
+def phase_legacy(cfgs: dict) -> dict:
+    """The last detectors on derived configs (module docstring, phase 13);
+    returns each kernel's launches over the phase, the kernel cases and
+    the measurements."""
+    import hashlib
+
+    from heal_tpu_torch.config import save_yaml
+    from heal_tpu_torch.models.fuse import softmax_shift_biases
+    from heal_tpu_torch.models.layers import channels_last
+    from heal_tpu_torch.tools import checkpoint as ckpt_lib
+    from heal_tpu_torch.tools import inference as inference_tool
+    from heal_tpu_torch.tools import train as train_tool
+    from heal_tpu_torch.tools import train_w_kd
+    from heal_tpu_torch.tools.inference import build_weights, device_frames
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    t_phase = time.perf_counter()
+    total = {k: 0 for k in _counts()}
+    rows, kernels = {}, []
+
+    def add(counts):
+        for k in total:
+            total[k] += counts[k]
+
+    def expect(what, got, k1, k2, k2b):
+        want = {"pillar_tables": k1, "shift_rows": k2,
+                "shift_rows_backward": k2b}
+        if got != want:
+            raise AssertionError(f"{what}: launches {got}, want {want}")
+        add(got)
+
+    def moved(tr, start, what, unreached=None):
+        """Every trainable parameter moved, but the softmax shifts, which
+        need only a gradient, and those under ``unreached`` (a zero
+        gradient, LEGACY_UNREACHED)."""
+        shifts = softmax_shift_biases(tr.model)
+        still = [n for n, p in tr.model.named_parameters()
+                 if n in start and n not in shifts
+                 and torch.equal(p.detach(), start[n])
+                 and not (unreached and n.startswith(unreached)
+                          and not bool(p.grad.abs().max() > 0))]
+        still += no_gradient({n: p for n, p in tr.model.named_parameters()
+                              if n in start and n in shifts}, tr.model)
+        if still:
+            raise AssertionError(f"{what}: trainable parameters that did "
+                                 f"not move: {still[:5]}")
+        return len(start)
+
+    tmp = tempfile.TemporaryDirectory()
+    teacher_dir = os.path.join(tmp.name, "teacher")
+    stage2_calls = []
+    real_decode = inference_tool.decode_stage2
+
+    def decode_spy(*a, **k):
+        stage2_calls.append(1)
+        return real_decode(*a, **k)
+
+    inference_tool.decode_stage2 = decode_spy
+    try:
+        for name, cfg in cfgs.items():
+            torch.cuda.empty_cache()
+            k1, k2 = LEGACY_LAUNCHES[name]
+            lead = (cfg["train_params"]["max_cav"] if name == "fpvrcnn"
+                    else 1)
+            frames = device_frames(cfg, dev, LEGACY_FRAMES)
+            model32 = channels_last(build_weights(cfg, seed=SEED).to(dev))
+            row = {"kernels": legacy_kernels(name, model32, frames[0][1],
+                                             gen)}
+            kernels += row["kernels"]
+            stage2_calls.clear()
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            runs, served = _serve(cfg, model32, frames, name, lead=lead)
+            row["serve_peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+            expect(f"{name} served", served, 2 * LEGACY_FRAMES * k1,
+                   2 * LEGACY_FRAMES * k2, 0)
+            if name == "fpvrcnn" and len(stage2_calls) != 2 * LEGACY_FRAMES:
+                raise AssertionError(f"fpvrcnn: {len(stage2_calls)} stage-2 "
+                                     "decodes, want one a frame")
+            row["heads_rel"] = heads_vs_plain(model32, frames, name,
+                                              lead=lead)
+            for d, r in runs.items():
+                row[f"serve_ms_{d}"] = _stats_ms(r["serve_s"])
+            if name == "disconet_teacher":
+                # the teacher's run dir for train_w_kd: config and weights
+                os.makedirs(teacher_dir)
+                save_yaml(cfg, os.path.join(teacher_dir, "config.yaml"))
+                ckpt_lib.save_checkpoint(teacher_dir, model32, 1)
+            del model32, frames, runs
+            torch.cuda.empty_cache()
+
+            batch = (center_batch(cfg, LEGACY_BATCH, dev)
+                     if name.startswith("pixor") else
+                     next(train_tool.device_batches(cfg, LEGACY_BATCH,
+                                                    dev))[0])
+            _zero_counts()
+            if name == "disconet":
+                teacher = train_w_kd.load_teacher(teacher_dir, dev)
+                before = {n: t.clone()
+                          for n, t in teacher.state_dict().items()}
+                tr = train_tool.build_trainer(
+                    cfg, dev, 1, trainer_cls=train_w_kd.KDTrainer,
+                    teacher=teacher)
+            else:
+                tr = train_tool.build_trainer(cfg, dev, 1)
+            start = {n: p.detach().clone()
+                     for n, p in tr.model.named_parameters()
+                     if p.requires_grad}
+            row["train"] = _steps(tr, batch, 2)
+            k1_step = 1 if name == "disconet" else 0  # the KD teacher
+            expect(f"{name} training", _counts(), 2 * k1_step, 2 * k2,
+                   2 * k2)
+            unreached = LEGACY_UNREACHED.get(name)
+            if name == "fpvrcnn" and any(
+                    t["rcnn_reg_loss"] for t in row["train"]["terms"]):
+                unreached = None  # a foreground RoI: the layer is reached
+            row["trainable"] = moved(tr, start, name, unreached)
+            if name == "disconet":
+                bad = [n for n, t in teacher.state_dict().items()
+                       if not torch.equal(t, before[n])]
+                kd = [t["kd_loss"] for t in row["train"]["terms"]]
+                if bad or not all(x > 0 for x in kd):
+                    raise AssertionError(f"KD step: teacher entries moved "
+                                         f"{bad[:3]}, kd_loss {kd}")
+                row["teacher_entries"] = len(before)
+                del teacher, before
+            del tr, batch, start
+            if name == "disconet":
+                # the CLI: one epoch of one step from the teacher's run dir
+                student_yaml = os.path.join(tmp.name, "student.yaml")
+                save_yaml(cfg, student_yaml)
+                tpath = ckpt_lib.find_checkpoint(teacher_dir)[1]
+                with open(tpath, "rb") as f:
+                    digest = hashlib.sha256(f.read()).hexdigest()
+                _zero_counts()
+                t0 = time.perf_counter()
+                out_dir = train_w_kd.main([
+                    "-y", student_yaml, "--teacher_dir", teacher_dir,
+                    "--model_dir", os.path.join(tmp.name, "student"),
+                    "--epochs", "1"])
+                torch.cuda.synchronize()
+                row["cli_s"] = time.perf_counter() - t0
+                expect("train_w_kd", _counts(), 1, k2, k2)
+                with open(tpath, "rb") as f:
+                    if hashlib.sha256(f.read()).hexdigest() != digest:
+                        raise AssertionError("train_w_kd wrote the teacher")
+                if ckpt_lib.find_checkpoint(out_dir)[0] != 1:
+                    raise AssertionError("train_w_kd saved no checkpoint")
+            rows[name] = row
+
+            step = row["train"]
+            print(f"[legacy] {name} ({cfg['model']['core_method']} on "
+                  f"{cfg['fusion']['core_method']} fusion): serve ms/frame "
+                  f"median [min, max] of {LEGACY_FRAMES - 1} after the first"
+                  f", f32 {_fmt(row['serve_ms_f32'])}, bf16 "
+                  f"{_fmt(row['serve_ms_bf16'])} (peak "
+                  f"{row['serve_peak_gib']:.3f} GiB); launches a frame "
+                  f"kernel 1 {k1}, kernel 2 {k2}; f32 heads vs plain max rel"
+                  f" err {row['heads_rel']:.3e} (tol {HEADS_TOL}); train "
+                  f"step {step['ms']:.3f} ms f32 (batch {step['batch']}, "
+                  f"after a warm one), peak {step['peak_gib']:.3f} GiB, "
+                  "losses " + ", ".join(f"{x:.4f}" for x in step["losses"])
+                  + f"; all {row['trainable']} trainable parameters moved "
+                  "(the softmax shifts: with a gradient); launches a step "
+                  f"kernel 1 {k1_step}, kernel 2 {k2} forward and {k2} "
+                  "backward"
+                  + (f"; KD: kd_loss "
+                     + ", ".join(f"{t['kd_loss']:.4f}" for t in step["terms"])
+                     + f", the teacher's {row['teacher_entries']} entries "
+                     "bit-equal; train_w_kd's epoch of one step "
+                     f"{row['cli_s']:.3f} s, its teacher checkpoint "
+                     "unchanged" if name == "disconet" else "")
+                  + (f"; decode_stage2 served every frame"
+                     if name == "fpvrcnn" else ""))
+    finally:
+        inference_tool.decode_stage2 = real_decode
+        tmp.cleanup()
+    print(f"[legacy] phase {time.perf_counter() - t_phase:.1f} s; "
+          f"launches {total}")
+    return {"launches": total, "rows": rows, "kernels": kernels}
+
+
 def phase_pipeline() -> None:
     """Epochs of the demo stage-2 m2 config on the host clock: batches
     assembled serially, through the prefetch pipeline, and from the
@@ -3234,6 +3646,8 @@ def main() -> int:
     torch.cuda.empty_cache()
     camera = phase_camera_options(camera_cfgs())
     torch.cuda.empty_cache()
+    legacy = phase_legacy(legacy_cfgs())
+    torch.cuda.empty_cache()
     phase_pipeline()
     for name in rows:
         rows[name]["protocol_launches"] = protocol["launches"][name]
@@ -3265,12 +3679,15 @@ def main() -> int:
         rows[name]["camera_and_options_launches_per_forward"] = {
             c: r["launches_per_forward"][name]
             for c, r in camera["rows"].items()}
+        rows[name]["legacy_launches"] = legacy["launches"][name]
+        rows[name]["legacy_launches_per_frame"] = {
+            c: n[name == "shift_rows"] for c, n in LEGACY_LAUNCHES.items()}
     rows["shift_rows"]["disk_launches_per_step"] = 15
-    # phases 10 and 11's own kernel cases (the CenterPoint frame's and
-    # the disk frame's kernel 1, the fusion warps' kernel 2) join the
-    # rows' cases and worst errors
+    # phases 10, 11 and 13's own kernel cases (the CenterPoint frame's,
+    # the disk frame's, the multiscale frame's and the KD teacher's kernel
+    # 1, the fusion warps' kernel 2) join the rows' cases and worst errors
     for case_list in [r["kernels"] for r in anchor_free["rows"].values()] + [
-            disk["kernels"]]:
+            disk["kernels"], legacy["kernels"]]:
         for case in case_list:
             row = rows["pillar_tables" if "u" in case else "shift_rows"]
             row["cases"].append(case)
@@ -3315,6 +3732,8 @@ def main() -> int:
               f", {k['camera_and_options_launches']} in the camera and "
               f"options phase (a forward: "
               f"{k['camera_and_options_launches_per_forward']})"
+              f", {k['legacy_launches']} in the legacy detectors phase (a "
+              f"frame: {k['legacy_launches_per_frame']})"
               + f"; {k['bytes']} bytes, bound {k['bound_ms']:.4f} ms "
               f"({k['bound_by']}), {k['ms']:.4f} ms = {k['pct_of_bound']:.1f}%"
               f" of bound, plain {k['plain_ms']:.4f} ms, library call "

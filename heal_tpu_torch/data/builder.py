@@ -11,9 +11,10 @@ training; ``test_dir``, or ``validate_dir`` for DAIR-V2X, whose
 tools/pose_graph_pre_calc.py dump), each scene's agents carry their
 stage-1 detections (``pred_centers``, ``pred_uncertainty``), which the
 assembler's CoAlign branch refines the noisy poses with. Two-stage
-fusion raises NotImplementedError naming the ROADMAP item (queue 1)
-that ports it. ``native_iou=False`` labels the anchors with numpy's IoU
-instead of the native library's (postprocess/targets.py).
+fusion (``intermediate2stage``, FPV-RCNN) is the intermediate assembler
+with ``model.args.supervise_single`` forced on: its first stage trains
+on the per-agent labels. ``native_iou=False`` labels the anchors with
+numpy's IoU instead of the native library's (postprocess/targets.py).
 """
 from __future__ import annotations
 
@@ -31,14 +32,9 @@ from .scene import IntermediateAssembler, collate
 from .synthetic import SyntheticDataset
 from .v2xsim import V2XSimBackend
 
-# fusion method -> the ROADMAP item (queue 1) that ports it
-_NOT_PORTED = {
-    "intermediate2stage": "item 9 (two-stage models)",
-}
-
-
 _ASSEMBLERS = {
     "intermediate": IntermediateAssembler,
+    "intermediate2stage": IntermediateAssembler,
     "intermediateheter": IntermediateAssembler,
     "intermediateheterinfer": IntermediateAssembler,
     "late": LateAssembler,
@@ -54,11 +50,6 @@ def assembler_class(params: dict) -> type:
     method = params["fusion"]["core_method"]
     if method in _ASSEMBLERS:
         return _ASSEMBLERS[method]
-    if method in _NOT_PORTED:
-        raise NotImplementedError(
-            f"fusion {method!r} is not ported: ROADMAP queue 1, "
-            f"{_NOT_PORTED[method]}"
-        )
     raise KeyError(f"unknown fusion core_method {method!r}")
 
 
@@ -115,7 +106,15 @@ class FusionDataset:
                 "model.args presorted=true requires "
                 "preprocess.args.presort=true (host point ordering)"
             )
-        self.assembler = assembler_class(params)(params, train,
+        assembler_params = params
+        if params["fusion"]["core_method"] == "intermediate2stage":
+            # two-stage models train their first stage on the per-agent
+            # labels: part of the dataset's contract, not an option (ref
+            # intermediate_2stage_fusion_dataset.py:33)
+            model = dict(params.get("model", {}))
+            model["args"] = dict(model.get("args", {}), supervise_single=True)
+            assembler_params = dict(params, model=model)
+        self.assembler = assembler_class(params)(assembler_params, train,
                                                  native_iou=native_iou)
         self.modalities = self.assembler.modalities
         # CoAlign: the stage-1 detections of tools/pose_graph_pre_calc.py

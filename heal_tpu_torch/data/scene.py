@@ -23,9 +23,13 @@ reference). Camera agents of the disk backends carry their images
 (``cameras_raw``), augmented and normalised here (``_disk_cameras``),
 with their depth targets from the agent's own lidar. SECOND agents (m3)
 get their points in their own order, by the encoder's full voxel key
-(``_presort_voxel``). The distillation teacher view raises
-NotImplementedError naming its ROADMAP item (queue 1, item 13).
-CenterPoint configs (``center_point*``) also get the anchor-free labels
+(``_presort_voxel``). With ``kd_flag`` (DiscoNet's distillation) a
+sample also carries the teacher's early-fusion view: every kept agent's
+points moved into the ego frame (on the poses the warps use) and
+merged, range-filtered, subsampled to ``max_points`` by
+``np.random.choice`` (numpy's global random state, as JAX's) when
+there are more, and padded into ``teacher_points`` /
+``teacher_point_mask`` (not presorted). CenterPoint configs (``center_point*``) also get the anchor-free labels
 ``heatmap``, ``box_targets`` and ``reg_mask`` on the anchor grid. With
 ``box_align`` in the config and every agent carrying its stage-1
 detections (``pred_centers``), the noisy poses are refined by CoAlign's
@@ -102,11 +106,6 @@ class IntermediateAssembler:
             ))
             for m in self.modalities
         }
-        if params.get("kd_flag"):
-            raise NotImplementedError(
-                "kd_flag (the early-fusion teacher view) is not ported: "
-                "ROADMAP queue 1, item 13 (tools/train_w_kd.py)"
-            )
 
     def sensor_type(self, modality: str) -> str:
         return self.modality_setting.get(modality, {}).get(
@@ -239,6 +238,9 @@ class IntermediateAssembler:
 
         self._pack_modalities(sample, scene, keep, modality)
 
+        if self.params.get("kd_flag"):
+            self._teacher_view(sample, agents, keep, poses)
+
         if self.supervise_single:
             pos_s, neg_s, tgt_s = [], [], []
             for slot in range(L):
@@ -263,6 +265,28 @@ class IntermediateAssembler:
             sample["neg_equal_one_single"] = np.stack(neg_s)
             sample["targets_single"] = np.stack(tgt_s)
         return sample
+
+    def _teacher_view(self, sample, agents, keep, poses):
+        """DiscoNet's early-fusion teacher input: the kept agents' points
+        in the ego frame, merged, range-filtered, subsampled and padded
+        (ref intermediate_fusion_dataset's kd option)."""
+        merged = []
+        for i in keep:
+            p = np.asarray(agents[i]["points"], dtype=np.float64)
+            t = transform_np.x1_to_x2(poses[i], poses[0])
+            xyz = (np.concatenate([p[:, :3], np.ones((len(p), 1))], axis=1)
+                   @ t.T)[:, :3]
+            merged.append(np.concatenate([xyz, p[:, 3:4]], axis=1)
+                          .astype(np.float32))
+        mp = self._range_filter(np.concatenate(merged, axis=0))
+        if len(mp) > self.max_points:
+            mp = mp[np.random.choice(len(mp), self.max_points, False)]
+        tpts = np.zeros((self.max_points, 4), np.float32)
+        tmask = np.zeros(self.max_points, bool)
+        tpts[:len(mp)] = mp
+        tmask[:len(mp)] = True
+        sample["teacher_points"] = tpts
+        sample["teacher_point_mask"] = tmask
 
     # ------------------------------------------------------------------
     def _pack_modalities(self, sample, scene, keep, modality):

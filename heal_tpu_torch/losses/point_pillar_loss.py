@@ -34,14 +34,24 @@ from ..utils.common import limit_period
 from ..utils.rotated_iou import aligned_boxes_iou3d
 
 
+def bce_with_logits(logits, labels):
+    """Elementwise, numerically stable binary cross-entropy of logits,
+    max(x, 0) - x * y + log1p(exp(-|x|)), with JAX's gradient at a logit
+    of exactly 0 (a zero bias on dead features, as at a seeded init):
+    ``jnp.clip(x, 0, None)`` gives 0.5 there and ``jnp.abs`` 1, where
+    ``torch.clamp`` gives 1 and ``torch.abs`` 0."""
+    relu = torch.maximum(logits, torch.zeros_like(logits))
+    abs_ = torch.where(logits >= 0, logits, -logits)
+    return relu - logits * labels + torch.log1p(torch.exp(-abs_))
+
+
 def sigmoid_focal_loss(logits, labels, weights, alpha: float, gamma: float):
     """Per-element focal loss, weighted."""
     pred_sigmoid = torch.sigmoid(logits)
     alpha_weight = labels * alpha + (1 - labels) * (1 - alpha)
     pt = labels * (1.0 - pred_sigmoid) + (1.0 - labels) * pred_sigmoid
     focal_weight = alpha_weight * torch.pow(pt, gamma)
-    bce = (torch.clamp(logits, min=0) - logits * labels
-           + torch.log1p(torch.exp(-torch.abs(logits))))
+    bce = bce_with_logits(logits, labels)
     return bce * focal_weight * weights
 
 

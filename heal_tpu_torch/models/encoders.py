@@ -194,26 +194,34 @@ class PointPillarEncoder(nn.Module):
         cdt = kdt if kdt == torch.bfloat16 else fp.dtype
         w = fv.to(cdt)[:, None]
         cell = fi % grid.cells
-        local = (fp[:, :3] - self._centers(cell, grid)).to(cdt) * w
+        local = (fp[:, :3] - self._centers(cell, grid, self._acc())).to(
+            cdt) * w
         pfeat = torch.cat([local, fp[:, 3:4].to(cdt) * w], dim=-1)  # (N, 4)
         return grid, fi, w, pfeat, local, cdt
 
     @staticmethod
-    def _centers(cell: torch.Tensor, grid) -> torch.Tensor:
+    def _centers(cell: torch.Tensor, grid,
+                 dtype: torch.dtype = torch.float32) -> torch.Tensor:
         """Pillar centers (.., 3) of within-sample table ids."""
         yi = torch.div(cell, grid.nx, rounding_mode="floor")
         xi = cell - yi * grid.nx
         return torch.stack(
-            [xi.float() * grid.vx + grid.cx0, yi.float() * grid.vy + grid.cy0,
-             torch.full_like(xi, 0, dtype=torch.float32) + grid.cz],
+            [xi.to(dtype) * grid.vx + grid.cx0,
+             yi.to(dtype) * grid.vy + grid.cy0,
+             torch.full_like(xi, 0, dtype=dtype) + grid.cz],
             dim=-1,
         )
 
+    def _acc(self) -> torch.dtype:
+        """The fused path's accumulation dtype: f32 for f32 and bf16
+        weights, f64 for f64 ones (the tests' f64 witness steps)."""
+        return torch.promote_types(self.pfn_kernel.dtype, torch.float32)
+
     def _weights(self):
-        """(w_raw, w_mu, a_mat) of the f32 PFN kernel: decorated =
-        [p, p_xyz - mean, p_xyz - center], so rows 0-2 apply to LOCAL xyz
-        and the center part moves to the pillar term."""
-        k32 = self.pfn_kernel.float()
+        """(w_raw, w_mu, a_mat) of the PFN kernel in the accumulation
+        dtype: decorated = [p, p_xyz - mean, p_xyz - center], so rows 0-2
+        apply to LOCAL xyz and the center part moves to the pillar term."""
+        k32 = self.pfn_kernel.to(self._acc())
         w_raw, w_mu, w_c = k32[:4], k32[4:7], k32[7:10]
         a_mat = torch.cat([w_raw[:3] + (w_mu + w_c), w_raw[3:4]], dim=0)
         return w_raw, w_mu, a_mat
@@ -243,14 +251,15 @@ class PointPillarEncoder(nn.Module):
         f = self.out_channels
         s_total = points.shape[0] * grid.cells
         dev = points.device
+        acc = self._acc()
         idx = fi.long()
 
         def seg_sum(x):
             return torch.zeros((s_total, x.shape[1]), dtype=x.dtype,
-                               device=dev).index_add(0, idx, x).float()
+                               device=dev).index_add(0, idx, x).to(acc)
 
         center = self._centers(
-            torch.arange(s_total, device=dev) % grid.cells, grid)
+            torch.arange(s_total, device=dev) % grid.cells, grid, acc)
         a_pt = pfeat @ a_mat.to(cdt)  # (N, F), invalid -> 0
         seg = seg_sum(torch.cat([local @ w_mu.to(cdt), w], dim=-1))
         cnt = seg[:, f:f + 1]
@@ -258,8 +267,8 @@ class PointPillarEncoder(nn.Module):
         t_tab = -seg[:, :f] / torch.clamp(cnt, min=1.0) + center @ w_raw[:3]
 
         # E[y], E[y^2] of y_i = a_i + t_p over the valid points
-        n_valid = torch.clamp(w.float().sum(), min=1.0)
-        a32 = a_pt.float()
+        n_valid = torch.clamp(w.to(acc).sum(), min=1.0)
+        a32 = a_pt.to(acc)
         seg_a = seg_sum(a_pt)
         mean_y = (a32.sum(0) + (cnt * t_tab).sum(0)) / n_valid
         e2 = ((a32 * a32).sum(0) + 2.0 * (seg_a * t_tab).sum(0)
@@ -268,8 +277,8 @@ class PointPillarEncoder(nn.Module):
         update_running(self.bn_mean, mean_y, self.momentum)
         update_running(self.bn_var, var_y, self.momentum)
 
-        s_aff = self.bn_scale.float() * torch.rsqrt(var_y + 1e-3)
-        b_aff = self.bn_bias.float() - s_aff * mean_y
+        s_aff = self.bn_scale.to(acc) * torch.rsqrt(var_y + 1e-3)
+        b_aff = self.bn_bias.to(acc) - s_aff * mean_y
         u = a_pt * s_aff.to(a_pt.dtype)  # per point
         tb = (t_tab * s_aff + b_aff).to(a_pt.dtype)  # per pillar
         # empty pillars keep -inf, then 0 on the canvas; ties share the

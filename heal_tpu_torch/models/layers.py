@@ -659,8 +659,8 @@ def init_weights(model: nn.Module, generator: torch.Generator) -> nn.Module:
                     elif name.endswith("ConvTranspose_0.kernel"):
                         # (I, O, s, s)
                         fan_in = p.shape[0] * p.shape[2] * p.shape[3]
-                    else:  # (O, I, kh, kw)
-                        fan_in = p.shape[1] * p.shape[2] * p.shape[3]
+                    else:  # (O, I, kh, kw) or VoxelNet's (O, I, kd, kh, kw)
+                        fan_in = math.prod(p.shape[1:])
                     std = (gain / fan_in) ** 0.5 / 0.87962566103423978
                     nn.init.trunc_normal_(p, 0.0, std, -2 * std, 2 * std,
                                           generator=generator)

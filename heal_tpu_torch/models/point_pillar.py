@@ -17,7 +17,18 @@ Counterparts of heal_tpu/models/point_pillar.py:
     from the zoo (models/fuse), then the heads. For Where2comm the shared
     heads also run on every agent: their confidence gates what is sent
     (``comm_rate`` in the outputs), and with ``supervise_single`` they
-    are the ``_single`` outputs.
+    are the ``_single`` outputs;
+  * ``PointPillarBaselineMultiscale`` (point_pillar_baseline_multiscale
+    .py): the backbone's stages on the UNFUSED agents' maps (after
+    ``compression``'s compressor, when set), each level fused by its own
+    fusion (``<Class>_{i}``, ``in_channels`` the level's width), then the
+    deblocks on the fused levels, shrink and the heads;
+  * ``PointPillarDiscoNet`` (point_pillar_disconet.py): the DiscoNet
+    student, ``PointPillarBaseline`` with ``fusion_method`` forced to
+    ``disconet`` under ``student``, exporting its fused map as
+    ``feature``; ``PointPillarDiscoNetTeacher``: ``PointPillar`` under
+    ``teacher``, run on the early-fused view, exporting
+    ``teacher_feature`` (tools/train_w_kd.py).
 
 Modules carry flax's auto-names (``PointPillarEncoder_0``,
 ``ResNetBEVBackbone_0``, ``DownsampleConv_0``, the fusion's
@@ -266,3 +277,87 @@ class PointPillarBaseline(IntermediateChain):
         if compressor is not None:
             feat = compressor(feat)
         return self.fused_heads(feat, b, l, batch, self.DetectionHeads_0)
+
+
+@register_model("point_pillar_baseline_multiscale")
+class PointPillarBaselineMultiscale(IntermediateChain):
+    """Fusion at every backbone level: the levels are computed on the
+    unfused agents' maps, each fused (all agents warped to the ego) by its
+    own fusion, then deblock-decoded, shrunk and fed to the heads, in
+    JAX's order. args: ``PointPillarBaseline``'s; each level's fusion
+    takes the config's block with ``in_channels`` the level's width
+    (``base_bev_backbone.num_filters[i]``)."""
+
+    def __init__(self, args: dict, max_cav: int | None = None):
+        super().__init__()
+        width = self._build_chain(args, pillar_encoder(args))
+        if "compression" in args:
+            self.NaiveCompressor_0 = NaiveCompressor(
+                self.encoder.out_channels, args["compression"],
+                norm=args.get("norm", "batch"))
+        method = args["fusion_method"]
+        self.fusion_names = []
+        for c in args["base_bev_backbone"]["num_filters"]:
+            fusion = build_fusion(
+                method, dict(args.get(method, {}) or {}, in_channels=c), c,
+                max_cav)
+            name = f"{type(fusion).__name__}_{len(self.fusion_names)}"
+            self.add_module(name, fusion)
+            self.fusion_names.append(name)
+        self.DetectionHeads_0 = self._heads(width)
+
+    def forward(self, batch: dict) -> dict:
+        x, b, l = self.agent_bev(batch)
+        compressor = getattr(self, "NaiveCompressor_0", None)
+        if compressor is not None:
+            x = compressor(x)
+        backbone = self.ResNetBEVBackbone_0
+        fused_levels = []
+        for name, f in zip(self.fusion_names, backbone.encode(x)):
+            nhwc = f.permute(0, 2, 3, 1)
+            fused = getattr(self, name)(
+                nhwc.reshape((b, l) + nhwc.shape[1:]),
+                batch["pairwise_affine"], batch["agent_mask"])
+            fused_levels.append(fused.permute(0, 3, 1, 2))
+        fused = self.shrink(backbone.decode(fused_levels))
+        out = self.DetectionHeads_0(fused)
+        out["spatial_features_2d"] = fused.permute(0, 2, 3, 1)
+        return out
+
+
+@register_model("point_pillar_disconet")
+class PointPillarDiscoNet(nn.Module):
+    """The DiscoNet student: ``PointPillarBaseline`` with DiscoNet's
+    fusion, under ``student``; ``feature`` is its fused map, which the
+    KD loss pulls toward the teacher's."""
+
+    needs_max_cav = True
+    batch_keys = IntermediateChain.batch_keys
+
+    def __init__(self, args: dict, max_cav: int | None = None):
+        super().__init__()
+        self.student = PointPillarBaseline(
+            {**args, "fusion_method": "disconet"}, max_cav)
+
+    def forward(self, batch: dict) -> dict:
+        out = self.student(batch)
+        out["feature"] = out["spatial_features_2d"]
+        return out
+
+
+@register_model("point_pillar_disconet_teacher")
+class PointPillarDiscoNetTeacher(nn.Module):
+    """The DiscoNet teacher: ``PointPillar`` under ``teacher``, on the
+    early-fused view (every agent's points in the ego frame, merged);
+    ``teacher_feature`` is its map."""
+
+    batch_keys = DetectorChain.batch_keys
+
+    def __init__(self, args: dict):
+        super().__init__()
+        self.teacher = PointPillar(args)
+
+    def forward(self, batch: dict) -> dict:
+        out = self.teacher(batch)
+        out["teacher_feature"] = out["spatial_features_2d"]
+        return out

@@ -1,17 +1,18 @@
 """Model and loss registries (torch), keyed by the config's ``core_method``.
 
-Counterpart of heal_tpu/models/registry.py. Ported so far (18 of its
-29 model names, 4 of its 9 losses): the models ``heter_pyramid_collab``,
-``heter_pyramid_single``, ``heter_model_baseline``,
-``heter_model_baseline_ms``, ``heter_model_late``, ``point_pillar``,
-``point_pillar_uncertainty``, ``point_pillar_baseline``,
-``center_point``, ``center_point_baseline``,
-``center_point_baseline_multiscale``, ``center_point_intermediate``,
-``center_point_where2comm``, ``second``, ``second_intermediate``,
-``lift_splat_shoot``, ``lift_splat_shoot_voxel`` and
-``lift_splat_shoot_intermediate``, and
-the losses ``point_pillar_loss``, ``point_pillar_pyramid_loss``,
-``point_pillar_uncertainty_loss`` and ``center_point_loss``.
+Counterpart of heal_tpu/models/registry.py, with all of its 29 model
+names and 9 losses: the HEAL models (``heter_pyramid_collab``,
+``heter_pyramid_single``), the heterogeneous baselines
+(``heter_model_baseline``, ``_ms``, ``heter_model_late``), the
+PointPillars detectors (``point_pillar``, ``_uncertainty``,
+``_baseline``, ``_baseline_multiscale``, the DiscoNet student and
+teacher ``point_pillar_disconet``, ``_teacher``), CenterPoint
+(``center_point``, ``_baseline``, ``_baseline_multiscale``,
+``_intermediate``, ``_where2comm``), SECOND (``second``,
+``_intermediate``, ``second_ssfa``, ``_ssfa_uncertainty``), the
+Lift-Splat-Shoot detectors (``lift_splat_shoot``, ``_voxel``,
+``_intermediate``), VoxelNet (``voxel_net``, ``_intermediate``), PIXOR
+(``pixor``, ``_intermediate``), ``ciassd`` and ``fpvrcnn``.
 """
 from __future__ import annotations
 
@@ -39,12 +40,12 @@ def model_class(name: str):
     """The registered model class of ``core_method`` ``name``."""
     if name not in MODEL_REGISTRY:
         # importing the model modules registers their models
-        from . import (center_point, heter_baseline,  # noqa: F401
-                       heter_pyramid, lift_splat_shoot, point_pillar,
-                       second_model)
+        from . import (center_point, ciassd, fpvrcnn,  # noqa: F401
+                       heter_baseline, heter_pyramid, lift_splat_shoot,
+                       pixor, point_pillar, second_model, voxel_net)
     if name not in MODEL_REGISTRY:
         raise KeyError(
-            f"model core_method {name!r} is not ported; ported: "
+            f"unknown model core_method {name!r}; registered: "
             f"{sorted(MODEL_REGISTRY)}"
         )
     return MODEL_REGISTRY[name]
@@ -76,7 +77,7 @@ def build_loss(loss_cfg: dict):
         from .. import losses  # noqa: F401  (registers the losses)
     if name not in LOSS_REGISTRY:
         raise KeyError(
-            f"loss core_method {name!r} is not ported; ported: "
+            f"unknown loss core_method {name!r}; registered: "
             f"{sorted(LOSS_REGISTRY)}"
         )
     return LOSS_REGISTRY[name](loss_cfg["args"])

@@ -53,11 +53,15 @@ def step_streams(seed: int, step: int, device) -> dict:
 
 
 def _label_targets(batch: dict) -> dict:
-    """The label arrays the ported losses read, the anchor-free ones
-    (CenterPoint) when the batch has them (JAX trainer.py
-    ``_label_targets`` also passes the two-stage labels)."""
+    """The label arrays the losses read (JAX trainer.py
+    ``_label_targets``): the anchor labels; the anchor-free ones
+    (CenterPoint) and the two-stage ones (fpvrcnn_loss: the per-agent
+    stage-1 labels and the ego-frame ground truth) when the batch has
+    them; each camera type's depth bins."""
     out = {k: batch[k] for k in ("pos_equal_one", "neg_equal_one", "targets")}
-    for key in ("heatmap", "box_targets", "reg_mask"):
+    for key in ("heatmap", "box_targets", "reg_mask",
+                "pos_equal_one_single", "neg_equal_one_single",
+                "targets_single", "gt_boxes", "gt_mask"):
         if key in batch:
             out[key] = batch[key]
     for key, value in batch.items():
@@ -177,12 +181,16 @@ class Trainer:
         out = torch.func.functional_call(self.model, params, (batch,))
         return _to_f32(out)
 
+    def outputs(self, batch: dict) -> dict:
+        """The train-mode forward's outputs, which the loss reads."""
+        return self._forward(batch)
+
     def loss(self, batch: dict) -> tuple[torch.Tensor, dict]:
         """Train-mode forward and loss (running BN buffers move, but not
         those of the frozen modules)."""
         self.model.train()
         frozen_eval(self.model, self.fix_modules)
-        out = self._forward(batch)
+        out = self.outputs(batch)
         loss, aux = self.criterion(out, _label_targets(batch))
         if "comm_rate" in out:  # where2comm's bandwidth, as JAX logs it
             aux = dict(aux, comm_rate=out["comm_rate"])
@@ -200,6 +208,13 @@ class Trainer:
         with self.streams():
             loss, aux = self.loss(batch)
         loss.backward()
+        # a parameter the loss does not reach (VoxelNet's direction head:
+        # its loss has no direction term) has a zero gradient in JAX, and
+        # optax still applies the weight decay to it: so here too
+        for group in self.optimizer.param_groups:
+            for p in group["params"]:
+                if p.grad is None:
+                    p.grad = torch.zeros_like(p)
         lr = self.schedule(self.step)
         for group in self.optimizer.param_groups:
             group["lr"] = lr

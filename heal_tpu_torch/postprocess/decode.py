@@ -3,8 +3,9 @@
 Counterpart of heal_tpu/postprocess/decode.py ``post_process_single``:
 sigmoid score -> threshold -> residual decode -> direction correction ->
 project to ego -> sanity filters (extent / z band) -> rotated NMS ->
-range mask, over a fixed top-K candidate set with a validity mask; and
-``fuse_and_nms``, late fusion's cross-agent merge of those sets.
+range mask, over a fixed top-K candidate set with a validity mask;
+``decode_stage2``, FPV-RCNN's refined detections; and ``fuse_and_nms``,
+late fusion's cross-agent merge of those sets.
 
 Prediction layout is NHWC, as in the JAX package: cls (H, W, A),
 reg (H, W, A*7), dir (H, W, A*num_bins) per sample.
@@ -101,6 +102,43 @@ def post_process_single(
         udim = unc_preds.numel() // n
         out["uncertainty"] = unc_preds.reshape(n, udim)[top_idx]
     return out
+
+
+def decode_stage2(rois: torch.Tensor, valid: torch.Tensor,
+                  rcnn_cls: torch.Tensor, rcnn_reg: torch.Tensor,
+                  gt_range: torch.Tensor, score_threshold: float = 0.2,
+                  nms_threshold: float = 0.15) -> dict:
+    """FPV-RCNN's second-stage refinements -> padded detections, as
+    ``post_process_single``'s.
+
+    rois (R, 7) hwl ego-frame fused proposals, valid (R,); rcnn_cls (R,)
+    quality logits; rcnn_reg (R, 7) roi-frame residuals in the loss's
+    convention (xyz over [diag, diag, h], log dimension ratio, yaw
+    delta). Scores are sigmoid(cls) on the valid RoIs; boxes inside
+    ``gt_range`` above ``score_threshold`` are sorted by score (stably,
+    as ``jnp.argsort``) and go through the rotated NMS."""
+    scores = torch.sigmoid(rcnn_cls) * valid.to(rcnn_cls.dtype)
+    diag = torch.sqrt(rois[:, 4] ** 2 + rois[:, 5] ** 2)
+    scale = torch.stack([diag, diag, rois[:, 3]], dim=-1)
+    xyz = rois[:, :3] + rcnn_reg[:, :3] * torch.clamp(scale, min=1e-3)
+    dims = rois[:, 3:6] * torch.exp(torch.clamp(rcnn_reg[:, 3:6], -4.0, 4.0))
+    yaw = rois[:, 6:7] + rcnn_reg[:, 6:7]
+    boxes = torch.cat([xyz, dims, yaw], dim=-1)
+    corners = geometry.boxes_to_corners_3d(boxes, "hwl")
+    inside = ((corners >= gt_range[0:3]) & (corners <= gt_range[3:6])
+              ).all(-1).all(-1)
+    ok = valid & inside & (scores > score_threshold)
+    masked = torch.where(ok, scores, torch.zeros_like(scores))
+    order = torch.argsort(-masked, stable=True)
+    corners, scores_s, boxes_s = corners[order], masked[order], boxes[order]
+    keep = nms_rotated_fixed(corners[:, :4, :2], scores_s, scores_s > 0.0,
+                             nms_threshold)
+    return {
+        "corners": corners,
+        "scores": torch.where(keep, scores_s, torch.zeros_like(scores_s)),
+        "boxes": boxes_s,
+        "valid": keep,
+    }
 
 
 def fuse_and_nms(corners_list, scores_list, valid_list,

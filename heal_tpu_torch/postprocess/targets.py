@@ -8,9 +8,10 @@ The port's copy of heal_tpu/postprocess/targets.py ``generate_targets``:
   * negatives: anchors whose IoU with every GT < neg_threshold, minus
     force-matched ones;
   * regression targets: VoxelNet residual encoding vs the matched anchor;
-and CenterPoint's anchor-free targets (``gaussian_radius``,
+CenterPoint's anchor-free targets (``gaussian_radius``,
 ``generate_center_targets``): a Gaussian heatmap, and the box itself at
-each GT centre's cell. The IoU matrix is the native host loader's
+each GT centre's cell; and PIXOR's dense label map
+(``generate_pixor_label_map``). The IoU matrix is the native host loader's
 f32 ``bbox_overlaps`` (native/), the JAX package's path when its library
 is built; ``native_iou=False`` takes the numpy one
 (``box_np.standup_iou_matrix``), its path when it is not. The two label
@@ -173,3 +174,61 @@ def generate_center_targets(
         boxes[ci, cj] = box
         reg_mask[ci, cj] = 1.0
     return {"heatmap": heatmap, "box_targets": boxes, "reg_mask": reg_mask}
+
+
+# PIXOR's normalisation constants (ref bev_postprocessor.py:28-29)
+PIXOR_TARGET_MEAN = np.array([0.008, 0.001, 0.202, 0.2, 0.43, 1.368],
+                             np.float64)
+PIXOR_TARGET_STD = np.array([0.866, 0.5, 0.954, 0.668, 0.09, 0.111],
+                            np.float64)
+
+
+def generate_pixor_label_map(gt_box_center: np.ndarray, mask: np.ndarray,
+                             lidar_range, res: float, downsample_rate: int,
+                             label_shape, order: str = "lwh") -> np.ndarray:
+    """PIXOR's dense (H, W, 7) f32 label map (ref bev_postprocessor.py
+    :34-163): every pixel of the downsampled grid inside a GT box's
+    rotated BEV footprint gets objectness 1 and the box's (cos yaw, sin
+    yaw, dx, dy, log w, log l) relative to the pixel's continuous
+    position (dims are the box's columns 3 and 4 as given); channels 1-6
+    of every pixel, background included, normalised by the fixed
+    mean / std. H runs along lidar x."""
+    h, w, _ = label_shape
+    label_map = np.zeros((h, w, 7), np.float64)
+
+    def normalized(lm):
+        lm = lm.copy()
+        lm[..., 1:] = (lm[..., 1:] - PIXOR_TARGET_MEAN) / PIXOR_TARGET_STD
+        return lm.astype(np.float32)
+
+    gt = np.asarray(gt_box_center, np.float64)[np.asarray(mask) == 1]
+    if len(gt) == 0:
+        return normalized(label_map)
+    corners = box_np.boxes_to_corners2d(gt, order)[:, :, :2]
+    yaw = gt[:, -1]
+    reg = np.column_stack([np.cos(yaw), np.sin(yaw), gt[:, 0], gt[:, 1],
+                           gt[:, 3], gt[:, 4]])
+    origin = np.array([lidar_range[0], lidar_range[1]], np.float64)
+    cell = res * downsample_rate
+    corners_px = (corners - origin) / cell
+    # (x_pix, y_pix) pairs: index 0 along lidar x (rows), 1 along y
+    xx, yy = np.meshgrid(np.arange(h), np.arange(w))
+    pix = np.stack([xx.reshape(-1), yy.reshape(-1)], axis=-1).astype(
+        np.float64)
+    for i in range(len(gt)):
+        c = corners_px[i]
+        e1 = c[1] - c[0]
+        e2 = c[3] - c[0]
+        rel = pix - c[0]
+        l1 = rel @ e1 / max(e1 @ e1, 1e-12)
+        l2 = rel @ e2 / max(e2 @ e2, 1e-12)
+        pin = pix[(l1 >= 0) & (l1 <= 1) & (l2 >= 0) & (l2 <= 1)]
+        if len(pin) == 0:
+            continue
+        t = np.repeat(reg[i:i + 1], len(pin), axis=0)
+        t[:, 2:4] -= pin * cell + origin  # the pixels' continuous xy
+        t[:, 4:] = np.log(t[:, 4:])
+        ij = pin.astype(np.int64)
+        label_map[ij[:, 0], ij[:, 1], 0] = 1.0
+        label_map[ij[:, 0], ij[:, 1], 1:] = t
+    return normalized(label_map)

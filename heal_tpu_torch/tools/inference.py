@@ -9,8 +9,10 @@ utils/camera.depth_metric) beside the AP, and for Where2comm the mean
 forward a frame; late fusion (``late``, ``lateheter``) one forward at
 batch 1 per agent sample, the ego's first, each decoded with its
 ``transformation_matrix`` to the ego and merged by one cross-agent NMS
-(postprocess/decode.fuse_and_nms), as JAX does. Two-stage models and
-visualisation are not ported yet.
+(postprocess/decode.fuse_and_nms), as JAX does. A two-stage model
+(FPV-RCNN: ``rcnn_cls`` in its outputs) is evaluated on its refined
+collaborative detections (postprocess/decode.decode_stage2), not on the
+per-agent stage-1 heads. Visualisation is not ported yet.
 
     python -m heal_tpu_torch.tools.inference --config heal_tpu/configs/opv2v_m1_pyramid.yaml \
         [--checkpoint net.pt | --seed 0] [--dtype bf16] [--max_batches 8]
@@ -40,8 +42,8 @@ from ..data.scene import collate
 from ..models import build_model
 from ..models.layers import channels_last, init_weights
 from ..models.registry import model_class
-from ..postprocess.decode import (fuse_and_nms, post_process_single,
-                                  strip_padding)
+from ..postprocess.decode import (decode_stage2, fuse_and_nms,
+                                  post_process_single, strip_padding)
 from ..utils import box_np, camera, eval_np
 from ..utils.common_np import update_dict
 from . import checkpoint as ckpt_lib
@@ -256,7 +258,17 @@ def run_inference(
                                    nms_threshold=post["nms_thresh"])
             else:
                 outs = [model(inputs)]
-                det = decode(outs[0], batch["transformation_matrix"][0])
+                o = outs[0]
+                if "rcnn_cls" in o:  # two-stage: the refined detections
+                    det = decode_stage2(
+                        o["boxes_fused"][0].float(), o["valid_fused"][0],
+                        o["rcnn_cls"][0].float(), o["rcnn_reg"][0].float(),
+                        gt_range,
+                        score_threshold=post["target_args"][
+                            "score_threshold"],
+                        nms_threshold=post["nms_thresh"])
+                else:
+                    det = decode(o, batch["transformation_matrix"][0])
             dense = strip_padding(det)  # copies to the host: synchronises
             serve_s.append(time.perf_counter() - t0)
             if collect_heads:

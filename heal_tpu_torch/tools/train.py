@@ -167,14 +167,16 @@ def supervise_single(cfg: dict) -> bool:
 
 def build_trainer(cfg: dict, device, steps_per_epoch: int, *,
                   init_from: str | None = None,
-                  resume: str | None = None) -> Trainer:
+                  resume: str | None = None, trainer_cls: type = Trainer,
+                  **fields) -> Trainer:
     """The ``Trainer`` of ``cfg`` on ``device``: the seeded init (seed 0),
     ``init_from`` loaded loosely (its left-out keys printed), ``resume``
     loaded strictly, then the model's ``fix_modules`` frozen and the
     optimizer built from the parameters left to train. Its update count
     starts at 0 whatever is loaded, as JAX's ``TrainState.step`` does.
     A loss with an IoU branch gets the anchor grid the assemblers label
-    with (JAX's train.py passes ``train_ds.anchors``)."""
+    with (JAX's train.py passes ``train_ds.anchors``). ``trainer_cls``
+    (a ``Trainer`` subclass) is built with the extra ``fields``."""
     model = build_weights(cfg, seed=0)
     if init_from:
         left = ckpt_lib.loose_load(model, init_from)
@@ -198,12 +200,12 @@ def build_trainer(cfg: dict, device, steps_per_epoch: int, *,
         post = cfg["postprocess"]
         criterion.set_anchors(generate_anchor_box(post["anchor_args"],
                                                   post["order"]))
-    return Trainer(
+    return trainer_cls(
         model=model, criterion=criterion, optimizer=optimizer,
         schedule=schedule, supervise_single=supervise_single(cfg),
         single_weight=cfg["loss"]["args"].get("single_weight", 1.0),
         bf16=bool(cfg["train_params"].get("bf16", False)),
-        fix_modules=fix_modules,
+        fix_modules=fix_modules, **fields,
     )
 
 

@@ -54,6 +54,11 @@ def boxes_to_corners_3d(boxes3d: np.ndarray, order: str) -> np.ndarray:
     return corners + boxes[:, None, 0:3]
 
 
+def boxes_to_corners2d(boxes3d: np.ndarray, order: str) -> np.ndarray:
+    """(N, 7) -> (N, 4, 3): bottom-face corners."""
+    return boxes_to_corners_3d(boxes3d, order)[:, :4, :]
+
+
 def corners_to_standup_2d(corners: np.ndarray) -> np.ndarray:
     """(N, K, 2+) corners -> (N, 4) [x1, y1, x2, y2] axis-aligned hulls."""
     return np.stack(

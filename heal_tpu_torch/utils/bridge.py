@@ -7,6 +7,8 @@ The port names its modules, parameters and buffers after the flax paths
 layouts differ:
 
   * conv kernels: flax HWIO (kh, kw, I, O) -> torch OIHW;
+  * VoxelNet's 3D conv kernels: flax DHWIO (kd, kh, kw, I, O) -> torch
+    OIDHW;
   * ``ConvTranspose_0/kernel``: flax (s, s, I, O) -> torch ConvTranspose2d
     (I, O, s, s), flipped on both spatial axes (flax's tap at output
     (i*s+di, j*s+dj) is kern[s-1-di, s-1-dj], heal_tpu layers.py:278-290);
@@ -50,6 +52,8 @@ def _to_torch_layout(key: str, value: np.ndarray) -> np.ndarray:
         if key.endswith("ConvTranspose_0.kernel"):
             return value[::-1, ::-1].transpose(2, 3, 0, 1)
         return value.transpose(3, 2, 0, 1)
+    if leaf == "kernel" and value.ndim == 5:
+        return value.transpose(4, 3, 0, 1, 2)
     return value
 
 
@@ -59,6 +63,8 @@ def _to_flax_layout(key: str, value: np.ndarray) -> np.ndarray:
         if key.endswith("ConvTranspose_0.kernel"):
             return value.transpose(2, 3, 0, 1)[::-1, ::-1]
         return value.transpose(2, 3, 1, 0)
+    if leaf == "kernel" and value.ndim == 5:
+        return value.transpose(2, 3, 4, 1, 0)
     return value
 
 

@@ -250,12 +250,25 @@ def _set(key, value):
     return edit
 
 
+@pytest.mark.parametrize("train", [True, False], ids=["train", "test"])
 @pytest.mark.parametrize("edit", [
     _set("fusion.core_method", "intermediate2stage"),
     _set("kd_flag", True),
 ], ids=["two_stage", "kd_teacher"])
-def test_unported_host_paths_raise(edit):
-    cfg = load_config(CONFIGS[0])
+def test_two_stage_and_kd_batches_equal_heal_tpu(edit, train, monkeypatch):
+    """The two host paths ported last: FPV-RCNN's ``intermediate2stage``
+    (the intermediate assembler with the per-agent labels forced on) and
+    DiscoNet's ``kd_flag`` teacher view (every agent's points merged in
+    the ego frame, subsampled by numpy's global random state), exactly
+    equal to heal_tpu's with numpy's seed set before each package."""
+    monkeypatch.setattr(heal_tpu.native, "load", lambda: None)
+    cfg = load_yaml(CONFIGS[0])
+    cfg["fusion"]["args"].update(num_scenes_train=2, num_scenes_test=2)
     edit(cfg)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        build_dataset(cfg, train=False)
+    got, _ = _first_batch(build_dataset, cfg, train, native_iou=False)
+    want, _ = _first_batch(jax_build_dataset, cfg, train,
+                           process_split=False)
+    extra = ("pos_equal_one_single" if "kd_flag" not in cfg
+             else "teacher_points")
+    assert extra in want
+    _assert_same(got, want)

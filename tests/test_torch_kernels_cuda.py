@@ -456,3 +456,113 @@ def test_option_frames_launch_exactly_their_kernels(dev, case, launches):
     assert shift_rows.shift_rows.launches - k2 == forwards * launches[1]
     assert all(torch.isfinite(t).all() for h in got["heads"]
                for t in h.values())
+
+
+def _legacy_tiny(core: str, **args) -> dict:
+    """tests/configs/tiny_intermediate.yaml with its model switched to one
+    of the last detectors (the CPU parity tests' sizes: VoxelNet on
+    1.0 m z layers, PIXOR at 0.6 m over 8 slabs)."""
+    from heal_tpu_torch.config import load_yaml
+
+    cfg = load_yaml("tests/configs/tiny_intermediate.yaml")
+    cfg["model"]["core_method"] = core
+    cfg["model"]["args"].update(args)
+    return cfg
+
+
+@pytest.mark.parametrize("core,args,launches", [
+    ("point_pillar_baseline_multiscale", {}, (1, 10)),
+    ("point_pillar_disconet", {}, (1, 5)),
+    ("voxel_net_intermediate", {"voxel_size": [0.6, 0.6, 1.0]}, (0, 5)),
+    ("pixor_intermediate", {"bev_res": 0.6, "z_slabs": 8}, (0, 5)),
+], ids=["multiscale", "disconet", "voxel_net_intermediate",
+        "pixor_intermediate"])
+def test_legacy_frames_launch_exactly_their_kernels(dev, core, args,
+                                                    launches):
+    """The multiscale baseline (kernel 1 once, kernel 2 5 times at each of
+    its two levels), DiscoNet's student (one warp) and the intermediate
+    VoxelNet and PIXOR (one warp, no pillar encoder), two frames f32 and
+    bf16 each; heads finite."""
+    from heal_tpu_torch.tools.inference import (build_weights, device_frames,
+                                                run_inference)
+
+    cfg = _legacy_tiny(core, **args)
+    model = build_weights(cfg, seed=0).to(dev)
+    frames = device_frames(cfg, dev, 2)
+    k1, k2 = pillar.pillar_tables.launches, shift_rows.shift_rows.launches
+    for dtype in (torch.float32, torch.bfloat16):
+        got = run_inference(cfg=cfg, device=dev, dtype=dtype,
+                            model=model.to(dtype), frames=frames,
+                            collect_heads=True)
+        assert all(torch.isfinite(t).all() for h in got["heads"]
+                   for t in h.values())
+    assert pillar.pillar_tables.launches - k1 == 4 * launches[0]
+    assert shift_rows.shift_rows.launches - k2 == 4 * launches[1]
+
+
+def test_kd_step_launches_the_teacher_once(dev, tmp_path):
+    """One DiscoNet KD step on the card through tools/train_w_kd: kernel 1
+    once (the frozen teacher's eval-mode encoder), kernel 2 5 times
+    forward and 5 backward (the student's warp); the teacher bit-equal,
+    kd_loss > 0."""
+    from heal_tpu_torch.config import save_yaml
+    from heal_tpu_torch.tools import checkpoint as ckpt_lib
+    from heal_tpu_torch.tools import train_w_kd
+    from heal_tpu_torch.tools.inference import build_weights
+    from heal_tpu_torch.tools.train import build_trainer, device_batches
+
+    cfg = _legacy_tiny("point_pillar_disconet")
+    cfg["kd_flag"] = True
+    cfg["loss"]["core_method"] = "point_pillar_disconet_loss"
+    teacher_cfg = _legacy_tiny("point_pillar_disconet_teacher")
+    teacher_cfg["fusion"]["core_method"] = "early"
+    save_yaml(teacher_cfg, str(tmp_path / "config.yaml"))
+    ckpt_lib.save_checkpoint(str(tmp_path),
+                             build_weights(teacher_cfg, seed=1), 1)
+    teacher = train_w_kd.load_teacher(str(tmp_path), dev)
+    before = {k: v.clone() for k, v in teacher.state_dict().items()}
+    tr = build_trainer(cfg, dev, 1, trainer_cls=train_w_kd.KDTrainer,
+                       teacher=teacher)
+    batch, _ = next(device_batches(cfg, 2, dev))
+    k1, k2 = pillar.pillar_tables.launches, shift_rows.shift_rows.launches
+    kb = shift_rows.shift_rows.backward_launches
+    aux = tr.train_step(batch)
+    torch.cuda.synchronize()
+    assert pillar.pillar_tables.launches - k1 == 1
+    assert shift_rows.shift_rows.launches - k2 == 5
+    assert shift_rows.shift_rows.backward_launches - kb == 5
+    assert aux["kd_loss"].item() > 0
+    for k, v in teacher.state_dict().items():
+        assert torch.equal(v, before[k]), k
+
+
+def test_point_ops_on_the_card_match_the_cpu(dev):
+    """FPS and the ball query on the card against the same functions on
+    the CPU, indices exact (padded points, a duplicate, a row with fewer
+    valid points than samples); group_and_pool within 1e-5."""
+    from heal_tpu_torch.ops import pointnet
+
+    rng = np.random.RandomState(0)
+    pts = rng.uniform(-20, 20, (3, 2000, 4)).astype(np.float32)
+    pts[:, 7] = pts[:, 3]
+    mask = np.ones((3, 2000), bool)
+    mask[1, 500:] = False
+    mask[2, 40:] = False
+    q = rng.uniform(-20, 20, (3, 300, 3)).astype(np.float32)
+    w = torch.from_numpy(rng.randn(4, 16).astype(np.float32))
+    out = {}
+    for d in ("cpu", dev):
+        p, m = torch.from_numpy(pts).to(d), torch.from_numpy(mask).to(d)
+        qq = torch.from_numpy(q).to(d)
+        fps = pointnet.farthest_point_sample(p[..., :3], m, 128)
+        idx, valid = pointnet.ball_query(qq, p[..., :3], m, 2.0, 16)
+        pooled = pointnet.group_and_pool(
+            qq, p[..., :3], p[..., 3:], idx, valid,
+            lambda x: torch.relu(x @ w.to(d)))
+        out[str(d)] = [t.cpu() for t in (fps, idx, valid, pooled)]
+    cpu, card = out["cpu"], out[str(dev)]
+    for a, b in zip(cpu[:3], card[:3]):
+        assert torch.equal(a, b)
+    assert cpu[2].any() and not cpu[2].all()
+    scale = 1.0 + cpu[3].abs().max().item()
+    assert (card[3] - cpu[3]).abs().max().item() <= 1e-5 * scale

@@ -200,6 +200,16 @@ from heal_tpu_torch.losses import center_point_loss
 from heal_tpu_torch.models import center_point, second_model
 rc = run_inference(cfg=load_config(sys.argv[8]), device="cpu", max_batches=1,
                    collect_heads=True)
+# the last detectors, their losses, FPV-RCNN's point operators and the
+# distillation trainer
+from heal_tpu_torch.losses import (fpvrcnn_loss, pixor_loss,
+                                   point_pillar_disconet_loss,
+                                   voxel_net_loss)
+from heal_tpu_torch.models import ciassd, fpvrcnn, pixor, voxel_net
+from heal_tpu_torch.ops import pointnet
+from heal_tpu_torch.tools import train_w_kd
+kp = pointnet.farthest_point_sample(torch.rand(2, 64, 3),
+                                    torch.ones(2, 64, dtype=torch.bool), 8)
 """ + _LOADED + """
 print(json.dumps({"frames": r["frames"], "steps": len(losses),
                   "falling": losses[1] < losses[0],
@@ -212,7 +222,7 @@ print(json.dumps({"frames": r["frames"], "steps": len(losses),
                   "compressor": list(comp.shape),
                   "center_point": [list(rc["heads"][0]["cls_preds"].shape),
                                    0 < rc["comm_rate"] <= 1],
-                  "loaded": loaded}))
+                  "keypoints": list(kp.shape), "loaded": loaded}))
 """
 
 # chip_smoke.py's host side: the flagship config and one test batch, and
@@ -281,6 +291,19 @@ for n, c in chip_smoke.camera_cfgs().items():
     m = build_model(c["model"], max_cav=c["train_params"]["max_cav"])
     camera[n] = [type(m).__name__, type(build_loss(c["loss"])).__name__,
                  list(build_dataset(c, train=False).anchors.shape[:2])]
+# the legacy phase: its models, losses, fusion and a test sample's keys
+legacy = {}
+for n, c in chip_smoke.legacy_cfgs().items():
+    m = build_model(c["model"], max_cav=c["train_params"]["max_cav"])
+    sample = build_dataset(c, train=False)[0]
+    legacy[n] = [type(m).__name__, type(build_loss(c["loss"])).__name__,
+                 c["fusion"]["core_method"],
+                 sorted(k for k in ("teacher_points", "pos_equal_one_single")
+                        if k in sample)]
+legacy["center_labels"] = sorted(
+    k for k in chip_smoke.center_batch(chip_smoke.legacy_cfgs()["pixor"], 1,
+                                       "cpu")
+    if k in ("heatmap", "box_targets", "reg_mask"))
 """ + _LOADED + """
 print(json.dumps({"points": list(batch["inputs_m1"]["points"].shape),
                   "agents": int(batch["agent_mask"].sum()),
@@ -297,7 +320,7 @@ print(json.dumps({"points": list(batch["inputs_m1"]["points"].shape),
                            len(late["agent_samples"][0]),
                            "data_augment" in fcfgs["late"]],
                   "pose": pose, "anchor_free": anchor_free, "disk": disk,
-                  "camera": camera, "loaded": loaded}))
+                  "camera": camera, "legacy": legacy, "loaded": loaded}))
 """
 
 
@@ -346,7 +369,8 @@ def test_port_never_imports_jax(tmp_path):
                    "late_heads": 2,
                    "precalc": [1, 2, ["centers", "scores", "uncertainty"]],
                    "compressor": [1, 8, 8, 8],
-                   "center_point": [[1, 64, 64, 1], True], "loaded": []}
+                   "center_point": [[1, 64, 64, 1], True],
+                   "keypoints": [2, 8], "loaded": []}
 
 
 def test_chip_smoke_never_imports_jax():
@@ -426,4 +450,31 @@ def test_chip_smoke_never_imports_jax():
                                             "PointPillarLoss", [128, 128]],
                        "lss": ["LiftSplatShoot", "PointPillarLoss",
                                [128, 128]]},
+                   "legacy": {
+                       "multiscale": ["PointPillarBaselineMultiscale",
+                                      "PointPillarLoss", "intermediate", []],
+                       "disconet_teacher": ["PointPillarDiscoNetTeacher",
+                                            "PointPillarLoss", "early", []],
+                       "disconet": ["PointPillarDiscoNet",
+                                    "PointPillarDiscoNetLoss", "intermediate",
+                                    ["teacher_points"]],
+                       "voxel_net": ["VoxelNet", "VoxelNetLoss", "early", []],
+                       "voxel_net_intermediate": [
+                           "VoxelNetIntermediate", "VoxelNetLoss",
+                           "intermediate", []],
+                       "pixor": ["Pixor", "CenterPointLoss", "early", []],
+                       "pixor_intermediate": ["PixorIntermediate",
+                                              "CenterPointLoss",
+                                              "intermediate", []],
+                       "ciassd": ["CIASSD", "CiassdLoss", "early", []],
+                       "second_ssfa": ["SecondSSFA", "CiassdLoss", "early",
+                                       []],
+                       "second_ssfa_uncertainty": [
+                           "SecondSSFAUncertainty",
+                           "PointPillarUncertaintyLoss", "early", []],
+                       "fpvrcnn": ["FPVRCNN", "FpvrcnnLoss",
+                                   "intermediate2stage",
+                                   ["pos_equal_one_single"]],
+                       "center_labels": ["box_targets", "heatmap",
+                                         "reg_mask"]},
                    "loaded": []}
