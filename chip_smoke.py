@@ -231,7 +231,40 @@ Phases, in order; any failure raises and the exit code is non-zero:
      it, kd_loss > 0; then tools.train_w_kd.main runs an epoch of one step
      from that run dir; serve ms a frame (median and range after the
      first) with the serving peak, step ms and peak GiB;
- 14. the input pipeline: epochs of heal_tpu/configs/demo_heal_full/
+ 14. the tools, viewers and weight transplant (phase_tools, ``[tools]``
+     lines): first which optional packages the card's host has
+     (matplotlib, scikit-learn, open3d); a seeded synthetic
+     opencood-named state_dict of the flagship's HeterPyramidCollab
+     (utils/transplant.synthetic_reference) transplanted into the port's
+     flagship at full width and loaded strictly, its layout maps held
+     element by element (the PFN transpose, OIHW, grouped -> dense
+     block-diagonal and the deconv's double flip, the last two also as
+     F.conv2d(groups=32) and F.conv_transpose2d on the card), then
+     TOOLS_FRAMES frames served f32 and bf16 (1 + 15 launches a frame,
+     f32 heads within HEADS_TOL of the plain kernel versions); a
+     synthetic spconv VoxelBackBone8x state_dict transplanted into
+     models/second.SecondRefEncoder with the m3 agent's encoder args
+     (opv2v/heal/stage2/m3_alignto_m1.yaml) and run on one frame of its
+     cloud beside the column engine's encoder (ms a frame each), and the
+     oracle engine's voxelization, submanifold and strided convs held to
+     the column engine's on the same sites and weights (ORACLE_TOL);
+     tools/profiler.main on the flagship (f32 and bf16, --train at its
+     batch of 2: params, the FlopCounterMode count with kernels 1 and
+     2's operations apart, ms and fps, peak memory); tools/bench_matrix
+     .main's six rows at --frames BENCH_FRAMES; tools/train.main on
+     opv2v/heal/stage1/m1_pyramid.yaml (AP_SCENES, batch AP_BATCH,
+     AP_EPOCHS epochs, a checkpoint every epoch; its scripts/ snapshot
+     without a built library) and tools/ap_curve.main over it; the CPM
+     sizes of FPV-RCNN's keypoint messages (phase 13's derived config)
+     and of Where2comm's sent cells
+     (opv2v/lidar_only/center_point_where2comm.yaml), raw / quantized /
+     zlib KB a frame (utils/cpm_size.py); inference --save_vis on the
+     transplanted flagship (the PNG, where matplotlib is installed), the
+     frame drawn on visualization.canvas.CanvasBEV with pixels drawn in
+     every GT box's footprint, and CKA / MMD between two agents' BEV
+     features from the card (t-SNE where scikit-learn is installed);
+     exact launches throughout (TOOLS_LAUNCHES, BENCH_LAUNCHES);
+ 15. the input pipeline: epochs of heal_tpu/configs/demo_heal_full/
      stage2_m2.yaml (PIPELINE_SCENES train scenes) timed on the host
      clock, batches assembled serially, through the prefetch pipeline
      (tools/train.py, data/prefetch.py), and from the device cache of
@@ -480,6 +513,33 @@ LEGACY_LAUNCHES = {
     "voxel_net": (0, 0), "voxel_net_intermediate": (0, 5), "pixor": (0, 0),
     "pixor_intermediate": (0, 5), "ciassd": (0, 0), "second_ssfa": (0, 0),
     "second_ssfa_uncertainty": (0, 0), "fpvrcnn": (0, 0)}
+# phase 14 (tools): TOOLS_FRAMES flagship frames served after the
+# transplant and one drawn by --save_vis; the profiler's timed forwards
+# (train steps: half as many, after a warm one; plus one counted and 5
+# warm forwards); bench_matrix at --frames BENCH_FRAMES (a warm and 3
+# timed passes); the ap_curve run: (train, test) scenes, batch, epochs and
+# ap_curve's --max_batches; the CPM frames; CKA's sampled BEV cells
+TOOLS_FRAMES = 4
+TOOLS_ITERS = 20
+BENCH_FRAMES = 4
+BENCH_STEPS = 10  # bench_matrix's train rows (after a warm step)
+AP_SCENES = (4, 2)
+AP_BATCH = 2
+AP_EPOCHS = 2
+AP_FRAMES = 2
+CPM_FRAMES = 2
+CKA_CELLS = 2048
+# the oracle engine vs the column engine, f32: max |d| / (1 + max |col|)
+# (the two sum a conv's taps in different orders)
+ORACLE_TOL = 1e-5
+# (kernel 1, kernel 2) launches a forward: the flagship (transplanted,
+# profiled, ap_curve's stage-1 model); bench_matrix's paths (the m3
+# single model and SECOND bypass both; the camera has no kernel 1); a
+# pp_max train step launches kernel 2 5 times each way
+TOOLS_LAUNCHES = (1, 15)
+BENCH_LAUNCHES = {"pp_max": (1, 5), "second": (0, 0), "lss": (0, 15),
+                  "heter4": (2, 15)}
+BENCH_TRAIN_SHIFTS = 5
 # the paths whose own inputs the kernels are held on (kernel 1, kernel 2):
 # the multiscale baseline's frame and its three levels' warps, the KD
 # teacher's early-fused view, DiscoNet's fused-map warp (the intermediate
@@ -3550,6 +3610,569 @@ def phase_legacy(cfgs: dict) -> dict:
     return {"launches": total, "rows": rows, "kernels": kernels}
 
 
+def optional_packages() -> dict:
+    """Which optional packages this host has: matplotlib (PNG writing),
+    scikit-learn (t-SNE), open3d (the interactive viewer)."""
+    import importlib.util
+
+    return {name: importlib.util.find_spec(name) is not None
+            for name in ("matplotlib", "sklearn", "open3d")}
+
+
+def check_layouts(ref: dict, sd: dict, dev) -> dict:
+    """The transplant's layout maps held element by element on the
+    flagship: every port entry of ``sd`` against its reference weight in
+    ``ref`` (utils/transplant._reference_entry), exactly: the PFN linear
+    transposed, OIHW convs as they are, each ConvTranspose2d weight as it
+    is (deconv_kernel's double flip undone by the bridge), BN entries
+    1:1, each grouped ResNeXt conv block-diagonal with zeros off the
+    blocks; then on the card the last grouped conv's dense kernel
+    against F.conv2d(groups=32) with the reference weight, f32 (TF32
+    off). -> the counts and that error."""
+    import torch.nn.functional as F
+
+    from heal_tpu_torch.utils.transplant import _reference_entry
+
+    counts = {"exact": 0, "transposed": 0, "grouped": 0, "deconv": 0}
+    grouped = None
+    for key, t in sd.items():
+        entry = _reference_entry(key, tuple(t.shape), "")
+        if entry is None:
+            continue
+        w = ref[entry[0]]
+        if key.endswith("pfn_kernel"):
+            ok = torch.equal(t, w.T)
+            counts["transposed"] += 1
+        elif tuple(w.shape) != tuple(t.shape):  # grouped conv2
+            g, ig = 32, w.shape[1]
+            og = w.shape[0] // g
+            want = torch.zeros_like(t)
+            for i in range(g):
+                want[i * og:(i + 1) * og, i * ig:(i + 1) * ig] = \
+                    w[i * og:(i + 1) * og]
+            ok = torch.equal(t, want)
+            counts["grouped"] += 1
+            grouped = (w, t)
+        else:
+            ok = torch.equal(t, w)
+            counts["deconv" if key.endswith("ConvTranspose_0.kernel")
+                   else "exact"] += 1
+        if not ok:
+            raise AssertionError(f"transplant layout: {key} <- {entry[0]}")
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    w, dense = (x.to(dev) for x in grouped)
+    x = torch.randn((1, w.shape[1] * 32, 32, 64), generator=gen, device=dev)
+    counts["grouped_rel"] = rel_err(F.conv2d(x, dense, padding=1),
+                                    F.conv2d(x, w, padding=1, groups=32))[1]
+    if not counts["grouped_rel"] <= KERNEL_TOL[torch.float32]:
+        raise AssertionError(f"grouped -> dense on the card: "
+                             f"{counts['grouped_rel']}")
+    return counts
+
+
+def _column_values(cols, feats, sites: dict):
+    """The column engine's ``feats`` (1, Vc, Z, C) at the oracle's active
+    ``sites`` (one sample), and whether every site is an occupied voxel
+    of ``cols``."""
+    _, _, w = cols["grid"]
+    c = sites["coords"][sites["valid"]].long()
+    key2 = (c[:, 1] * w + c[:, 2]).to(torch.int32)
+    ck = cols["ckeys"][0].contiguous()
+    pos = torch.clamp(torch.searchsorted(ck, key2), max=ck.shape[0] - 1)
+    found = (ck[pos] == key2) & cols["occ"][0, pos, c[:, 0]]
+    return feats[0, pos, c[:, 0]], bool(found.all())
+
+
+def oracle_vs_columns(points, mask, lidar_range, voxel_size, gen) -> dict:
+    """The oracle engine (ops/sparse_conv.py) against the column engine
+    (ops/column_conv.py) on one cloud, capacities holding every voxel:
+    the same active sites after voxelizing and after a strided conv, the
+    voxel means, and a submanifold and a strided conv with the same
+    seeded weights, within ORACLE_TOL (f32). -> the sites and errors."""
+    from heal_tpu_torch.ops import column_conv as cc
+    from heal_tpu_torch.ops import sparse_conv as sc
+
+    cap = int(mask.sum())
+    sp = sc.voxelize_points(points, mask, lidar_range, voxel_size, cap)
+    cols = cc.voxelize_columns(points[None], mask[None], lidar_range,
+                               voxel_size, cap)
+    out = {"voxels": int(sp["valid"].sum())}
+    if out["voxels"] != int(cols["occ"].sum()):
+        raise AssertionError("oracle vs columns: voxel counts differ")
+    errs = {}
+    got, found = _column_values(cols, cols["feats"], sp)
+    errs["means"] = rel_err(sp["feats"][sp["valid"]], got)[1]
+    w1 = 0.3 * torch.randn((27, 4, 16), generator=gen, device=points.device)
+    sp = dict(sp, feats=sc.subm_conv(sp, w1))
+    cols = dict(cols, feats=cc.subm_conv(cols, w1))
+    got, found2 = _column_values(cols, cols["feats"], sp)
+    errs["subm"] = rel_err(sp["feats"][sp["valid"]], got)[1]
+    w2 = 0.3 * torch.randn((27, 16, 8), generator=gen, device=points.device)
+    sites = sc.downsample_sites(sp, 8 * cap)
+    o_sp = sc.strided_conv(sp, sites, w2)
+    cols2 = cc.strided_conv(cols, cc.downsample_columns(cols, 4 * cap), w2)
+    out["strided_sites"] = int(sites["valid"].sum())
+    if (out["strided_sites"] != int(cols2["occ"].sum())
+            or sites["grid"] != cols2["grid"]):
+        raise AssertionError("oracle vs columns: strided sites differ")
+    got, found3 = _column_values(cols2, cols2["feats"], sites)
+    errs["strided"] = rel_err(o_sp[sites["valid"]], got)[1]
+    if not (found and found2 and found3):
+        raise AssertionError("oracle vs columns: a site is missing")
+    if not max(errs.values()) <= ORACLE_TOL:
+        raise AssertionError(f"oracle vs columns: {errs}")
+    out["rel"] = errs
+    return out
+
+
+def _events_ms(fn, n: int = 3) -> float:
+    """Median device ms of ``fn`` over ``n`` calls after a warm one."""
+    fn()
+    times = []
+    for _ in range(n):
+        t0 = torch.cuda.Event(enable_timing=True)
+        t1 = torch.cuda.Event(enable_timing=True)
+        t0.record()
+        fn()
+        t1.record()
+        t1.synchronize()
+        times.append(t0.elapsed_time(t1))
+    return statistics.median(times)
+
+
+def keypoint_messages(model, inputs) -> list:
+    """FPV-RCNN's messages of one frame: each sending agent's (not the
+    ego's) valid keypoints (K, 3) and features (K, C) as the keypoint
+    encoder hands them on, on the host."""
+    got = {}
+    hook = model.kp_encoder.register_forward_hook(
+        lambda mod, inp, out: got.update(out=out))
+    try:
+        with torch.inference_mode():
+            model(inputs)
+    finally:
+        hook.remove()
+    kp, feat, kmask = got["out"]
+    agents = inputs["agent_mask"].reshape(-1)
+    return [(kp[j][kmask[j]].float().cpu().numpy(),
+             feat[j][kmask[j]].float().cpu().numpy())
+            for j in range(1, kp.shape[0]) if bool(agents[j])]
+
+
+def where2comm_messages(model, inputs, lidar_range) -> list:
+    """Where2comm's messages of one frame: each sending agent's BEV cells
+    under its communication mask, as (cell centres (n, 3) in metres,
+    features (n, C)) on the host."""
+    from heal_tpu_torch.models.fuse.fusion_in_one import Where2commFusion
+    from heal_tpu_torch.models.fuse.where2comm_comm import CommMask
+
+    got = {}
+    hooks = []
+    for mod in model.modules():
+        if isinstance(mod, CommMask):
+            hooks.append(mod.register_forward_hook(
+                lambda m, i, o: got.update(mask=o[0])))
+        elif isinstance(mod, Where2commFusion):
+            hooks.append(mod.register_forward_pre_hook(
+                lambda m, a: got.update(feat=a[0])))
+    try:
+        with torch.inference_mode():
+            model(inputs)
+    finally:
+        for h in hooks:
+            h.remove()
+    mask, feat = got["mask"][0, ..., 0], got["feat"][0]  # (L, h, w), (L, h, w, C)
+    if mask.shape != feat.shape[:3]:
+        raise AssertionError(f"where2comm: mask {tuple(mask.shape)} vs "
+                             f"features {tuple(feat.shape)}")
+    _, h, w = mask.shape
+    x0, y0, _, x1, y1, _ = lidar_range
+    out = []
+    for j in range(1, mask.shape[0]):
+        if not bool(inputs["agent_mask"][0, j]):
+            continue
+        iy, ix = torch.nonzero(mask[j] > 0, as_tuple=True)
+        xy = torch.stack([x0 + (ix + 0.5) * (x1 - x0) / w,
+                          y0 + (iy + 0.5) * (y1 - y0) / h,
+                          torch.zeros_like(iy, dtype=torch.float32)], -1)
+        out.append((xy.float().cpu().numpy(),
+                    feat[j][mask[j] > 0].float().cpu().numpy()))
+    return out
+
+
+def cpm_frame(messages: list) -> dict:
+    """A frame's CPM bytes (raw, quantized, compressed) summed over its
+    senders' messages (utils/cpm_size.cpm_size_bytes)."""
+    from heal_tpu_torch.utils.cpm_size import cpm_size_bytes
+
+    sizes = [cpm_size_bytes(c, f) for c, f in messages]
+    return {k: sum(s[k] for s in sizes) for k in ("raw", "quantized",
+                                                   "compressed")}
+
+
+def footprints_drawn(canvas, corners) -> list:
+    """For each GT box (corners (K, 8, 3)): the pixels drawn on
+    ``canvas`` (a CanvasBEV) inside its footprint's bounding rectangle."""
+    drawn = canvas.get_canvas().any(axis=-1)
+    h, w = canvas.shape
+    out = []
+    for box in corners:
+        rows, cols, _ = canvas.get_canvas_coords(box[:4, :2])
+        r0, r1 = max(int(rows.min()), 0), min(int(rows.max()), h - 1)
+        c0, c1 = max(int(cols.min()), 0), min(int(cols.max()), w - 1)
+        out.append(int(drawn[r0:r1 + 1, c0:c1 + 1].sum()))
+    return out
+
+
+def tools_cfgs() -> dict:
+    """Phase 14's configs: the flagship (TOOLS_FRAMES test scenes), the m3
+    stage-2 config (its encoder args, one frame), stage 1 of the protocol
+    for the ap_curve run (AP_SCENES, AP_BATCH, a checkpoint and a
+    validation every epoch), phase 13's FPV-RCNN and phase 10's
+    CenterPoint with Where2comm (CPM_FRAMES test scenes each)."""
+    cfg = flagship_cfg()
+    cfg["fusion"]["args"]["num_scenes_test"] = TOOLS_FRAMES
+    pcfgs = protocol_cfgs()
+    m3 = pcfgs["stage2_m3"]
+    m3["fusion"]["args"]["num_scenes_test"] = 1
+    ap = pcfgs["stage1"]
+    ap["fusion"]["args"].update(num_scenes_train=AP_SCENES[0],
+                                num_scenes_test=AP_SCENES[1])
+    ap["train_params"].update(batch_size=AP_BATCH, save_freq=1, eval_freq=1)
+    fpv = legacy_cfgs()["fpvrcnn"]
+    w2c = anchor_free_cfgs()["center_point"]
+    for c in (fpv, w2c):
+        c["fusion"]["args"]["num_scenes_test"] = CPM_FRAMES
+    return {"flagship": cfg, "m3": m3, "ap": ap, "fpvrcnn": fpv,
+            "where2comm": w2c}
+
+
+def phase_tools(cfgs: dict) -> dict:
+    """The tools, viewers and weight transplant (module docstring, phase
+    14); returns each kernel's launches over the phase."""
+    from heal_tpu_torch.config import save_yaml
+    from heal_tpu_torch.models.layers import channels_last
+    from heal_tpu_torch.models.second import SecondRefEncoder
+    from heal_tpu_torch.tools import ap_curve, bench_matrix, profiler
+    from heal_tpu_torch.tools import train as train_tool
+    from heal_tpu_torch.tools.inference import (build_weights, device_frames,
+                                                ego_points, run_inference)
+    from heal_tpu_torch.utils import box_np
+    from heal_tpu_torch.utils.cpm_size import save_ply
+    from heal_tpu_torch.utils.transplant import (
+        synthetic_reference, transplant_heter_pyramid_collab,
+        transplant_second_encoder)
+    from heal_tpu_torch.visualization import feature_analysis as fa
+    from heal_tpu_torch.visualization.canvas import CanvasBEV
+
+    import numpy as np
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    t_phase = time.perf_counter()
+    total = {k: 0 for k in _counts()}
+    rows = {}
+
+    def expect(what, k1, k2, k2b=0):
+        got = _counts()
+        want = {"pillar_tables": k1, "shift_rows": k2,
+                "shift_rows_backward": k2b}
+        if got != want:
+            raise AssertionError(f"{what}: launches {got}, want {want}")
+        for k in total:
+            total[k] += got[k]
+        _zero_counts()
+
+    have = optional_packages()
+    print("[tools] the card's host: " + ", ".join(
+        f"{k} {'installed' if v else 'not installed'}"
+        for k, v in have.items()))
+    if not have["matplotlib"]:
+        print("[tools] matplotlib is not installed here: PNG writing "
+              "(visualize, save_canvas, scatter_by_label) is held on the "
+              "CPU only (tests/test_torch_visualization.py); the numpy "
+              "canvases are checked here")
+    if not have["sklearn"]:
+        print("[tools] scikit-learn is not installed here: t-SNE is held "
+              "on the CPU only; CKA and MMD are checked here")
+    tmp = tempfile.TemporaryDirectory()
+    try:
+        # -- transplant: a synthetic opencood checkpoint into the flagship
+        cfg = cfgs["flagship"]
+        k1, k2 = TOOLS_LAUNCHES
+        model = build_weights(cfg, seed=SEED)
+        sd = model.state_dict()
+        ref = synthetic_reference(sd, seed=SEED)
+        new = transplant_heter_pyramid_collab(ref, sd, cfg["model"]["args"])
+        model.load_state_dict(new, strict=True)
+        layout = check_layouts(ref, new, dev)
+        model32 = channels_last(model.to(dev))
+        frames = device_frames(cfg, dev, TOOLS_FRAMES)
+        _zero_counts()
+        runs, served = _serve(cfg, model32, frames, "transplanted flagship")
+        _zero_counts()
+        if served != {"pillar_tables": 2 * TOOLS_FRAMES * k1,
+                      "shift_rows": 2 * TOOLS_FRAMES * k2,
+                      "shift_rows_backward": 0}:
+            raise AssertionError(f"transplanted flagship: launches {served}")
+        for k in total:
+            total[k] += served[k]
+        heads = heads_vs_plain(model32, frames, "transplanted flagship")
+        _zero_counts()  # the comparison's launches are not the path's
+        rows["transplant"] = dict(layout, entries=len(ref), of=len(sd),
+                                  heads_rel=heads)
+        print(f"[tools] transplant: {len(ref)} opencood entries into "
+              f"{len(sd)} of the flagship's, loaded strictly; layouts "
+              f"exact: {layout['transposed']} PFN transposed, "
+              f"{layout['exact']} OIHW convs / norms / biases, "
+              f"{layout['deconv']} ConvTranspose2d (double flip undone), "
+              f"{layout['grouped']} grouped -> dense block-diagonal "
+              f"(F.conv2d groups=32 on the card: rel "
+              f"{layout['grouped_rel']:.3e}); served {TOOLS_FRAMES} frames "
+              f"f32 {_fmt(_stats_ms(runs['f32']['serve_s']))}, bf16 "
+              f"{_fmt(_stats_ms(runs['bf16']['serve_s']))} ms; launches a "
+              f"frame {k1} + {k2}; f32 heads vs plain {heads:.3e} (tol "
+              f"{HEADS_TOL})")
+
+        # -- --save_vis, the canvases and the feature analysis
+        vis_dir = os.path.join(tmp.name, "vis_run")
+        os.makedirs(vis_dir)
+        save_yaml(cfg, os.path.join(vis_dir, "config.yaml"))
+        feats = {}
+        hook = model32.branch_m1.register_forward_hook(
+            lambda m, i, o: feats.update(bev=o[0]))
+        try:
+            if have["matplotlib"]:
+                res = run_inference(vis_dir, cfg, device=dev, model=model32,
+                                    frames=frames[:1], save_vis=True,
+                                    vis_interval=1)
+                png = os.path.join(vis_dir, "vis", "bev_00000.png")
+                if not os.path.getsize(png) > 0:
+                    raise AssertionError("--save_vis wrote no picture")
+            else:
+                res = run_inference(vis_dir, cfg, device=dev, model=model32,
+                                    frames=frames[:1])
+        finally:
+            hook.remove()
+        expect("--save_vis", k1, k2)
+        batch = frames[0][0]
+        post = cfg["postprocess"]
+        gt = box_np.boxes_to_corners_3d(
+            batch["gt_boxes"][0][batch["gt_mask"][0] > 0], post["order"])
+        g = post["gt_range"]
+        canvas = CanvasBEV((512, 1024), (g[0], g[1], g[3], g[4]))
+        canvas.draw_canvas_points(ego_points(batch)[:, :2])
+        canvas.draw_boxes(gt, colors=(0, 255, 0))
+        drawn = footprints_drawn(canvas, gt)
+        if not (gt.shape[0] and min(drawn) > 0):
+            raise AssertionError(f"canvas: GT footprints drawn {drawn}")
+        bev = feats["bev"]  # (agents, C, h, w) on the card
+        cells = torch.randperm(bev.shape[2] * bev.shape[3], generator=gen,
+                               device=dev)[:CKA_CELLS]
+        a, b = (bev[i].flatten(1)[:, cells].T.float().cpu().numpy()
+                .astype(np.float64) for i in (0, 1))
+        cka = {"linear": fa.linear_cka(a, b), "kernel": fa.kernel_cka(a, b),
+               "self": fa.linear_cka(a, a)}
+        mmd = {"linear": fa.mmd_linear(a, b), "rbf": fa.mmd_rbf(a, b)}
+        if not (0.0 <= cka["linear"] <= 1.0 and 0.0 <= cka["kernel"] <= 1.0
+                and abs(cka["self"] - 1.0) <= 1e-6):
+            raise AssertionError(f"CKA out of range: {cka}")
+        tsne = "held on the CPU only"
+        if have["sklearn"]:
+            emb = fa.tsne_embed(np.concatenate([a[:256], b[:256]]))
+            if emb.shape != (512, 2) or not np.isfinite(emb).all():
+                raise AssertionError("t-SNE: bad embedding")
+            tsne = "an embedding of 512 cells"
+        rows["vis"] = {"cka": cka, "mmd": mmd, "drawn": drawn}
+        print(f"[tools] --save_vis: "
+              + ("bev_00000.png written" if have["matplotlib"] else
+                 "the PNG held on the CPU only")
+              + f" ({res['frames']} frame, 1 + 15 launches); CanvasBEV: "
+              f"pixels drawn in each of the {len(drawn)} GT footprints "
+              f"(min {min(drawn)}); {CKA_CELLS} BEV cells of agents 0 and "
+              f"1 from the card: linear CKA {cka['linear']:.6f}, kernel CKA"
+              f" {cka['kernel']:.6f}, self {cka['self']:.9f}; MMD linear "
+              f"{mmd['linear']:.6f}, rbf {mmd['rbf']:.6f}; t-SNE {tsne}")
+        del model32, model, frames, runs
+
+        # -- SecondRefEncoder: a synthetic spconv checkpoint, the oracle
+        m3 = cfgs["m3"]
+        enc_args = m3["model"]["args"]["m3"]["encoder_args"]
+        lr, vs = tuple(enc_args["lidar_range"]), tuple(enc_args["voxel_size"])
+        enc = SecondRefEncoder(vs, lr)
+        esd = enc.state_dict()
+        rsd = synthetic_reference(esd, seed=SEED, prefix="encoder_m3")
+        enc.load_state_dict(transplant_second_encoder(rsd, esd, "encoder_m3"),
+                            strict=True)
+        ck = "VmapSecondRefStack_0.conv_out.kernel"
+        if not torch.equal(enc.state_dict()[ck], rsd[
+                "encoder_m3.spconv_block.conv_out.0.weight"].reshape(3, 64,
+                                                                     128)):
+            raise AssertionError("SECOND transplant: conv_out layout")
+        enc = enc.to(dev).eval()
+        batch, _ = next(train_tool.device_batches(m3, 1, dev, train=False))
+        pts = batch["inputs_m3"]["points"]
+        msk = batch["inputs_m3"]["point_mask"]
+        pts = pts.reshape(-1, *pts.shape[-2:])[:1]
+        msk = msk.reshape(-1, msk.shape[-1])[:1]
+        col = build_weights(m3, seed=SEED).branch_m3.encoder.to(dev).eval()
+        with torch.inference_mode():
+            out = enc(pts, msk)
+            ref_ms = _events_ms(lambda: enc(pts, msk))
+            col_ms = _events_ms(lambda: col(pts, msk))
+            oracle = oracle_vs_columns(pts[0], msk[0], lr, vs, gen)
+        if not (torch.isfinite(out).all() and out.abs().max() > 0):
+            raise AssertionError("SecondRefEncoder: bad output")
+        expect("SecondRef and the oracle", 0, 0)
+        rows["second_ref"] = dict(oracle, ms=ref_ms, column_ms=col_ms,
+                                  bev=list(out.shape))
+        print(f"[tools] SecondRefEncoder (m3's encoder args, "
+              f"{len(rsd)} spconv entries transplanted, loaded strictly): "
+              f"BEV {tuple(out.shape)} in {ref_ms:.3f} ms a frame f32 "
+              f"(median of 3 after a warm one) vs the column engine's "
+              f"encoder {col_ms:.3f} ms; oracle vs column engine on "
+              f"{int(msk[0].sum())} points: {oracle['voxels']} voxels and "
+              f"{oracle['strided_sites']} strided sites the same, rel err "
+              + ", ".join(f"{k} {v:.3e}" for k, v in oracle["rel"].items())
+              + f" (tol {ORACLE_TOL})")
+        del enc, col, batch, pts, msk, out
+        torch.cuda.empty_cache()
+
+        # -- the profiler on the flagship, f32 and bf16, --train at batch 2
+        yaml = os.path.join(tmp.name, "flagship.yaml")
+        save_yaml(cfg, yaml)
+        fwd = 1 + 5 + TOOLS_ITERS
+        steps = 1 + TOOLS_ITERS // 2
+        for dname in ("f32", "bf16"):
+            torch.cuda.reset_peak_memory_stats()
+            rep = profiler.main(["-y", yaml, "--device", "cuda", "--iters",
+                                 str(TOOLS_ITERS), "--dtype", dname,
+                                 "--train"])
+            expect(f"profiler {dname}", k1 * fwd, k2 * (fwd + steps),
+                   k2 * steps)
+            fl = rep["flops"]
+            if not (fl["counter_flops"] > 0 and fl["kernel_ops"][
+                    "pillar_tables"] > 0 and fl["kernel_ops"]["shift_rows"]
+                    > 0):
+                raise AssertionError(f"profiler: FLOP count {fl}")
+            rows[f"profiler_{dname}"] = rep
+            print(f"[tools] profiler {dname}: params {rep['params']}; "
+                  f"FlopCounterMode {fl['counter_flops']} FLOPs a frame "
+                  f"({fl['by_op']}), kernel 1 {fl['kernel_ops']['pillar_tables']}"
+                  f" and kernel 2 {fl['kernel_ops']['shift_rows']} "
+                  f"operations apart; {rep['inference']['latency_ms']:.3f} "
+                  f"ms a forward ({rep['inference']['fps']:.2f} fps, "
+                  f"{TOOLS_ITERS} after 5 warm, CUDA events); train step "
+                  f"{rep['training']['step_ms']:.3f} ms at batch "
+                  f"{rep['training']['batch_size']} "
+                  f"({rep['training']['samples_per_sec']:.2f} samples/s); "
+                  f"peak {rep['memory']['peak_bytes_in_use'] / 2**30:.3f} "
+                  "GiB")
+        torch.cuda.empty_cache()
+
+        # -- bench_matrix's six rows, one CLI call each
+        bench = []
+        for name in ("pp_max", "second", "lss", "heter4", "train",
+                     "train_bf16"):
+            torch.cuda.empty_cache()
+            (row,) = bench_matrix.main(["--paths", name, "--frames",
+                                        str(BENCH_FRAMES), "--out",
+                                        os.path.join(tmp.name, "bench.json")])
+            if name.startswith("train"):
+                n = 1 + BENCH_STEPS
+                expect(f"bench {name}", 0, BENCH_TRAIN_SHIFTS * n,
+                       BENCH_TRAIN_SHIFTS * n)
+            else:
+                n = 4 * BENCH_FRAMES  # a warm pass and 3 timed
+                b1, b2 = BENCH_LAUNCHES[name]
+                expect(f"bench {name}", b1 * n, b2 * n)
+            if not row["fps"] > 0:
+                raise AssertionError(f"bench {name}: {row}")
+            bench.append(row)
+            print(f"[tools] bench_matrix {json.dumps(row)}")
+        rows["bench"] = bench
+
+        # -- ap_curve over a 2-epoch stage-1 run of the CLI
+        ap = cfgs["ap"]
+        run_dir = os.path.join(tmp.name, "ap_run")
+        ap_yaml = os.path.join(tmp.name, "ap.yaml")
+        save_yaml(ap, ap_yaml)
+        t0 = time.perf_counter()
+        train_tool.main(["-y", ap_yaml, "--model_dir", run_dir, "--epochs",
+                         str(AP_EPOCHS), "--no_final_inference", "--device",
+                         "cuda"])
+        train_s = time.perf_counter() - t0
+        steps = AP_EPOCHS * (AP_SCENES[0] // AP_BATCH)
+        vals = AP_EPOCHS * (AP_SCENES[1] // AP_BATCH)
+        expect("the ap_curve run's training", k1 * vals,
+               k2 * (steps + vals), k2 * steps)
+        scripts = os.path.join(run_dir, "scripts", "heal_tpu_torch")
+        built = [f for _, _, fs in os.walk(scripts) for f in fs
+                 if f.endswith((".so", ".o"))]
+        if not os.path.isdir(scripts) or built:
+            raise AssertionError(f"the run's scripts/ snapshot: {built}")
+        t0 = time.perf_counter()
+        curve = ap_curve.main(["--model_dir", run_dir, "--max_batches",
+                               str(AP_FRAMES)])
+        curve_s = time.perf_counter() - t0
+        expect("ap_curve", k1 * AP_EPOCHS * AP_FRAMES,
+               k2 * AP_EPOCHS * AP_FRAMES)
+        with open(os.path.join(run_dir, "ap_curve.json")) as f:
+            if json.load(f) != curve:
+                raise AssertionError("ap_curve.json differs from the curve")
+        if ([r["epoch"] for r in curve] != list(range(1, AP_EPOCHS + 1))
+                or not all(0.0 <= r[k] <= 1.0 for r in curve
+                           for k in ("ap_30", "ap_50", "ap_70"))):
+            raise AssertionError(f"ap_curve: {curve}")
+        rows["ap_curve"] = curve
+        print(f"[tools] ap_curve: tools/train.py {AP_EPOCHS} epochs of "
+              f"{AP_SCENES[0] // AP_BATCH} steps at batch {AP_BATCH} in "
+              f"{train_s:.1f} s (scripts/heal_tpu_torch snapshot, no built "
+              f"library), then {len(curve)} epochs served {AP_FRAMES} "
+              f"frames each in {curve_s:.1f} s: " + "; ".join(
+                  f"epoch {r['epoch']} ap_30 {r['ap_30']:.4f} ap_50 "
+                  f"{r['ap_50']:.4f} ap_70 {r['ap_70']:.4f}" for r in curve))
+
+        # -- CPM sizes: FPV-RCNN's keypoints, Where2comm's sent cells
+        cpm = {}
+        for name, launches in (("fpvrcnn", (0, 0)),
+                               ("where2comm", AF_LAUNCHES["center_point"])):
+            c = cfgs[name]
+            torch.cuda.empty_cache()
+            model = channels_last(build_weights(c, seed=SEED).to(dev)).eval()
+            frames = device_frames(c, dev, CPM_FRAMES)
+            sizes = []
+            for _, x in frames:
+                msgs = (keypoint_messages(model, x) if name == "fpvrcnn" else
+                        where2comm_messages(model, x,
+                                            c["model"]["args"]["lidar_range"]))
+                if not msgs:
+                    raise AssertionError(f"cpm {name}: no sender")
+                sizes.append(cpm_frame(msgs))
+            expect(f"cpm {name}", launches[0] * CPM_FRAMES,
+                   launches[1] * CPM_FRAMES)
+            kb = {k: statistics.mean(s[k] for s in sizes) / 1024
+                  for k in ("raw", "quantized", "compressed")}
+            if not kb["raw"] > 0:
+                raise AssertionError(f"cpm {name}: {kb}")
+            cpm[name] = kb
+            ply = ""
+            if name == "fpvrcnn":  # the reference's draco input: keypoints
+                path = save_ply(os.path.join(tmp.name, "kp.ply"), *msgs[0])
+                ply = f"; a message as PLY {os.path.getsize(path)} bytes"
+            print(f"[tools] cpm_size {name}: "
+                  f"{len(msgs)} sender(s) a frame, KB a frame (mean of "
+                  f"{CPM_FRAMES}) raw {kb['raw']:.3f}, quantized "
+                  f"{kb['quantized']:.3f}, zlib {kb['compressed']:.3f}{ply}")
+            del model, frames
+        rows["cpm"] = cpm
+    finally:
+        tmp.cleanup()
+    print(f"[tools] phase {time.perf_counter() - t_phase:.1f} s; launches "
+          f"{total}")
+    return {"launches": total, "rows": rows}
+
+
 def phase_pipeline() -> None:
     """Epochs of the demo stage-2 m2 config on the host clock: batches
     assembled serially, through the prefetch pipeline, and from the
@@ -3648,6 +4271,8 @@ def main() -> int:
     torch.cuda.empty_cache()
     legacy = phase_legacy(legacy_cfgs())
     torch.cuda.empty_cache()
+    tools = phase_tools(tools_cfgs())
+    torch.cuda.empty_cache()
     phase_pipeline()
     for name in rows:
         rows[name]["protocol_launches"] = protocol["launches"][name]
@@ -3682,6 +4307,11 @@ def main() -> int:
         rows[name]["legacy_launches"] = legacy["launches"][name]
         rows[name]["legacy_launches_per_frame"] = {
             c: n[name == "shift_rows"] for c, n in LEGACY_LAUNCHES.items()}
+        rows[name]["tools_launches"] = tools["launches"][name]
+        rows[name]["tools_launches_per_frame"] = {
+            "flagship": TOOLS_LAUNCHES[name == "shift_rows"],
+            **{f"bench_{c}": n[name == "shift_rows"]
+               for c, n in BENCH_LAUNCHES.items()}}
     rows["shift_rows"]["disk_launches_per_step"] = 15
     # phases 10, 11 and 13's own kernel cases (the CenterPoint frame's,
     # the disk frame's, the multiscale frame's and the KD teacher's kernel
@@ -3697,6 +4327,8 @@ def main() -> int:
     rows["pillar_tables"]["train_launches"] = trained["pillar_tables"]
     rows["shift_rows"]["train_launches"] = trained["shift_rows"]
     rows["shift_rows"]["backward_launches"] = trained["shift_rows_backward"]
+    rows["shift_rows"]["tools_backward_launches"] = tools["launches"][
+        "shift_rows_backward"]
     rows["shift_rows"]["fusion_timings_backward_launches_per_step"] = {
         c: r["train_launches_per_step"]["shift_rows_backward"]
         for c, r in fusion["rows"].items() if "train_launches_per_step" in r}
@@ -3734,6 +4366,8 @@ def main() -> int:
               f"{k['camera_and_options_launches_per_forward']})"
               f", {k['legacy_launches']} in the legacy detectors phase (a "
               f"frame: {k['legacy_launches_per_frame']})"
+              f", {k['tools_launches']} in the tools phase (a frame: "
+              f"{k['tools_launches_per_frame']})"
               + f"; {k['bytes']} bytes, bound {k['bound_ms']:.4f} ms "
               f"({k['bound_by']}), {k['ms']:.4f} ms = {k['pct_of_bound']:.1f}%"
               f" of bound, plain {k['plain_ms']:.4f} ms, library call "

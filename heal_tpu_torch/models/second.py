@@ -22,8 +22,16 @@ outputs are masked). Off in every published config; the port reads it
 from ``encoder_args.second.dense_tail``, which heal_tpu's branch does not
 pass on (both tails give the same values).
 
-The reference-exact ``SecondRefEncoder`` on the voxel engine is ROADMAP
-queue 1, item 17.
+``SecondRefEncoder`` (heal_tpu second.py:196-324) is the reference-exact
+variant on the voxel "oracle" engine of ops/sparse_conv.py: spconv's
+VoxelBackBone8x layer for layer (conv_input, conv1, conv2-4 with their
+strided convs, conv4's (0, 1, 1) padding, the anisotropic conv_out),
+BatchNorm'd as the reference is (``MaskedBatchNorm`` over the active
+voxels, eps 1e-3), the z grid padded by one layer as the reference's
+sparse_shape is, and the reference's C*D channel fold. It hosts
+transplanted reference SECOND checkpoints
+(utils/transplant.transplant_second_encoder); the column engine stays
+the serving path.
 """
 from __future__ import annotations
 
@@ -33,6 +41,8 @@ import torch
 import torch.nn as nn
 
 from ..ops import column_conv as cc
+from ..ops import sparse_conv as sc
+from .encoders import MaskedBatchNorm
 from .layers import LayerNorm
 
 
@@ -161,3 +171,140 @@ class SecondEncoder(nn.Module):
 
     def forward(self, points, mask) -> torch.Tensor:
         return self.VmapSecondStack_0(points, mask)
+
+
+# ---------------------------------------------------------------------
+# Reference-exact variant: VoxelBackBone8x mirrored layer for layer on
+# the voxel oracle engine. Ref: models/heter_encoders.py:52-81 (SECOND =
+# MeanVFE -> VoxelBackBone8x -> HeightCompression), sub_modules/
+# sparse_backbone_3d.py:34-152, mean_vfe.py, height_compression.py.
+class _OracleConvBN(nn.Module):
+    """One sparse conv (subm, strided or anisotropic strided) + BN + ReLU:
+    ``kernel`` (taps, Cin, Cout), ``bn`` a MaskedBatchNorm (eps 1e-3)."""
+
+    def __init__(self, cin: int, cout: int, taps: int = 27):
+        super().__init__()
+        self.kernel = nn.Parameter(torch.empty(taps, cin, cout))
+        self.bn = MaskedBatchNorm(cout)
+
+    def forward(self, feats, table, valid):
+        out = sc.apply_table_conv(feats, table, self.kernel, valid)
+        h = self.bn(out, valid)
+        return torch.relu(h) * valid[:, None].to(h.dtype)
+
+
+def _stacked(tables: list, v: int) -> torch.Tensor:
+    """Per-sample tables (O, K) into rows of V -> one table into the
+    samples' stacked rows (sample b's at b*V), every miss at the zero
+    row after the last sample."""
+    b = len(tables)
+    return torch.cat([torch.where(t == v, b * v, t + i * v)
+                      for i, t in enumerate(tables)])
+
+
+class SecondRefStack(nn.Module):
+    """VoxelBackBone8x on the oracle engine (exact spconv site semantics;
+    z grid padded +1 like the reference sparse_shape). Each sample's
+    sites and tables are its own, as under JAX's vmap; the samples'
+    voxels are stacked for the convs, so in train mode the batch
+    statistics are taken over the active voxels of every sample, as the
+    reference's BatchNorm1d takes them (JAX's vmapped stack cannot write
+    per-sample statistics into its shared ones; at one sample the two
+    agree)."""
+
+    STAGES = {2: 32, 3: 64, 4: 64}
+
+    def __init__(self, lidar_range: Sequence[float],
+                 voxel_size: Sequence[float],
+                 max_voxels: Sequence[int] = (24000, 16000, 12000, 8000,
+                                              8000),
+                 num_features_out: int = 128):
+        super().__init__()
+        self.lidar_range = tuple(float(v) for v in lidar_range)
+        self.voxel_size = tuple(float(v) for v in voxel_size)
+        self.max_voxels = tuple(int(v) for v in max_voxels)
+        self.conv_input = _OracleConvBN(4, 16)
+        self.conv1_0 = _OracleConvBN(16, 16)
+        cin = 16
+        for si, c in self.STAGES.items():
+            for j in range(3):
+                setattr(self, f"conv{si}_{j}",
+                        _OracleConvBN(cin if j == 0 else c, c))
+            cin = c
+        self.conv_out = _OracleConvBN(cin, num_features_out, taps=3)
+
+    def forward(self, points, mask) -> torch.Tensor:
+        """points (B, N, 4), mask (B, N) -> BEV (B, H, W, C*D)."""
+        b = points.shape[0]
+        sps = []
+        for i in range(b):
+            sp = sc.voxelize_points(points[i], mask[i], self.lidar_range,
+                                    self.voxel_size, self.max_voxels[0])
+            d, h, w = sp["grid"]  # ref sparse_shape: one extra z layer
+            sps.append(dict(sp, grid=(d + 1, h, w)))
+
+        def run(layer, tables, outs):
+            """``layer`` on the stacked features of ``sps`` through the
+            per-sample ``tables``, writing each sample's into ``outs``."""
+            v = sps[0]["feats"].shape[0]
+            valid = torch.cat([o["valid"] for o in outs])
+            feats = layer(torch.cat([s["feats"] for s in sps]),
+                          _stacked(tables, v), valid)
+            o_cap = outs[0]["valid"].shape[0]
+            return [dict(o, feats=feats[i * o_cap:(i + 1) * o_cap])
+                    for i, o in enumerate(outs)]
+
+        tables = [sc.neighbor_table(sp) for sp in sps]
+        sps = run(self.conv_input, tables, sps)
+        sps = run(self.conv1_0, tables, sps)
+        for si in self.STAGES:
+            pad = (0, 1, 1) if si == 4 else (1, 1, 1)
+            outs = [sc.downsample_sites(sp, self.max_voxels[si - 1],
+                                        padding=pad) for sp in sps]
+            st = [sc.strided_table(sp, o, padding=pad)
+                  for sp, o in zip(sps, outs)]
+            sps = run(getattr(self, f"conv{si}_0"), st, outs)
+            tables = [sc.neighbor_table(sp) for sp in sps]
+            for j in (1, 2):
+                sps = run(getattr(self, f"conv{si}_{j}"), tables, sps)
+
+        # conv_out: kernel (3, 1, 1), stride (2, 1, 1), padding 0
+        geo = ((3, 1, 1), (2, 1, 1), (0, 0, 0))
+        outs = [sc.downsample_sites_nd(sp, self.max_voxels[4], *geo)
+                for sp in sps]
+        st = [sc.strided_table_nd(sp, o, *geo) for sp, o in zip(sps, outs)]
+        sps = run(self.conv_out, st, outs)
+        return torch.stack([_ref_fold(sp) for sp in sps])
+
+
+def _ref_fold(sp: dict) -> torch.Tensor:
+    """HeightCompression with the REFERENCE channel fold: dense
+    (C, D, H, W).view(C*D, H, W) -> NHWC channel c*D + d."""
+    dd, hh, ww = sp["grid"]
+    feats, valid = sp["feats"], sp["valid"]
+    c = feats.shape[-1]
+    flat = torch.where(valid, sc.linear_key(sp["coords"], sp["grid"]),
+                       dd * hh * ww)
+    dense = feats.new_zeros((dd * hh * ww + 1, c)).index_add_(
+        0, flat.long(), feats * valid[:, None].to(feats.dtype))
+    return dense[:-1].reshape(dd, hh, ww, c).permute(1, 2, 3, 0).reshape(
+        hh, ww, c * dd)
+
+
+class SecondRefEncoder(nn.Module):
+    """points (B, N, 4) + mask -> BEV (B, H, W, C*D), the reference-exact
+    layer stack, under the flax path ``VmapSecondRefStack_0`` (kernels
+    (taps, Cin, Cout), ``bn.{scale, bias}`` and the running ``bn.{mean,
+    var}``), so heal_tpu's variables bridge key for key."""
+
+    def __init__(self, voxel_size: Sequence[float],
+                 lidar_range: Sequence[float],
+                 max_voxels: Sequence[int] = (24000, 16000, 12000, 8000,
+                                              8000),
+                 num_features_out: int = 128):
+        super().__init__()
+        self.VmapSecondRefStack_0 = SecondRefStack(
+            lidar_range, voxel_size, max_voxels, num_features_out)
+
+    def forward(self, points, mask) -> torch.Tensor:
+        return self.VmapSecondRefStack_0(points, mask)

@@ -12,10 +12,14 @@ batch 1 per agent sample, the ego's first, each decoded with its
 (postprocess/decode.fuse_and_nms), as JAX does. A two-stage model
 (FPV-RCNN: ``rcnn_cls`` in its outputs) is evaluated on its refined
 collaborative detections (postprocess/decode.decode_stage2), not on the
-per-agent stage-1 heads. Visualisation is not ported yet.
+per-agent stage-1 heads. ``save_vis`` draws every ``vis_interval``-th
+frame's detections (red), GT boxes (green) and the ego's points in BEV
+to ``<model_dir>/vis/bev_{n:05d}.png`` (visualization/simple_vis.py), as
+JAX's ``--save_vis`` does.
 
     python -m heal_tpu_torch.tools.inference --config heal_tpu/configs/opv2v_m1_pyramid.yaml \
-        [--checkpoint net.pt | --seed 0] [--dtype bf16] [--max_batches 8]
+        [--checkpoint net.pt | --seed 0] [--dtype bf16] [--max_batches 8] \
+        [--model_dir runs/x --save_vis]
 
 A checkpoint is a ``torch.save``d state_dict with the bridged key names
 (utils/bridge.py, tools/checkpoint.py) or a heal_tpu ``.ckpt``; with
@@ -31,6 +35,7 @@ from __future__ import annotations
 
 import argparse
 import copy
+import os
 import time
 
 import numpy as np
@@ -147,6 +152,17 @@ def device_frames(cfg: dict, device, max_batches: int | None = None) -> list:
     return out
 
 
+def ego_points(batch: dict):
+    """The ego's valid points (P, 4) of a host batch, or None where the
+    batch carries no ``points`` (JAX inference.py's ``--save_vis``)."""
+    pts = batch.get("points")
+    if pts is None:
+        return None
+    if pts.ndim == 4:  # (B, agents, N, 4)
+        return pts[0, 0][batch["point_mask"][0, 0]]
+    return pts[0][batch["point_mask"][0]]
+
+
 def run_inference(
     model_dir: str | None = None,
     cfg: dict | None = None,
@@ -163,6 +179,8 @@ def run_inference(
     cfg_override: dict | None = None,
     override_range=None,
     frames: list | None = None,
+    save_vis: bool = False,
+    vis_interval: int = 40,
 ) -> dict:
     """Serve the test split of ``cfg`` (or ``model_dir``'s config.yaml)
     and return the AP dict of utils/eval_np.py (written to
@@ -182,7 +200,13 @@ def run_inference(
     ``model`` (already on ``device`` in ``dtype``) skips the weight setup.
     ``frames`` (from :func:`device_frames`, on ``device``) are served
     instead of assembling the test split; ``data_s`` is then 0.
+    ``save_vis`` writes frame n's BEV picture to
+    ``model_dir``/vis/bev_{n:05d}.png for every n divisible by
+    ``vis_interval`` (needs a ``model_dir``).
     """
+    if save_vis and model_dir is None:
+        raise ValueError("save_vis writes into model_dir/vis: give a "
+                         "model_dir")
     if cfg is None:
         cfg = load_yaml("", model_dir=model_dir)
     cfg = apply_overrides(cfg, noise_setting=noise_setting,
@@ -295,6 +319,13 @@ def run_inference(
                 eval_np.calculate_tp_fp(
                     dense["corners"], dense["scores"], gt_corners, stat, t
                 )
+            n = len(serve_s) - 1
+            if save_vis and n % vis_interval == 0:
+                from ..visualization import visualize
+
+                visualize(dense["corners"], gt_corners, ego_points(batch),
+                          post["gt_range"], os.path.join(
+                              model_dir, "vis", f"bev_{n:05d}.png"))
             if max_batches and len(serve_s) >= max_batches:
                 break
             t_data = time.perf_counter()
@@ -331,6 +362,9 @@ def main(argv=None):
     p.add_argument("--max_batches", type=int, default=None)
     p.add_argument("--range", default=None, help="e.g. 102.4,102.4")
     p.add_argument("--note", default="")
+    p.add_argument("--save_vis", action="store_true",
+                   help="write BEV pictures to <model_dir>/vis")
+    p.add_argument("--vis_interval", type=int, default=40)
     args = p.parse_args(argv)
     if args.config is None and args.model_dir is None:
         p.error("give --config or --model_dir")
@@ -341,6 +375,7 @@ def main(argv=None):
         args.model_dir, cfg, device=args.device, dtype=_DTYPES[args.dtype],
         checkpoint=args.checkpoint, seed=args.seed,
         max_batches=args.max_batches, note=args.note,
+        save_vis=args.save_vis, vis_interval=args.vis_interval,
         override_range=([float(x) for x in args.range.split(",")]
                         if args.range else None),
     )

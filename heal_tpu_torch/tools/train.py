@@ -6,7 +6,8 @@ Counterpart of heal_tpu/tools/train.py on one device:
         [--model_dir runs/x] [--epochs N] [--init_from net.pth|net.ckpt] \\
         [--device cuda]
 
-The run dir gets ``config.yaml``, ``train_log.jsonl`` and the checkpoints
+The run dir gets ``config.yaml``, a snapshot of the package under
+``scripts/`` (:func:`backup_source`), ``train_log.jsonl`` and the checkpoints
 of tools/checkpoint.py (every ``save_freq`` epochs, and the best
 validation loss every ``eval_freq`` epochs). With ``--model_dir`` holding
 a run, training resumes as JAX's does: from the checkpoint
@@ -104,12 +105,30 @@ def parse_args(argv=None):
     return p.parse_args(argv)
 
 
+def backup_source(model_dir: str) -> None:
+    """Snapshot the heal_tpu_torch source into ``<model_dir>/scripts``
+    (JAX train.py ``backup_source``; reference tools/train_utils
+    .backup_script), so a run stays reproducible after the tree moves on.
+    Built kernels and loaders (``_build/``, ``*.so``, ``*.o``) are left
+    out; a run dir that has the snapshot keeps it."""
+    import shutil
+
+    pkg_root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    dst = os.path.join(model_dir, "scripts")
+    if os.path.exists(dst):
+        return
+    shutil.copytree(
+        pkg_root, os.path.join(dst, "heal_tpu_torch"),
+        ignore=shutil.ignore_patterns("__pycache__", "_build", "*.so", "*.o"))
+
+
 def setup_run_dir(cfg: dict, model_dir: str) -> str:
     if not model_dir:
         stamp = time.strftime("%Y_%m_%d_%H_%M_%S")
         model_dir = os.path.join("heal_tpu_logs", f"{cfg['name']}_{stamp}")
     os.makedirs(model_dir, exist_ok=True)
     save_yaml(cfg, os.path.join(model_dir, "config.yaml"))
+    backup_source(model_dir)
     return model_dir
 
 

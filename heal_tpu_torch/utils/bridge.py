@@ -13,7 +13,10 @@ layouts differ:
     (I, O, s, s), flipped on both spatial axes (flax's tap at output
     (i*s+di, j*s+dj) is kern[s-1-di, s-1-dj], heal_tpu layers.py:278-290);
   * ``pfn_kernel`` (10, F), norm scales/biases, conv biases and the
-    batch statistics: as they are;
+    batch statistics: as they are; so are the SECOND encoders' sparse
+    conv kernels (taps, Cin, Cout), the column engine's and
+    ``SecondRefEncoder``'s (``VmapSecondRefStack_0.<layer>.kernel``, its
+    ``bn.{scale, bias}`` and running ``bn.{mean, var}``);
   * the fusion zoo's leaves (models/fuse/), which the port keeps in
     flax's layouts, so they pass as they are: ``Dense`` (in, out),
     ``LayerNorm`` scale / bias, the ``MultiHeadDotProductAttention``

@@ -566,3 +566,98 @@ def test_point_ops_on_the_card_match_the_cpu(dev):
     assert cpu[2].any() and not cpu[2].all()
     scale = 1.0 + cpu[3].abs().max().item()
     assert (card[3] - cpu[3]).abs().max().item() <= 1e-5 * scale
+
+
+def test_oracle_engine_on_the_card_matches_the_cpu_and_the_columns(dev):
+    """The voxel oracle (ops/sparse_conv.py) on the card: its sites and
+    tables equal the CPU's exactly, its subm and strided convs within
+    1e-5 of the CPU's and of the column engine's on the card (TF32 off),
+    and SecondRefEncoder's BEV within 1e-5 of the CPU's."""
+    from heal_tpu_torch.models.layers import init_weights
+    from heal_tpu_torch.models.second import SecondRefEncoder
+    from heal_tpu_torch.ops import column_conv as cc
+    from heal_tpu_torch.ops import sparse_conv as sc
+
+    rng = np.random.RandomState(1)
+    lr, vs = (0.0, 0.0, 0.0, 6.4, 6.4, 3.2), (0.2, 0.2, 0.2)
+    pts = np.concatenate([rng.uniform(0, 6.4, (4000, 3)),
+                          rng.uniform(0, 1, (4000, 1))], 1).astype(np.float32)
+    mask = rng.uniform(size=4000) < 0.9
+    gen = torch.Generator().manual_seed(0)
+    w1 = 0.3 * torch.randn((27, 4, 8), generator=gen)
+    w2 = 0.3 * torch.randn((27, 8, 6), generator=gen)
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        out = {}
+        for d in ("cpu", dev):
+            p, m = torch.from_numpy(pts).to(d), torch.from_numpy(mask).to(d)
+            sp = sc.voxelize_points(p, m, lr, vs, 4000)
+            sp = dict(sp, feats=sc.subm_conv(sp, w1.to(d)))
+            sites = sc.downsample_sites(sp, 16000)
+            o = sc.strided_conv(sp, sites, w2.to(d))
+            out[str(d)] = (sp, sites, o, sc.neighbor_table(sp))
+        (a, sa, oa, ta), (b, sb, ob, tb) = out["cpu"], out[str(dev)]
+        for k in ("keys", "coords", "valid"):
+            assert torch.equal(a[k], b[k].cpu()) and torch.equal(
+                sa[k], sb[k].cpu())
+        assert torch.equal(ta, tb.cpu())
+        _close(b["feats"], a["feats"].to(dev), torch.float32)
+        _close(ob, oa.to(dev), torch.float32)
+        p, m = torch.from_numpy(pts).to(dev), torch.from_numpy(mask).to(dev)
+        cols = cc.voxelize_columns(p[None], m[None], lr, vs, 4000)
+        cols = dict(cols, feats=cc.subm_conv(cols, w1.to(dev)))
+        cols2 = cc.strided_conv(cols, cc.downsample_columns(cols, 16000),
+                                w2.to(dev))
+        assert int(cols2["occ"].sum()) == int(sb["valid"].sum())
+        _close(cc.to_dense_bev(cols2)[0], sc.to_dense_bev(sb, ob),
+               torch.float32)
+        # the encoder on 40 z layers (its conv_out leaves 2 of them)
+        lr3, vs3 = (0.0, 0.0, -3.0, 6.4, 6.4, 1.0), (0.2, 0.2, 0.1)
+        enc = init_weights(SecondRefEncoder(vs3, lr3, (4000, 8000, 4000,
+                                                       2000, 1000)),
+                           torch.Generator().manual_seed(0)).eval()
+        pts3 = pts - np.array([0.0, 0.0, 3.0, 0.0], np.float32)
+        x = torch.from_numpy(pts3)[None], torch.from_numpy(mask)[None]
+        with torch.no_grad():
+            want = enc(*x)
+            got = enc.to(dev)(x[0].to(dev), x[1].to(dev))
+        assert want.shape == (1, 4, 4, 256) and want.abs().max() > 0
+        _close(got, want.to(dev), torch.float32)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+
+
+def test_transplanted_flagship_launches_1_and_15(dev):
+    """The flagship (heal_tpu/configs/opv2v_m1_pyramid.yaml) with a seeded
+    synthetic opencood checkpoint transplanted in (utils/transplant.py),
+    loaded strictly, one frame f32 and bf16: kernel 1 once and kernel 2
+    15 times a frame; heads finite."""
+    import os
+
+    from heal_tpu_torch.tools.inference import (build_weights, device_frames,
+                                                run_inference)
+    from heal_tpu_torch.tools.train import load_config
+    from heal_tpu_torch.utils.transplant import (
+        synthetic_reference, transplant_heter_pyramid_collab)
+
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    cfg = load_config(os.path.join(repo, "heal_tpu", "configs",
+                                   "opv2v_m1_pyramid.yaml"))
+    cfg["fusion"]["args"]["num_scenes_test"] = 1
+    model = build_weights(cfg, seed=0)
+    sd = model.state_dict()
+    model.load_state_dict(transplant_heter_pyramid_collab(
+        synthetic_reference(sd, seed=0), sd, cfg["model"]["args"]),
+        strict=True)
+    model = model.to(dev)
+    frames = device_frames(cfg, dev, 1)
+    k1, k2 = pillar.pillar_tables.launches, shift_rows.shift_rows.launches
+    for dtype in (torch.float32, torch.bfloat16):
+        got = run_inference(cfg=cfg, device=dev, dtype=dtype,
+                            model=model.to(dtype), frames=frames,
+                            collect_heads=True)
+        assert all(torch.isfinite(t).all() for h in got["heads"]
+                   for t in h.values())
+    assert pillar.pillar_tables.launches - k1 == 2
+    assert shift_rows.shift_rows.launches - k2 == 30

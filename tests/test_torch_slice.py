@@ -324,6 +324,20 @@ print(json.dumps({"points": list(batch["inputs_m1"]["points"].shape),
 """
 
 
+# every module of the port, walked by pkgutil, and chip_smoke.py
+_EVERY_MODULE = _BLOCK + """
+import importlib, pkgutil
+import heal_tpu_torch
+names = sorted(m.name for m in pkgutil.walk_packages(
+    heal_tpu_torch.__path__, "heal_tpu_torch."))
+for name in names:
+    importlib.import_module(name)
+import chip_smoke
+""" + _LOADED + """
+print(json.dumps({"modules": names, "loaded": loaded}))
+"""
+
+
 def _run_blocked(script, *args):
     env = dict(os.environ, PYTHONPATH=REPO)
     proc = subprocess.run(
@@ -371,6 +385,18 @@ def test_port_never_imports_jax(tmp_path):
                    "compressor": [1, 8, 8, 8],
                    "center_point": [[1, 64, 64, 1], True],
                    "keypoints": [2, 8], "loaded": []}
+
+
+def test_every_port_module_imports_without_jax():
+    out = _run_blocked(_EVERY_MODULE)
+    assert out["loaded"] == []
+    for name in ("utils.cpm_size", "utils.transplant", "tools.ap_curve",
+                 "tools.profiler", "tools.baseline_ab", "tools.bench_matrix",
+                 "visualization.canvas", "visualization.viewer3d",
+                 "visualization.simple_vis", "visualization.feature_analysis",
+                 "ops.sparse_conv", "models.second"):
+        assert f"heal_tpu_torch.{name}" in out["modules"]
+    assert len(out["modules"]) > 100
 
 
 def test_chip_smoke_never_imports_jax():
