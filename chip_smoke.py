@@ -268,7 +268,25 @@ Phases, in order; any failure raises and the exit code is non-zero:
      stage2_m2.yaml (PIPELINE_SCENES train scenes) timed on the host
      clock, batches assembled serially, through the prefetch pipeline
      (tools/train.py, data/prefetch.py), and from the device cache of
-     cache_device_batches.
+     cache_device_batches;
+ 16. the device mesh (phase_multi_device, ``[multi]`` lines;
+     heal_tpu_torch/parallel/sharding.py): the flagship's step on a
+     one-rank NCCL world (every collective of the mesh step runs: the
+     batch norms' moments, the gradient all-reduce, the aux mean) against
+     the plain Trainer step from the same weights and batch under
+     deterministic algorithms: the loss and every gradient bit-equal
+     (both run one arithmetic; a world of one sums nothing), kernel 2
+     launched 15 + 15 times a step and kernel 1 never; ms/step of both
+     in turns (plain, mesh, mesh, plain), the peak, the host's clocks a
+     step (process and main-thread CPU, Python's GC), and one step of
+     each traced by torch.profiler with the kernels whose device time
+     differs most; MULTI_STEPS steps through
+     tools/train.main --devices 1 (loss finite and falling, the
+     checkpoint loaded strictly by one process); then the flagship's
+     step on two gloo ranks sharing the card for each axis
+     (GLOO_MESHES; the agent run at MULTI_AGENTS agent slots) through
+     tools/dryrun_multichip.sharded_results against one process on the
+     card, loss and gradients within MULTI_TOL.
 The line before the last is {"kernels": [...]}; the last line is
 {"ok": true, "device": {...}}. The script imports torch and heal_tpu_torch
 only; configs and batches come through heal_tpu_torch.tools.train.
@@ -550,6 +568,24 @@ LEGACY_CASES = {"multiscale": (True, True), "disconet_teacher": (True, False),
 # (voxel_net_loss has no direction term); FPV-RCNN's residual layer while
 # no RoI passes fg_thresh (rcnn_reg_loss 0, as at a seeded init). Their
 # gradient is 0, as in JAX, and a zero bias stays
+# phase 16: the device mesh. The one-rank NCCL step is held bit-equal to
+# the plain step (deterministic algorithms, TF32 off). Two gloo ranks
+# against one process: JAX's own bounds (__graft_entry__.dryrun_multichip
+# at init), the loss within 1e-5 and every gradient within 1e-3 of
+# max(1, loss); their sums are split over two ranks, so they differ by
+# f32 rounding, which train-mode batch norm amplifies at a seeded init
+MULTI_TOL = {"loss": 1e-5, "grad": 1e-3}
+MULTI_PROFILE_TOP = 6  # kernels named in the profile of the two steps
+MULTI_STEPS = 4  # steps of tools/train.main --devices 1
+MULTI_TIMED = 3  # timed steps a turn
+# gloo carries CUDA tensors for every collective the mesh runs
+# (all-reduce, all-gather, the autograd gather, bf16: probed on the H100
+# in the first card run of this phase), and unlike NCCL it lets two ranks
+# share the one card: a data, an agent and a model split of two ranks
+GLOO_MESHES = {"data": (2, 1, 1), "agent": (1, 2, 1), "model": (1, 1, 2)}
+# the agent run's agent slots: the flagship's 5 do not split over 2 ranks
+# (every rank would run all of them), 4 give each rank 2
+MULTI_AGENTS = 4
 LEGACY_UNREACHED = {"voxel_net": "DetectionHeads_0.dir_head.",
                     "voxel_net_intermediate": "DetectionHeads_0.dir_head.",
                     "fpvrcnn": "roi_head.reg."}
@@ -4228,6 +4264,292 @@ def phase_pipeline() -> None:
           f"{build_s:.3f} s)")
 
 
+def _mesh_deltas(aux, grads, ref_aux, ref) -> tuple[float, float, float]:
+    """(|loss delta|, max |gradient delta|, the loss) of a sharded step
+    against one process."""
+    loss = float(ref_aux["total_loss"])
+    d_loss = abs(float(aux["total_loss"]) - loss)
+    d_grad = max((grads[k].float() - ref[k].float()).abs().max().item()
+                 for k in ref)
+    return d_loss, d_grad, loss
+
+
+def _max_grad(grads: dict) -> float:
+    return max(g.float().abs().max().item() for g in grads.values())
+
+
+def _within_multi_tol(what: str, d_loss: float, d_grad: float,
+                      loss: float) -> None:
+    scale = max(1.0, loss)
+    if not (math.isfinite(loss) and d_loss <= MULTI_TOL["loss"] * scale
+            and d_grad <= MULTI_TOL["grad"] * scale):
+        raise AssertionError(f"{what}: the sharded step is not one "
+                             f"process's: |dloss| {d_loss}, max |dgrad| "
+                             f"{d_grad}, loss {loss}")
+
+
+HOST_CLOCKS = ("process CPU", "main-thread CPU", "in Python's GC")
+
+
+@contextlib.contextmanager
+def _host_clocks():
+    """-> a callable giving (process CPU s, this thread's CPU s, s spent
+    in Python's garbage collector so far) while the context is open: what
+    a step's host clock spends besides waiting for the card."""
+    import gc
+
+    spent, start = [0.0], [0.0]
+
+    def on_gc(phase, info):
+        if phase == "start":
+            start[0] = time.perf_counter()
+        else:
+            spent[0] += time.perf_counter() - start[0]
+
+    gc.callbacks.append(on_gc)
+    try:
+        yield lambda: (time.process_time(), time.thread_time(), spent[0])
+    finally:
+        gc.callbacks.remove(on_gc)
+
+
+def _thread_names() -> list:
+    import threading
+
+    return sorted(t.name for t in threading.enumerate())
+
+
+def _kernel_ms(step) -> dict:
+    """{kernel name: (device ms, calls)} of one call of ``step``, from a
+    torch.profiler trace of the card (empty if the trace has no device
+    time)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        step()
+        torch.cuda.synchronize()
+    out = {}
+    for e in prof.key_averages():
+        us = getattr(e, "self_device_time_total", None)
+        if us is None:
+            us = e.self_cuda_time_total
+        if us > 0:
+            ms, n = out.get(e.key, (0.0, 0))
+            out[e.key] = (ms + us / 1e3, n + e.count)
+    return out
+
+
+def _profile_diff(steps: dict) -> dict:
+    """Trace one call of each of ``steps`` (name -> callable, two of
+    them) and print the device totals and the MULTI_PROFILE_TOP kernels
+    whose device time differs most; -> {name: total device ms}."""
+    (a, fa), (b, fb) = steps.items()
+    prof = {a: _kernel_ms(fa), b: _kernel_ms(fb)}
+    total = {k: sum(ms for ms, _ in v.values()) for k, v in prof.items()}
+    if not all(total.values()):
+        print(f"[multi] torch.profiler: no device time in the trace "
+              f"({a} {total[a]}, {b} {total[b]})")
+        return total
+    zero = (0.0, 0)
+
+    def delta(k):
+        return prof[b].get(k, zero)[0] - prof[a].get(k, zero)[0]
+
+    keys = sorted(set(prof[a]) | set(prof[b]), key=lambda k: -abs(delta(k)))
+    print(f"[multi] torch.profiler, one step each: device time {a} "
+          f"{total[a]:.3f} ms in {sum(n for _, n in prof[a].values())} "
+          f"kernels, {b} {total[b]:.3f} ms in "
+          f"{sum(n for _, n in prof[b].values())}; the "
+          f"{MULTI_PROFILE_TOP} kernels that differ most ({b} - {a}, ms; "
+          "calls): " + "; ".join(
+              f"{k[:70]} {delta(k):+.3f} ({prof[a].get(k, zero)[1]} / "
+              f"{prof[b].get(k, zero)[1]})" for k in keys[:MULTI_PROFILE_TOP]))
+    return total
+
+
+def phase_multi_device(cfg, dev=torch.device("cuda")) -> dict:
+    """Phase 16: the flagship on the device mesh; -> the launch counts of
+    the one-rank mesh step and of the tools/train.main run."""
+    import torch.distributed as dist
+
+    from heal_tpu_torch.config import save_yaml
+    from heal_tpu_torch.data import build_dataset
+    from heal_tpu_torch.models import build_model
+    from heal_tpu_torch.parallel import launch, to_device
+    from heal_tpu_torch.parallel.sharding import make_mesh
+    from heal_tpu_torch.tools import checkpoint as ckpt_lib
+    from heal_tpu_torch.tools import dryrun_multichip as dry
+    from heal_tpu_torch.tools import train as train_tool
+    from heal_tpu_torch.tools.inference import build_weights
+
+    bs = cfg["train_params"]["batch_size"]
+    host = next(build_dataset(cfg, train=True).batches(bs, shuffle=False))
+    batch = to_device(host, dev)
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        init = os.path.join(tmp, "init.pth")
+        torch.save(build_weights(cfg, seed=SEED).state_dict(), init)
+        t0 = time.perf_counter()
+        launch.init_rank(0, 1, dev.type, "file://" + os.path.join(tmp, "rdv"))
+        try:
+            mesh = make_mesh(1, 1, 1, 1)
+            print(f"[multi] one-rank NCCL world up in "
+                  f"{time.perf_counter() - t0:.3f} s: {mesh}, backend "
+                  f"{dist.get_backend()}")
+            torch.use_deterministic_algorithms(True, warn_only=True)
+            with warnings.catch_warnings(record=True) as caught:
+                warnings.simplefilter("always")
+                plain = train_tool.build_trainer(cfg, dev, 1, resume=init)
+                ref_aux = plain.gradients(batch)
+                ref = _grad_leaves(plain.model)
+                meshed = train_tool.build_trainer(cfg, dev, 1, resume=init,
+                                                  mesh=mesh)
+                _zero_counts()
+                aux = meshed.gradients(batch)
+                torch.cuda.synchronize()
+                step_counts = _counts()
+                grads = _grad_leaves(meshed.model)
+            torch.use_deterministic_algorithms(False)
+            loose = sorted({str(w.message).split(" does not have")[0]
+                            for w in caught
+                            if "deterministic" in str(w.message)})
+            d_loss, d_grad, loss = _mesh_deltas(aux, grads, ref_aux, ref)
+            print(f"[multi] flagship step, one-rank NCCL mesh vs the plain "
+                  f"Trainer (same weights and batch of {bs}, deterministic, "
+                  f"TF32 off): loss {loss:.4f}, |dloss| {d_loss:.3e}, max "
+                  f"|dgrad| {d_grad:.3e} over {len(ref)} leaves (max |g| "
+                  f"{_max_grad(ref):.3e}; bound: bit-equal); launches "
+                  f"{step_counts}; ops without a deterministic kernel: "
+                  f"{loose or 'none'}")
+            if not (math.isfinite(loss) and d_loss == 0.0 and d_grad == 0.0):
+                raise AssertionError(
+                    f"the one-rank NCCL step is not the plain step: |dloss| "
+                    f"{d_loss}, max |dgrad| {d_grad}")
+            want = {"pillar_tables": 0, "shift_rows": 15,
+                    "shift_rows_backward": 15}
+            if step_counts != want:
+                raise AssertionError(f"the mesh step launched {step_counts}, "
+                                     f"want {want}")
+            times = {"plain": [], "mesh": []}
+            clock_s = {"plain": [], "mesh": []}
+            torch.cuda.reset_peak_memory_stats()
+            with _host_clocks() as clocks:
+                for name in ("plain", "mesh", "mesh", "plain"):
+                    tr = plain if name == "plain" else meshed
+                    for _ in range(MULTI_TIMED):
+                        torch.cuda.synchronize()
+                        c0 = clocks()
+                        t = time.perf_counter()
+                        tr.train_step(batch)
+                        torch.cuda.synchronize()
+                        times[name].append(time.perf_counter() - t)
+                        clock_s[name].append([b - a for a, b in
+                                              zip(c0, clocks())])
+            peak = torch.cuda.max_memory_allocated() / 2**30
+            ms = {k: 1e3 * statistics.median(v) for k, v in times.items()}
+            print(f"[multi] f32 train step, median of {2 * MULTI_TIMED} in "
+                  f"turns (plain, mesh, mesh, plain): plain "
+                  f"{ms['plain']:.3f} ms, one-rank mesh {ms['mesh']:.3f} ms "
+                  f"(mesh - plain {ms['mesh'] - ms['plain']:+.3f} "
+                  f"ms); ranges plain "
+                  f"{1e3 * min(times['plain']):.3f}-"
+                  f"{1e3 * max(times['plain']):.3f}, mesh "
+                  f"{1e3 * min(times['mesh']):.3f}-"
+                  f"{1e3 * max(times['mesh']):.3f} ms; peak {peak:.3f} GiB "
+                  "(both models resident)")
+            med = {k: [1e3 * statistics.median(c[i] for c in v)
+                       for i in range(len(HOST_CLOCKS))]
+                   for k, v in clock_s.items()}
+            print("[multi] host clocks a step, medians (plain / mesh): "
+                  + "; ".join(f"{what} {med['plain'][i]:.3f} / "
+                              f"{med['mesh'][i]:.3f} ms"
+                              for i, what in enumerate(HOST_CLOCKS))
+                  + f"; Python threads {_thread_names()}")
+            device_ms = _profile_diff({
+                "plain": lambda: plain.train_step(batch),
+                "mesh": lambda: meshed.train_step(batch)})
+            out["step"] = dict(step_counts, ms=ms, peak_gib=peak,
+                               d_loss=d_loss, d_grad=d_grad,
+                               device_ms=device_ms)
+            del plain, meshed
+        finally:
+            dist.destroy_process_group()
+        torch.cuda.empty_cache()
+
+        # MULTI_STEPS steps through the CLI: one batch an epoch
+        run_cfg = copy.deepcopy(cfg)
+        run_cfg["fusion"]["args"]["num_scenes_train"] = bs
+        run_cfg["fusion"]["args"]["num_scenes_test"] = bs
+        run_cfg["train_params"]["eval_freq"] = MULTI_STEPS
+        run_cfg["train_params"]["save_freq"] = MULTI_STEPS
+        cfg_path = os.path.join(tmp, "flagship.yaml")
+        save_yaml(run_cfg, cfg_path)
+        run = os.path.join(tmp, "run")
+        _zero_counts()
+        t0 = time.perf_counter()
+        train_tool.main(["-y", cfg_path, "--model_dir", run, "--epochs",
+                         str(MULTI_STEPS), "--devices", "1", "--device",
+                         dev.type, "--no_final_inference"])
+        main_s = time.perf_counter() - t0
+        main_counts = _counts()
+        with open(os.path.join(run, "train_log.jsonl")) as f:
+            losses = [json.loads(line)["total_loss"] for line in f]
+        _, path = ckpt_lib.find_checkpoint(run)
+        one = build_model(train_tool.load_config(cfg_path)["model"])
+        one.load_state_dict(torch.load(path), strict=True)
+        print(f"[multi] tools/train.main --devices 1 --device cuda: "
+              f"{MULTI_STEPS} steps (an epoch of one batch of {bs} each) and "
+              f"a validation in {main_s:.3f} s; losses "
+              + ", ".join(f"{x:.4f}" for x in losses)
+              + f"; launches {main_counts}; {os.path.basename(path)} loaded "
+              "strictly into one process's model")
+        if not (len(losses) == MULTI_STEPS
+                and all(math.isfinite(x) for x in losses)
+                and losses[-1] < losses[0]):
+            raise AssertionError(f"--devices 1: losses {losses}")
+        if (main_counts["shift_rows_backward"] < 15 * MULTI_STEPS
+                or main_counts["shift_rows"] < 15 * MULTI_STEPS):
+            raise AssertionError(f"--devices 1 launched {main_counts}")
+        out["main"] = main_counts
+
+        # two gloo ranks on the one card, a mesh axis each
+        agent_cfg = copy.deepcopy(cfg)
+        agent_cfg["train_params"]["max_cav"] = MULTI_AGENTS
+        cfgs = {name: agent_cfg if name == "agent" else cfg
+                for name in GLOO_MESHES}
+        batches = {name: host if name != "agent" else next(
+            build_dataset(agent_cfg, train=True).batches(bs, shuffle=False))
+            for name in GLOO_MESHES}
+        jobs = [dict(cfg=cfgs[n], state=init, batch=batches[n], dims=d,
+                     dtype="float32") for n, d in GLOO_MESHES.items()]
+        t0 = time.perf_counter()
+        results = dry.sharded_results(jobs, 2, dev.type, timeout_s=300.0,
+                                      backend="gloo")
+        world_s = time.perf_counter() - t0
+        torch.use_deterministic_algorithms(True, warn_only=True)
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore")
+            singles = {n: dry.one_process(cfgs[n], init, batches[n], dev)
+                       for n in GLOO_MESHES}
+        torch.use_deterministic_algorithms(False)
+        for (name, dims), res in zip(GLOO_MESHES.items(), results):
+            single = singles[name]
+            d_loss, d_grad = dry.equivalence_deltas(res, single)
+            loss = single["aux"]["total_loss"]
+            print(f"[multi] two gloo ranks on one card, {name} mesh "
+                  f"{'x'.join(map(str, dims))}"
+                  + (f" ({MULTI_AGENTS} agent slots)" if name == "agent"
+                     else "")
+                  + f": loss {loss:.4f}, |dloss| {d_loss:.3e}, max |dgrad| "
+                  f"{d_grad:.3e} (max |g| {_max_grad(single['grads']):.3e}) "
+                  "against one process")
+            _within_multi_tol(f"gloo {name}", d_loss, d_grad, loss)
+        print(f"[multi] the gloo world (two ranks, {len(jobs)} steps, each "
+              f"rank's model build included) took {world_s:.3f} s")
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
@@ -4274,6 +4596,8 @@ def main() -> int:
     tools = phase_tools(tools_cfgs())
     torch.cuda.empty_cache()
     phase_pipeline()
+    torch.cuda.empty_cache()
+    multi = phase_multi_device(cfg)
     for name in rows:
         rows[name]["protocol_launches"] = protocol["launches"][name]
         rows[name]["alliance_launches_per_frame"] = ALLIANCE_LAUNCHES[name]
@@ -4313,6 +4637,13 @@ def main() -> int:
             **{f"bench_{c}": n[name == "shift_rows"]
                for c, n in BENCH_LAUNCHES.items()}}
     rows["shift_rows"]["disk_launches_per_step"] = 15
+    for name in rows:
+        rows[name]["multi_device_launches"] = (multi["step"][name]
+                                               + multi["main"][name])
+        rows[name]["multi_device_launches_per_step"] = multi["step"][name]
+    rows["shift_rows"]["multi_device_backward_launches"] = (
+        multi["step"]["shift_rows_backward"]
+        + multi["main"]["shift_rows_backward"])
     # phases 10, 11 and 13's own kernel cases (the CenterPoint frame's,
     # the disk frame's, the multiscale frame's and the KD teacher's kernel
     # 1, the fusion warps' kernel 2) join the rows' cases and worst errors
@@ -4368,6 +4699,8 @@ def main() -> int:
               f"frame: {k['legacy_launches_per_frame']})"
               f", {k['tools_launches']} in the tools phase (a frame: "
               f"{k['tools_launches_per_frame']})"
+              f", {k['multi_device_launches']} in the device-mesh phase "
+              f"({k['multi_device_launches_per_step']} a mesh step)"
               + f"; {k['bytes']} bytes, bound {k['bound_ms']:.4f} ms "
               f"({k['bound_by']}), {k['ms']:.4f} ms = {k['pct_of_bound']:.1f}%"
               f" of bound, plain {k['plain_ms']:.4f} ms, library call "

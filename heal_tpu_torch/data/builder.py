@@ -28,6 +28,7 @@ from ..utils.box_align import uncertainty_to_weights
 from .dairv2x import DAIRV2XBackend
 from .late_early import EarlyAssembler, LateAssembler
 from .opv2v import OPV2VBackend
+from .prefetch import process_shard
 from .scene import IntermediateAssembler, collate
 from .synthetic import SyntheticDataset
 from .v2xsim import V2XSimBackend
@@ -150,14 +151,33 @@ class FusionDataset:
     def anchors(self):
         return self.assembler.anchors
 
-    def batches(self, batch_size: int, shuffle: bool = True, seed: int = 0):
+    def batches(self, batch_size: int, shuffle: bool = True, seed: int = 0,
+                process_split: bool = True,
+                part: tuple[int, int] = (0, 1)):
         """Yield collated fixed-shape numpy batches (drops the remainder,
-        so every batch has one shape)."""
+        so every batch has one shape). ``process_split``: every host
+        shuffles the same order (same seed) and takes its own equal
+        slice of it (data/prefetch.process_shard); a no-op on one
+        host. ``part`` (index, count): only the index-th of count equal
+        parts of each batch's samples is assembled, a rank's share on
+        the mesh's data axis. Samples are padded each to the config's
+        fixed shape, so it equals that slice of the whole collated
+        batch (parallel/sharding.shard_batch), apart from the random
+        point subsample of a train cloud over ``max_points``, which
+        numpy's unseeded global state draws in any case."""
         order = np.arange(len(self))
         if shuffle:
             np.random.default_rng(seed).shuffle(order)
+        if process_split:
+            lo, hi = process_shard(len(order))
+            order = order[lo:hi]
+        index, count = part
+        if batch_size % count:
+            raise ValueError(f"a batch of {batch_size} does not split into "
+                             f"{count} parts")
+        lo, hi = index * batch_size // count, (index + 1) * batch_size // count
         for start in range(0, len(order) - batch_size + 1, batch_size):
-            idxs = order[start : start + batch_size]
+            idxs = order[start : start + batch_size][lo:hi]
             yield collate([self[i] for i in idxs])
 
 

@@ -15,9 +15,16 @@ waiting on it needs an event per batch and ``record_stream`` on every
 tensor. The copy from pinned memory is asynchronous for the host either
 way, and it is a few MB against a step of tens of ms: what costs the host
 time, the assembly and the pinning, is what moves to the worker.
+
+Several hosts: ``FusionDataset.batches(process_split=True)`` gives each
+host (:func:`host_index`) its equal slice of one seeded epoch order
+(:func:`process_shard`), JAX's DistributedSampler counterpart; on one
+host it is the whole order. The ranks of one host split each batch
+over the mesh's data axis (parallel/sharding.shard_batch).
 """
 from __future__ import annotations
 
+import os
 import queue
 import threading
 from typing import Callable, Iterable, Iterator
@@ -51,3 +58,26 @@ def prefetch(batches: Iterable, transform: Callable | None = None,
                 raise errors[0]
             return
         yield item
+
+
+def host_index() -> tuple[int, int]:
+    """(this host's index, the host count): torchrun's node rank and node
+    count (``GROUP_RANK``, ``WORLD_SIZE`` / ``LOCAL_WORLD_SIZE``); (0, 1)
+    outside torchrun. The port's counterpart of jax.process_index() /
+    process_count()."""
+    if "GROUP_RANK" in os.environ and "LOCAL_WORLD_SIZE" in os.environ:
+        per = int(os.environ["LOCAL_WORLD_SIZE"])
+        return (int(os.environ["GROUP_RANK"]),
+                int(os.environ["WORLD_SIZE"]) // per)
+    return 0, 1
+
+
+def process_shard(n: int, index: int | None = None,
+                  count: int | None = None) -> tuple[int, int]:
+    """(start, stop) of process ``index``'s equal slice of n samples, of
+    ``count`` (default: this host of :func:`host_index`); the remainder is
+    dropped, so every process runs the same number of steps."""
+    if index is None or count is None:
+        index, count = host_index()
+    per = n // count
+    return index * per, (index + 1) * per

@@ -15,7 +15,7 @@ from __future__ import annotations
 import torch
 
 from ..models.registry import register_loss
-from .point_pillar_loss import bce_with_logits
+from .point_pillar_loss import batch_divisor, bce_with_logits
 
 
 def smooth_l1(x, y):
@@ -24,9 +24,15 @@ def smooth_l1(x, y):
     return torch.where(d < 1.0, 0.5 * d * d, d - 0.5)
 
 
+def _or_one(n):
+    return torch.where(n > 0, n, torch.ones_like(n))
+
+
 @register_loss("pixor_loss")
 class PixorLoss:
     """args: alpha (cls weight), beta (reg weight)."""
+
+    mesh = None  # parallel/sharding.Mesh: the positives of the batch
 
     def __init__(self, args: dict):
         self.alpha = args["alpha"]
@@ -46,7 +52,7 @@ class PixorLoss:
         loc_sum = smooth_l1(cls_targets * loc_preds,
                             cls_targets * loc_targets).sum()
         # ref :57-58: divide by the positives only when there are any
-        loc_loss = torch.where(pos_pixels > 0, loc_sum / pos_pixels, loc_sum)
+        loc_loss = loc_sum / batch_divisor(pos_pixels, self.mesh, _or_one)
         total = self.alpha * cls_loss + self.beta * loc_loss
         return total, {"total_loss": total, "cls_loss": cls_loss,
                        "reg_loss": loc_loss}

@@ -95,11 +95,27 @@ def direction_targets(reg_targets, anchor_yaw_deg, dir_offset: float,
     return F.one_hot(bins, num_bins).to(reg_targets.dtype)
 
 
+def clamp1(n):
+    return torch.clamp(n, min=1.0)
+
+
+def batch_divisor(count, mesh, fn=clamp1):
+    """The divisor of a sum normalised over the whole batch: ``fn`` of
+    ``count``. Under a device mesh (parallel/sharding.py) ``fn`` of the
+    global batch's count (all-reduced over the data group, outside the
+    graph) over the data size, so that the data ranks' losses average to
+    the one-process loss, as JAX's global reduction gives it."""
+    if mesh is None:
+        return fn(count)
+    return fn(mesh.data_sum(count)) / mesh.shape["data"]
+
+
 def depth_focal_loss(logits, gt_bins, alpha: float = 0.25,
-                     gamma: float = 2.0):
+                     gamma: float = 2.0, mesh=None):
     """Categorical focal loss over depth bins; gt == num_bins means "no
     lidar return" and is ignored. logits (N, fH, fW, D); gt_bins
-    (N, fH, fW) int."""
+    (N, fH, fW) int. Normalised by the valid pixels of the whole batch
+    (:func:`batch_divisor`)."""
     d = logits.shape[-1]
     valid = (gt_bins < d).to(logits.dtype)
     onehot = F.one_hot(torch.clamp(gt_bins.long(), 0, d - 1), d).to(
@@ -107,11 +123,13 @@ def depth_focal_loss(logits, gt_bins, alpha: float = 0.25,
     logp = F.log_softmax(logits, dim=-1)
     focal = alpha * (1.0 - torch.exp(logp)) ** gamma * (-logp)
     loss = (onehot * focal).sum(-1) * valid
-    return loss.sum() / torch.clamp(valid.sum(), min=1.0)
+    return loss.sum() / batch_divisor(valid.sum(), mesh)
 
 
 @register_loss("point_pillar_loss")
 class PointPillarLoss:
+    mesh = None  # parallel/sharding.Mesh: the depth term's normaliser
+
     def __init__(self, args: dict):
         self.args = args
         self.pos_cls_weight = args["pos_cls_weight"]
@@ -203,7 +221,8 @@ class PointPillarLoss:
         if "depth" in self.args:
             terms = [
                 depth_focal_loss(logits, target_dict[f"depth_bins_{m}"]
-                                 .reshape((-1,) + logits.shape[1:3]))
+                                 .reshape((-1,) + logits.shape[1:3]),
+                                 mesh=self.mesh)
                 for key, logits in output_dict.items()
                 if key.startswith("depth_items_")
                 for m in [key.rsplit("_", 1)[-1]]

@@ -15,11 +15,18 @@ import torch
 
 from ..models.registry import register_loss
 from .pixor_loss import smooth_l1
+from .point_pillar_loss import batch_divisor
+
+
+def _plus_eps(n):
+    return n + 1e-6
 
 
 @register_loss("voxel_net_loss")
 class VoxelNetLoss:
     """args: alpha, beta (positive / negative cls weights), reg."""
+
+    mesh = None  # parallel/sharding.Mesh: the anchor counts of the batch
 
     def __init__(self, args: dict):
         self.alpha = args["alpha"]
@@ -38,11 +45,11 @@ class VoxelNetLoss:
         rm = rm.reshape(rm.shape[:3] + (-1, 7)).float()
         tgt = targets.reshape(targets.shape[:3] + (-1, 7)).float()
         pos5 = pos[..., None]
-        cls_pos_loss = (-(pos * torch.log(p_pos + 1e-6)).sum()
-                        / (pos.sum() + 1e-6))
+        n_pos = batch_divisor(pos.sum(), self.mesh, _plus_eps)
+        cls_pos_loss = -(pos * torch.log(p_pos + 1e-6)).sum() / n_pos
         cls_neg_loss = (-(neg * torch.log(1.0 - p_pos + 1e-6)).sum()
-                        / (neg.sum() + 1e-6))
-        reg_loss = smooth_l1(rm * pos5, tgt * pos5).sum() / (pos.sum() + 1e-6)
+                        / batch_divisor(neg.sum(), self.mesh, _plus_eps))
+        reg_loss = smooth_l1(rm * pos5, tgt * pos5).sum() / n_pos
         conf_loss = self.alpha * cls_pos_loss + self.beta * cls_neg_loss
         total = self.reg_coe * reg_loss + conf_loss
         return total, {"total_loss": total, "reg_loss": reg_loss,

@@ -41,14 +41,18 @@ import torch.nn as nn
 from ..ops import pillar as _pillar
 from ..ops import voxelize
 from .layers import (DEFAULT_BN_MOMENTUM, Dense, LayerNorm, parse_norm,
-                     update_running)
+                     update_running, world_sum)
 
 
 class MaskedBatchNorm(nn.Module):
     """heal_tpu encoders.py ``MaskedBatchNorm``: batch norm over the valid
     points only. Train mode: the mean and the biased variance (two
     passes) of the rows where ``mask`` is set, kept in the graph, and the
-    flax running update; eval mode: the running statistics. eps 1e-3."""
+    flax running update; eval mode: the running statistics. eps 1e-3.
+    Under a device mesh (``mesh``) both passes' sums and the row count
+    are all-reduced over every rank (``layers.world_sum``)."""
+
+    mesh = None
 
     def __init__(self, channels: int, momentum: float | None = None,
                  epsilon: float = 1e-3):
@@ -63,9 +67,12 @@ class MaskedBatchNorm(nn.Module):
     def forward(self, x: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
         if self.training:
             w = mask.to(x.dtype)[:, None]
-            denom = torch.clamp(w.sum(), min=1.0)
-            mean = (x * w).sum(0) / denom
-            var = (((x - mean) ** 2) * w).sum(0) / denom
+            s = world_sum(self.mesh, torch.cat([(x * w).sum(0),
+                                                w.sum().reshape(1)]))
+            denom = torch.clamp(s[-1], min=1.0)
+            mean = s[:-1] / denom
+            var = world_sum(self.mesh,
+                            (((x - mean) ** 2) * w).sum(0)) / denom
             update_running(self.mean, mean, self.momentum)
             update_running(self.var, var, self.momentum)
         else:
@@ -94,6 +101,8 @@ class PFNLayer(nn.Module):
         x = x @ d.kernel.to(x.dtype)
         if d.bias is not None:
             x = x + d.bias.to(x.dtype)
+        if d.tp is not None:  # column-parallel (models/layers.Dense)
+            x = d.tp.gather(x, -1, "model")
         if self.kind == "batch":
             x = self.MaskedBatchNorm_0(x, mask)
         elif self.kind == "group":
@@ -105,8 +114,11 @@ class PointPillarEncoder(nn.Module):
     """points (B, N, 4) + mask (B, N) -> BEV (B, ny, nx, C), the JAX layout.
 
     Parameters carry the flax names: ``pfn_kernel`` (10, F), ``bn_scale``,
-    ``bn_bias`` and the buffers ``bn_mean`` / ``bn_var``.
+    ``bn_bias`` and the buffers ``bn_mean`` / ``bn_var``. Under a device
+    mesh (``mesh``) the train path's BN moments sum every rank's points.
     """
+
+    mesh = None
 
     def __init__(self, voxel_size: Sequence[float],
                  lidar_range: Sequence[float],
@@ -266,13 +278,18 @@ class PointPillarEncoder(nn.Module):
         # per-pillar term t_p = center @ Wraw_xyz - local mean @ Wmu
         t_tab = -seg[:, :f] / torch.clamp(cnt, min=1.0) + center @ w_raw[:3]
 
-        # E[y], E[y^2] of y_i = a_i + t_p over the valid points
-        n_valid = torch.clamp(w.to(acc).sum(), min=1.0)
+        # E[y], E[y^2] of y_i = a_i + t_p over the valid points (of
+        # every rank under a mesh)
+        n_pts = w.to(acc).sum()
         a32 = a_pt.to(acc)
         seg_a = seg_sum(a_pt)
-        mean_y = (a32.sum(0) + (cnt * t_tab).sum(0)) / n_valid
-        e2 = ((a32 * a32).sum(0) + 2.0 * (seg_a * t_tab).sum(0)
-              + (cnt * t_tab * t_tab).sum(0)) / n_valid
+        s1 = a32.sum(0) + (cnt * t_tab).sum(0)
+        s2 = ((a32 * a32).sum(0) + 2.0 * (seg_a * t_tab).sum(0)
+              + (cnt * t_tab * t_tab).sum(0))
+        s = world_sum(self.mesh, torch.cat([s1, s2, n_pts.reshape(1)]))
+        n_valid = torch.clamp(s[-1], min=1.0)
+        mean_y = s[:f] / n_valid
+        e2 = s[f:2 * f] / n_valid
         var_y = torch.clamp(e2 - mean_y * mean_y, min=0.0)
         update_running(self.bn_mean, mean_y, self.momentum)
         update_running(self.bn_var, var_y, self.momentum)

@@ -43,7 +43,7 @@ import torch.nn as nn
 
 from .fuse.fusion_in_one import build_fusion
 from .heads import DetectionHeads
-from .heter_pyramid import (ModalityBranch, _flatten_agents, camera_canvas,
+from .heter_pyramid import (ModalityBranch, agent_branch, camera_canvas,
                             center_crop_or_pad, is_camera, lidar_first,
                             modality_list)
 from .point_pillar import _shrink_from_args, out_width
@@ -59,9 +59,12 @@ def _heads(a: dict, cin: int, use_iou: bool = False) -> DetectionHeads:
 
 
 class _Baseline(nn.Module):
-    """The branches and the slot scatter both baselines share."""
+    """The branches and the slot scatter both baselines share; under a
+    device mesh (``mesh``) the branches split the agent axis
+    (heter_pyramid.agent_branch)."""
 
     needs_max_cav = True
+    mesh = None
 
     def _branches(self, a: dict, norm: str):
         self.modalities = modality_list(a)
@@ -78,10 +81,7 @@ class _Baseline(nn.Module):
         for m in lidar_first(self.modalities, self.args):
             if f"inputs_{m}" not in batch:
                 continue
-            inputs = batch[f"inputs_{m}"]
-            lm = inputs[sorted(inputs)[0]].shape[1]
-            feat, depth = getattr(self, f"branch_{m}")(
-                _flatten_agents(inputs, b, lm))
+            feat, depth, lm = agent_branch(self, m, batch[f"inputs_{m}"], b)
             feat = feat.permute(0, 2, 3, 1)  # NHWC view
             if depth is not None:
                 out_aux[f"depth_items_{m}"] = depth

@@ -121,6 +121,31 @@ def _flatten_agents(inputs: dict, b: int, lm: int) -> dict:
     return {k: v.reshape((b * lm,) + v.shape[2:]) for k, v in inputs.items()}
 
 
+def agent_branch(model: nn.Module, m: str, inputs: dict, b: int):
+    """``model``'s branch of type ``m`` over the packed (B, L_m, ...)
+    arrays of ``inputs`` -> ((B*L_m, C, h, w) NCHW features, the camera's
+    depth logits or None, L_m). Under a device mesh (``model.mesh``) whose
+    agent axis divides L_m (``_fit``'s rule), this rank runs its L_m/A
+    agents and the features and depth logits are gathered over the agent
+    group: the V2X round of heal_tpu/parallel/sharding.py. Otherwise every
+    rank runs all the agents."""
+    lm = inputs[sorted(inputs)[0]].shape[1]
+    mesh = model.mesh
+    split = mesh is not None and mesh.splits("agent", lm)
+    if split:
+        inputs = {k: mesh.take(v, 1, "agent") for k, v in inputs.items()}
+    lm_here = lm // mesh.shape["agent"] if split else lm
+    feat, depth = getattr(model, f"branch_{m}")(
+        _flatten_agents(inputs, b, lm_here))
+    if split:
+        feat = mesh.gather(feat.unflatten(0, (b, lm_here)), 1,
+                           "agent").flatten(0, 1)
+        if depth is not None:  # (B*L_m*cams, fH, fW, D)
+            depth = mesh.gather(depth.unflatten(0, (b, lm_here, -1)), 1,
+                                "agent").flatten(0, 2)
+    return feat, depth, lm
+
+
 class ModalityBranch(nn.Module):
     """encoder -> backbone -> aligner for one agent type."""
 
@@ -194,7 +219,10 @@ class ModalityBranch(nn.Module):
 @register_model("heter_pyramid_collab")
 class HeterPyramidCollab(nn.Module):
     """args: per-modality blocks (m1..m4) + fusion_backbone + shrink_header
-    + anchor_number + dir_args (+ compressor)."""
+    + anchor_number + dir_args (+ compressor). Under a device mesh
+    (``mesh``) the branches split the agent axis (:func:`agent_branch`)."""
+
+    mesh = None
 
     def __init__(self, args: dict):
         super().__init__()
@@ -247,10 +275,8 @@ class HeterPyramidCollab(nn.Module):
         for m in self.modalities:
             if f"inputs_{m}" not in batch:
                 continue
-            inputs = batch[f"inputs_{m}"]
-            lm = inputs[sorted(inputs)[0]].shape[1]
-            feat, depth = getattr(self, f"branch_{m}")(
-                _flatten_agents(inputs, b, lm))  # (B*L_m, C, h, w)
+            # (B*L_m, C, h, w)
+            feat, depth, lm = agent_branch(self, m, batch[f"inputs_{m}"], b)
             feat = feat.permute(0, 2, 3, 1)  # NHWC view
             if depth is not None:
                 out_aux[f"depth_items_{m}"] = depth

@@ -96,7 +96,17 @@ class Norm(nn.Module):
     the deblocks. "group" is flax's ``GroupNorm`` under ``GroupNorm_0``
     (``group_count`` groups, eps 1e-3 at every call site, layers.py
     :91-97): per sample, no running statistics, the same in both modes.
+
+    The moments come from Σx, Σx² and the element count. Under a device
+    mesh (``mesh``, set by parallel/sharding.shard_state) those sums are
+    all-reduced over every rank inside the graph (:func:`world_sum`), so
+    the moments are the global batch's, as GSPMD takes them, padded agent
+    slots included; ranks holding the same input (agent or model
+    replicas) add equal numerators and counts, which leaves the ratios
+    unchanged. With no mesh no collective runs.
     """
+
+    mesh = None
 
     def __init__(self, channels: int, kind: str = "batch",
                  epsilon: float = 1e-3):
@@ -123,8 +133,12 @@ class Norm(nn.Module):
         if self.training:
             xf = x.to(torch.promote_types(x.dtype, torch.float32))
             axes = [0] + list(range(2, x.dim()))
-            m = xf.mean(axes)
-            v = (xf * xf).mean(axes) - m * m
+            c = xf.shape[1]
+            s = world_sum(self.mesh, torch.cat([
+                xf.sum(axes), (xf * xf).sum(axes),
+                xf.new_full((1,), xf.numel() // c)]))
+            m = s[:c] / s[-1]
+            v = s[c:2 * c] / s[-1] - m * m
             update_running(self.mean, m, self.momentum)
             update_running(self.var, v, self.momentum)
         else:
@@ -145,6 +159,12 @@ def channels_last(model: nn.Module) -> nn.Module:
     return model
 
 
+def world_sum(mesh, x: torch.Tensor) -> torch.Tensor:
+    """``x`` summed over every rank of ``mesh`` inside the graph
+    (parallel/sharding.Mesh.world_sum); ``x`` itself with no mesh."""
+    return x if mesh is None else mesh.world_sum(x)
+
+
 def update_running(buf: torch.Tensor, batch: torch.Tensor, mom: float):
     """buf <- mom*buf + (1-mom)*batch, in place, outside the graph."""
     with torch.no_grad():
@@ -154,7 +174,15 @@ def update_running(buf: torch.Tensor, batch: torch.Tensor, mom: float):
 class Conv(nn.Module):
     """flax ``nn.Conv`` counterpart: biased conv, symmetric padding;
     ``groups`` is flax's ``feature_group_count`` (the HWIO kernel
-    (k, k, cin/groups, features) bridges to (features, cin/groups, k, k))."""
+    (k, k, cin/groups, features) bridges to (features, cin/groups, k, k)).
+
+    Column-parallel layers (``column_dims``: the kernel's out-channel dim,
+    the output's channel dim): under a model axis ``tp`` is the mesh, the
+    kernel and bias hold this rank's out channels and the output is
+    gathered over the model group (parallel/sharding.shard_state)."""
+
+    column_dims = (0, 1)
+    tp = None
 
     def __init__(self, cin: int, features: int, kernel: int = 1,
                  stride: int = 1, padding: int | None = None,
@@ -167,13 +195,18 @@ class Conv(nn.Module):
         self.bias = nn.Parameter(torch.zeros(features))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return F.conv2d(x, self.kernel, self.bias, self.stride, self.padding,
-                        groups=self.groups)
+        y = F.conv2d(x, self.kernel, self.bias, self.stride, self.padding,
+                     groups=self.groups)
+        return y if self.tp is None else self.tp.gather(y, 1, "model")
 
 
 class Dense(nn.Module):
     """flax ``nn.Dense`` over the last axis; the kernel keeps flax's
-    (in, out) layout, so the bridge copies it as it is."""
+    (in, out) layout, so the bridge copies it as it is. Column-parallel
+    as ``Conv``."""
+
+    column_dims = (-1, -1)
+    tp = None
 
     def __init__(self, cin: int, features: int, use_bias: bool = True):
         super().__init__()
@@ -182,7 +215,8 @@ class Dense(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         y = x @ self.kernel
-        return y if self.bias is None else y + self.bias
+        y = y if self.bias is None else y + self.bias
+        return y if self.tp is None else self.tp.gather(y, -1, "model")
 
 
 def gelu(x: torch.Tensor) -> torch.Tensor:
@@ -212,9 +246,13 @@ class Dropout(nn.Module):
     it zeroes with probability ``rate`` and scales by 1/(1-rate), the keep
     mask drawn from the ``dropout`` stream (:func:`rng_streams`); like
     flax, it raises in train mode without one. The masks are not JAX's
-    bits."""
+    bits. It draws the mask of the global input (the data ranks' dim-0
+    rows stacked: the input itself with no mesh) and, under a device mesh
+    (``mesh``), keeps this rank's rows, so the ranks together draw what
+    one process draws (the input's dim 0 is the batch, outermost)."""
 
     stream = "dropout"
+    mesh = None
 
     def __init__(self, rate: float):
         super().__init__()
@@ -229,7 +267,11 @@ class Dropout(nn.Module):
             raise RuntimeError("Dropout in train mode needs a 'dropout' "
                                "stream (layers.rng_streams)")
         keep = 1.0 - self.rate
-        mask = torch.rand(x.shape, generator=gen, device=x.device) < keep
+        data = 1 if self.mesh is None else self.mesh.shape["data"]
+        mask = torch.rand((x.shape[0] * data,) + x.shape[1:], generator=gen,
+                          device=x.device) < keep
+        if self.mesh is not None:
+            mask = self.mesh.take(mask, 0, "data")
         return torch.where(mask, x / keep, torch.zeros((), dtype=x.dtype,
                                                        device=x.device))
 
@@ -239,7 +281,11 @@ class DenseGeneral(nn.Module):
     ``MultiHeadDotProductAttention``, in flax's layouts: with ``cin`` it
     maps (..., cin) -> (..., heads, dh), kernel (cin, heads, dh) and bias
     (heads, dh); with ``cout`` it maps (..., heads, dh) -> (..., cout),
-    kernel (heads, dh, cout) and bias (cout,)."""
+    kernel (heads, dh, cout) and bias (cout,). Column-parallel as
+    ``Conv`` over the kernel's last dim."""
+
+    column_dims = (-1, -1)
+    tp = None
 
     def __init__(self, heads: int, dh: int, *, cin: int | None = None,
                  cout: int | None = None):
@@ -259,10 +305,12 @@ class DenseGeneral(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if self.split:
             c, m, d = self.kernel.shape
-            return (x @ self.kernel.reshape(c, m * d)).unflatten(
+            y = (x @ self.kernel.reshape(c, m * d)).unflatten(
                 -1, (m, d)) + self.bias
-        m, d, c = self.kernel.shape
-        return x.flatten(-2) @ self.kernel.reshape(m * d, c) + self.bias
+        else:
+            m, d, c = self.kernel.shape
+            y = x.flatten(-2) @ self.kernel.reshape(m * d, c) + self.bias
+        return y if self.tp is None else self.tp.gather(y, -1, "model")
 
 
 # logits of one chunk of _BiasedAttention: ~256 MB
@@ -390,7 +438,10 @@ class LayerNorm(nn.Module):
 class ConvNormAct(nn.Module):
     """Bias-free conv (torch-style symmetric padding (k-1)//2) -> Norm ->
     ReLU. The grouped and biased variants of the flax module have no caller
-    on the ported path."""
+    on the ported path. Column-parallel as ``Conv``."""
+
+    column_dims = (0, 1)
+    tp = None
 
     def __init__(self, cin: int, features: int, kernel: int = 3,
                  stride: int = 1, norm: str = "batch", act: bool = True,
@@ -403,8 +454,10 @@ class ConvNormAct(nn.Module):
         self.Norm_0 = Norm(features, norm, epsilon=norm_eps)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        x = self.Norm_0(F.conv2d(x, self.kernel, None, self.stride,
-                                 self.padding))
+        y = F.conv2d(x, self.kernel, None, self.stride, self.padding)
+        if self.tp is not None:
+            y = self.tp.gather(y, 1, "model")
+        x = self.Norm_0(y)
         return F.relu(x) if self.act else x
 
 
@@ -414,7 +467,11 @@ class _PixelShuffleDeconv(nn.Module):
     The parameter is kept in torch's ConvTranspose2d layout
     (I, O, s, s); the bridge flips flax's (s, s, I, O) kernel spatially
     (flax's tap at output (i*s+di, j*s+dj) is kern[s-1-di, s-1-dj]).
+    Column-parallel as ``Conv`` (the out channels are dim 1).
     """
+
+    column_dims = (1, 1)
+    tp = None
 
     def __init__(self, cin: int, features: int, stride: int):
         super().__init__()
@@ -422,7 +479,8 @@ class _PixelShuffleDeconv(nn.Module):
         self.kernel = nn.Parameter(torch.empty(cin, features, stride, stride))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return F.conv_transpose2d(x, self.kernel, stride=self.stride)
+        y = F.conv_transpose2d(x, self.kernel, stride=self.stride)
+        return y if self.tp is None else self.tp.gather(y, 1, "model")
 
 
 class SameConv(nn.Module):
@@ -430,7 +488,10 @@ class SameConv(nn.Module):
     under its SAME padding: ceil(H / s) outputs, the missing
     (ceil(H / s) - 1) * s + k - H rows (and columns) padded total // 2
     before and the rest after, so a stride that does not divide H pads
-    at the end first."""
+    at the end first. Column-parallel as ``Conv``."""
+
+    column_dims = (0, 1)
+    tp = None
 
     def __init__(self, cin: int, features: int, kernel: int,
                  stride: int = 1):
@@ -444,7 +505,8 @@ class SameConv(nn.Module):
         for size in (x.shape[-1], x.shape[-2]):  # F.pad's order: W, H
             total = max((-(-size // s) - 1) * s + k - size, 0)
             pads += [total // 2, total - total // 2]
-        return F.conv2d(F.pad(x, pads), self.kernel, None, s)
+        y = F.conv2d(F.pad(x, pads), self.kernel, None, s)
+        return y if self.tp is None else self.tp.gather(y, 1, "model")
 
 
 class DeconvNormAct(nn.Module):

@@ -1,5 +1,6 @@
 """Training runtime (torch): optimizer and LR schedule from the config,
-and the train / eval steps. One device; no mesh yet."""
+the train / eval steps, and the (data, agent, model) device mesh over
+torch.distributed (sharding.py)."""
 from .schedulers import build_lr_schedule, build_optimizer
 from .trainer import Trainer, pin, to_device
 

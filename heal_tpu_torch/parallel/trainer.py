@@ -1,6 +1,7 @@
 """Training runtime (torch): one train step and one eval step.
 
-Counterpart of heal_tpu/parallel/trainer.py on one device:
+Counterpart of heal_tpu/parallel/trainer.py, on one device or on a
+(data, agent, model) device mesh (``mesh``; parallel/sharding.py):
   * train step: forward in train mode (batch-statistics BN, running
     buffers updated) -> loss (+ ``single_weight`` * the "_single" loss of
     the per-agent labels) -> backward -> optimizer step at the scheduled
@@ -21,8 +22,22 @@ Counterpart of heal_tpu/parallel/trainer.py on one device:
     (:func:`step_streams`), so a step draws the same whatever ran before
     it; Where2comm's threshold sampling and the fusion transformers'
     dropout draw from them (models/layers.rng_streams). ``rng_seed=None``
-    opens none, as JAX's step without rngs.
-Steps return their aux dict as device scalars and never synchronise.
+    opens none, as JAX's step without rngs;
+  * device mesh: one process per device. The model was placed by
+    ``sharding.shard_state`` before its optimizer was built; each rank
+    steps on its ``shard_batch(global batch, mesh, axes=("data",))``.
+    After ``backward`` (and the zero fill below, so every rank reduces
+    the same list in the same order) the gradients are all-reduced in
+    buckets to the global batch's (``Mesh.reduce_gradients``, an explicit
+    reduce: the bf16 policy's ``functional_call`` bypasses a
+    ``DistributedDataParallel`` wrapper's forward, so its reducer would
+    never run), then the optimizer steps; the scalar aux terms are
+    averaged over the world. Batch-norm moments, the losses' batch-wide
+    normalisers and the dropout masks are the global batch's
+    (sharding.py), so a step computes the loss and gradients one process
+    computes on the same global batch.
+Steps return their aux dict as device scalars and never synchronise
+(under a mesh the collectives are queued on the device like the rest).
 """
 from __future__ import annotations
 
@@ -35,6 +50,7 @@ import torch
 
 from ..models.layers import rng_streams
 from .freezing import freeze, frozen_eval
+from .sharding import sharded_parameters
 
 STREAMS = ("comm", "dropout")
 
@@ -158,8 +174,21 @@ class Trainer:
     # base seed of the per-step ``comm`` and ``dropout`` streams; None
     # opens no stream
     rng_seed: int | None = 0
+    # parallel/sharding.Mesh of this rank; None: one device
+    mesh: Any = None
 
     def __post_init__(self):
+        if self.mesh is not None:
+            unplaced = [type(m).__name__ for m in self.model.modules()
+                        if hasattr(type(m), "mesh") and m.mesh is not self.mesh]
+            if unplaced:
+                raise ValueError(
+                    f"{sorted(set(unplaced))} not on the mesh: place the "
+                    "model with sharding.shard_state before building its "
+                    "optimizer")
+            if hasattr(type(self.criterion), "mesh"):
+                self.criterion.mesh = self.mesh
+        self._sharded = sharded_parameters(self.model)
         if self.fix_modules:
             freeze(self.model, self.fix_modules)
             held = [p for g in self.optimizer.param_groups
@@ -201,9 +230,11 @@ class Trainer:
             aux = dict(aux, **{f"{k}_single": v for k, v in aux_s.items()})
         return loss, aux
 
-    def train_step(self, batch: dict) -> dict[str, Any]:
-        """One update on a device batch (see :func:`to_device`). After it,
-        each parameter's ``.grad`` holds this step's gradient."""
+    def gradients(self, batch: dict) -> dict[str, Any]:
+        """Forward, loss and backward on a device batch (see
+        :func:`to_device`; under a mesh, this rank's slice of the global
+        batch): each trainable parameter's ``.grad`` then holds the step's
+        gradient, the global batch's under a mesh. -> the aux terms."""
         self.optimizer.zero_grad(set_to_none=True)
         with self.streams():
             loss, aux = self.loss(batch)
@@ -211,16 +242,35 @@ class Trainer:
         # a parameter the loss does not reach (VoxelNet's direction head:
         # its loss has no direction term) has a zero gradient in JAX, and
         # optax still applies the weight decay to it: so here too
-        for group in self.optimizer.param_groups:
-            for p in group["params"]:
-                if p.grad is None:
-                    p.grad = torch.zeros_like(p)
+        params = [p for group in self.optimizer.param_groups
+                  for p in group["params"]]
+        for p in params:
+            if p.grad is None:
+                p.grad = torch.zeros_like(p)
+        if self.mesh is not None:
+            self.mesh.reduce_gradients(params, self._sharded)
+        return self._global(dict(aux, total_loss=loss))
+
+    def train_step(self, batch: dict) -> dict[str, Any]:
+        """One update on a device batch (:meth:`gradients`, then the
+        optimizer at the scheduled learning rate). After it, each
+        parameter's ``.grad`` holds this step's gradient."""
+        aux = self.gradients(batch)
         lr = self.schedule(self.step)
         for group in self.optimizer.param_groups:
             group["lr"] = lr
         self.optimizer.step()
         self.step += 1
-        return {k: v.detach() for k, v in dict(aux, total_loss=loss).items()}
+        return aux
+
+    def _global(self, aux: dict) -> dict:
+        """The aux terms detached; under a mesh each scalar is averaged
+        over the world (the global batch's value)."""
+        aux = {k: v.detach() for k, v in aux.items()}
+        if self.mesh is None:
+            return aux
+        scalars = {k: v for k, v in aux.items() if v.dim() == 0}
+        return dict(aux, **self.mesh.mean_scalars(scalars))
 
     def streams(self):
         """The context of this step's random streams (none without a
@@ -233,7 +283,9 @@ class Trainer:
 
     @torch.no_grad()
     def eval_step(self, batch: dict) -> dict[str, Any]:
-        """Eval-mode forward (running statistics, f32) and the loss."""
+        """Eval-mode forward (running statistics, f32) and the loss (under
+        a mesh every rank steps together, and the scalars are the global
+        batch's)."""
         self.model.eval()
         loss, aux = self.criterion(self.model(batch), _label_targets(batch))
-        return dict(aux, total_loss=loss)
+        return self._global(dict(aux, total_loss=loss))

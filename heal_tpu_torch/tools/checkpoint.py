@@ -20,21 +20,29 @@ import re
 
 import torch
 
+from ..parallel.sharding import full_state_dict
+
 _NAME = re.compile(r"net_epoch(_bestval_at)?(\d+)\.(pth|ckpt)")
 
 
 def save_checkpoint(model_dir: str, model, epoch: int,
-                    bestval: bool = False) -> str:
+                    bestval: bool = False, mesh=None) -> str:
     """Write ``model``'s state_dict (or a state_dict) in f32 on the CPU;
-    -> its path."""
+    -> its path. Under a device mesh (``mesh``, a ``model`` placed by
+    parallel/sharding.shard_state) every rank calls it: the model-sharded
+    weights are gathered into the one-device layout, and rank 0 writes."""
+    if mesh is not None:
+        model = full_state_dict(model)
+    name = (f"net_epoch_bestval_at{epoch}.pth" if bestval
+            else f"net_epoch{epoch}.pth")
+    path = os.path.join(model_dir, name)
+    if mesh is not None and mesh.rank != 0:
+        return path
     os.makedirs(model_dir, exist_ok=True)
     if bestval:
         for old in os.listdir(model_dir):
             if old.startswith("net_epoch_bestval_at"):
                 os.remove(os.path.join(model_dir, old))
-    name = (f"net_epoch_bestval_at{epoch}.pth" if bestval
-            else f"net_epoch{epoch}.pth")
-    path = os.path.join(model_dir, name)
     sd = model.state_dict() if isinstance(model, torch.nn.Module) else model
     torch.save({k: v.detach().float().cpu() for k, v in sd.items()}, path)
     return path

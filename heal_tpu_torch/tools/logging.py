@@ -29,3 +29,10 @@ class MetricLogger:
         if self.tb is not None:
             for key, value in scalars.items():
                 self.tb.add_scalar(key, value, step)
+
+    def close(self):
+        """Flush and stop TensorBoard's writer thread (a process that ends
+        with it open loses its queue under the thread)."""
+        if self.tb is not None:
+            self.tb.close()
+            self.tb = None
