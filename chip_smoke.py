@@ -936,21 +936,19 @@ def shift_case(x, s, ms_bound, name: str, gen, what: str = "") -> list:
 def phase_serve(cfg, model32) -> dict:
     import numpy as np
 
-    from heal_tpu_torch.ops import pillar, shift_rows
     from heal_tpu_torch.ops.warp import warp_agents_to_ego
     from heal_tpu_torch.tools.inference import run_inference
     from heal_tpu_torch.tools.train import device_batches
 
     model16 = copy.deepcopy(model32).to(torch.bfloat16)
 
-    pillar.pillar_tables.launches = 0
-    shift_rows.shift_rows.launches = 0
+    _zero_counts()
     r32 = run_inference(cfg=cfg, device="cuda", dtype=torch.float32,
                         model=model32, collect_heads=True)
     r16 = run_inference(cfg=cfg, device="cuda", dtype=torch.bfloat16,
                         model=model16, collect_heads=True)
-    launches = {"pillar_tables": pillar.pillar_tables.launches,
-                "shift_rows": shift_rows.shift_rows.launches}
+    launches = _counts()
+    del launches["shift_rows_backward"]
     print(f"[serve] kernel launches while serving: {launches}")
     for name, n in launches.items():
         if n <= 0:
@@ -959,8 +957,7 @@ def phase_serve(cfg, model32) -> dict:
     with plain_kernels():
         ref = run_inference(cfg=cfg, device="cuda", dtype=torch.float32,
                             model=model32, collect_heads=True)
-    if (pillar.pillar_tables.launches, shift_rows.shift_rows.launches) != (
-            launches["pillar_tables"], launches["shift_rows"]):
+    if _counts() != dict(launches, shift_rows_backward=0):
         raise AssertionError("the plain reference run launched a kernel")
 
     want = {"cls_preds": (1, 128, 256, 2), "reg_preds": (1, 128, 256, 14),
@@ -1018,7 +1015,6 @@ def phase_train(cfg, model32) -> dict:
     """Train steps on the flagship config; returns kernel 2's train-phase
     launch counts."""
     from heal_tpu_torch.models import build_loss
-    from heal_tpu_torch.ops import pillar, shift_rows
     from heal_tpu_torch.parallel import Trainer, build_optimizer
     from heal_tpu_torch.tools.train import device_batches
 
@@ -1053,23 +1049,18 @@ def phase_train(cfg, model32) -> dict:
 
     # f32 (TF32 off): one step through the plain versions, then two
     # through the kernels (the second gives the run-to-run noise)
-    before = (pillar.pillar_tables.launches, shift_rows.shift_rows.launches,
-              shift_rows.shift_rows.backward_launches)
+    before = _counts()
     torch.use_deterministic_algorithms(True, warn_only=True)
     with warnings.catch_warnings(record=True) as caught:
         warnings.simplefilter("always")
         with plain_kernels():
             tr_plain = trainer()
             aux_plain, _ = timed_step(tr_plain)
-        if before != (pillar.pillar_tables.launches,
-                      shift_rows.shift_rows.launches,
-                      shift_rows.shift_rows.backward_launches):
+        if before != _counts():
             raise AssertionError("the plain reference step launched a kernel")
         ref = _grad_leaves(tr_plain.model)
         del tr_plain
-        pillar.pillar_tables.launches = 0
-        shift_rows.shift_rows.launches = 0
-        shift_rows.shift_rows.backward_launches = 0
+        _zero_counts()
         runs = []
         for _ in range(2):
             tr = trainer()
@@ -1137,9 +1128,7 @@ def phase_train(cfg, model32) -> dict:
                              "stay f32")
 
     # the launch counters of the training run
-    launches = {"pillar_tables": pillar.pillar_tables.launches,
-                "shift_rows": shift_rows.shift_rows.launches,
-                "shift_rows_backward": shift_rows.shift_rows.backward_launches}
+    launches = _counts()
     print(f"[train] kernel launches while training: {launches}")
     if launches["pillar_tables"] != 0:
         raise AssertionError("kernel 1 was launched in training")
@@ -1150,19 +1139,20 @@ def phase_train(cfg, model32) -> dict:
 
 
 def _counts() -> dict:
-    from heal_tpu_torch.ops import pillar, shift_rows
+    """The kernels' launches since the last :func:`_zero_counts`, from the
+    tracer's counters."""
+    from heal_tpu_torch import trace
 
-    return {"pillar_tables": pillar.pillar_tables.launches,
-            "shift_rows": shift_rows.shift_rows.launches,
-            "shift_rows_backward": shift_rows.shift_rows.backward_launches}
+    c = trace.counters()
+    return {"pillar_tables": c.get("kernel1.launches", 0),
+            "shift_rows": c.get("kernel2.launches", 0),
+            "shift_rows_backward": c.get("kernel2.backward_launches", 0)}
 
 
 def _zero_counts() -> None:
-    from heal_tpu_torch.ops import pillar, shift_rows
+    from heal_tpu_torch import trace
 
-    pillar.pillar_tables.launches = 0
-    shift_rows.shift_rows.launches = 0
-    shift_rows.shift_rows.backward_launches = 0
+    trace.clear()
 
 
 def _shared(sd: dict) -> dict:

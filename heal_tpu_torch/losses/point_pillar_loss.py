@@ -28,6 +28,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from .. import trace
 from ..models.registry import register_loss
 from ..ops.geometry import decode_boxes
 from ..utils.common import limit_period
@@ -85,6 +86,7 @@ def direction_targets(reg_targets, anchor_yaw_deg, dir_offset: float,
     anchor_yaw = torch.from_numpy(
         np.radians(np.asarray(anchor_yaw_deg, np.float64)).astype(np.float32)
     ).to(reg_targets.device)
+    trace.count("host_sync.const")  # a pageable copy
     n = reg_targets.shape[1]
     anchor_map = anchor_yaw.repeat(n // anchor_yaw.shape[0])
     rot_gt = reg_targets[..., -1] + anchor_map[None, :]

@@ -14,6 +14,7 @@ from __future__ import annotations
 import torch
 import torch.nn as nn
 
+from ... import trace
 from ...ops.warp import warp_agents_to_ego
 from ..layers import Conv
 from ..resnet_bev import ResNetBEVBackbone
@@ -75,10 +76,11 @@ class PyramidFusion(nn.Module):
 
     def forward_single(self, x: torch.Tensor):
         """x (N, H, W, C) -> (decoded (N, H, W, C'), occ list (N, h, w, 1))."""
-        feats = self.backbone.encode(x.permute(0, 3, 1, 2))
-        occ = [head(f).permute(0, 2, 3, 1) for head, f in
-               zip(self._heads(), feats)]
-        return self.backbone.decode(feats).permute(0, 2, 3, 1), occ
+        with trace.span("fusion"):
+            feats = self.backbone.encode(x.permute(0, 3, 1, 2))
+            occ = [head(f).permute(0, 2, 3, 1) for head, f in
+                   zip(self._heads(), feats)]
+            return self.backbone.decode(feats).permute(0, 2, 3, 1), occ
 
     def forward_collab(self, x: torch.Tensor, affine: torch.Tensor,
                        agent_mask: torch.Tensor, crop_mask_list=None):
@@ -88,21 +90,23 @@ class PyramidFusion(nn.Module):
 
         Returns (fused (B, H, W, C'), occ_map list at (B*L, h, w, 1)).
         """
-        b, l = x.shape[:2]
-        flat = x.reshape((b * l,) + x.shape[2:]).permute(0, 3, 1, 2)
-        feats = self.backbone.encode(flat)
-        fused_levels = []
-        occ_maps = []
-        for i, (head, f) in enumerate(zip(self._heads(), feats)):
-            occ = head(f).permute(0, 2, 3, 1)  # (B*L, h, w, 1)
-            occ_maps.append(occ)
-            score = torch.sigmoid(occ) + 1e-4
-            if crop_mask_list is not None:
-                score = score * crop_mask_list[i].reshape(score.shape)
-            fl = f.permute(0, 2, 3, 1)
-            fl = fl.reshape((b, l) + fl.shape[1:])
-            sl = score.reshape((b, l) + score.shape[1:])
-            fused = weighted_fuse(fl, sl, affine, agent_mask,
-                                  self.align_corners)
-            fused_levels.append(fused.permute(0, 3, 1, 2))
-        return self.backbone.decode(fused_levels).permute(0, 2, 3, 1), occ_maps
+        with trace.span("fusion"):
+            b, l = x.shape[:2]
+            flat = x.reshape((b * l,) + x.shape[2:]).permute(0, 3, 1, 2)
+            feats = self.backbone.encode(flat)
+            fused_levels = []
+            occ_maps = []
+            for i, (head, f) in enumerate(zip(self._heads(), feats)):
+                occ = head(f).permute(0, 2, 3, 1)  # (B*L, h, w, 1)
+                occ_maps.append(occ)
+                score = torch.sigmoid(occ) + 1e-4
+                if crop_mask_list is not None:
+                    score = score * crop_mask_list[i].reshape(score.shape)
+                fl = f.permute(0, 2, 3, 1)
+                fl = fl.reshape((b, l) + fl.shape[1:])
+                sl = score.reshape((b, l) + score.shape[1:])
+                fused = weighted_fuse(fl, sl, affine, agent_mask,
+                                      self.align_corners)
+                fused_levels.append(fused.permute(0, 3, 1, 2))
+            fused = self.backbone.decode(fused_levels)
+            return fused.permute(0, 2, 3, 1), occ_maps

@@ -70,7 +70,7 @@ class _Baseline(nn.Module):
         self.modalities = modality_list(a)
         self.args = a
         for m in self.modalities:
-            self.add_module(f"branch_{m}", ModalityBranch(a[m], norm=norm))
+            self.add_module(f"branch_{m}", ModalityBranch(a[m], m, norm=norm))
         return getattr(self, f"branch_{self.modalities[0]}").out_channels
 
     def assemble(self, batch: dict, out_aux: dict) -> torch.Tensor:
@@ -263,7 +263,7 @@ class HeterModelLate(nn.Module):
         self.args = a
         self.modalities = modality_list(a)
         for m in self.modalities:
-            self.add_module(f"branch_{m}", ModalityBranch(a[m], norm=norm))
+            self.add_module(f"branch_{m}", ModalityBranch(a[m], m, norm=norm))
         width = getattr(self, f"branch_{self.modalities[0]}").out_channels
         self.shrink = _shrink_from_args(a, width)
         if self.shrink is not None:

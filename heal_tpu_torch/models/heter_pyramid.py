@@ -39,6 +39,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from .. import trace
 from .aligner import AlignNet
 from .encoders import PointPillarEncoder
 from .fuse.pyramid import PyramidFusion
@@ -147,10 +148,12 @@ def agent_branch(model: nn.Module, m: str, inputs: dict, b: int):
 
 
 class ModalityBranch(nn.Module):
-    """encoder -> backbone -> aligner for one agent type."""
+    """encoder -> backbone -> aligner for one agent type ``key`` (m1..m4);
+    the encoder runs in the tracer's span ``encoder.<key>``."""
 
-    def __init__(self, cfg: dict, norm: str = "batch"):
+    def __init__(self, cfg: dict, key: str, norm: str = "batch"):
         super().__init__()
+        self.span_name = f"encoder.{key}"
         enc = cfg["encoder_args"]
         self.camera = is_camera(cfg)
         if self.camera:
@@ -208,10 +211,11 @@ class ModalityBranch(nn.Module):
         LiftSplatShootEncoder). Returns the (N, C, h, w) aligned BEV
         features (NCHW) and the camera's depth logits (None for lidar)."""
         depth = None
-        if self.camera:
-            feat, depth = self.encoder(inputs)
-        else:
-            feat = self.encoder(inputs["points"], inputs["point_mask"])
+        with trace.span(self.span_name):
+            if self.camera:
+                feat, depth = self.encoder(inputs)
+            else:
+                feat = self.encoder(inputs["points"], inputs["point_mask"])
         feat = self.backbone(feat.permute(0, 3, 1, 2))
         return self.aligner(feat), depth
 
@@ -234,7 +238,7 @@ class HeterPyramidCollab(nn.Module):
         self.level_strides = [int(s) for s in np.cumprod(
             a["fusion_backbone"]["layer_strides"])]
         for m in self.modalities:
-            self.add_module(f"branch_{m}", ModalityBranch(a[m], norm=norm))
+            self.add_module(f"branch_{m}", ModalityBranch(a[m], m, norm=norm))
         width = getattr(self, f"branch_{self.modalities[0]}").out_channels
         self.pyramid_backbone = PyramidFusion(
             a["fusion_backbone"], width, norm=norm
@@ -325,7 +329,8 @@ class HeterPyramidCollab(nn.Module):
 
     def _crop_masks(self, batch, cam_ratios, feat_all) -> list:
         """Eval-time per-level (B, L, h, w, 1) score masks: each camera
-        agent's slots get its field-of-view mask, the rest ones."""
+        agent's slots get its field-of-view mask, the rest ones. Each mask
+        is built on the host and copied, pageable (``host_sync.h2d``)."""
         b, l1, h, w = feat_all.shape[:4]
         sample = torch.arange(b, device=feat_all.device)[:, None]
         masks = []
@@ -335,6 +340,7 @@ class HeterPyramidCollab(nn.Module):
             for m, (rh, rw) in cam_ratios.items():
                 level[sample, batch[f"slots_{m}"].long()] = camera_fov_mask(
                     hl, wl, rh, rw).to(level)
+                trace.count("host_sync.h2d")
             masks.append(level[:, :l1 - 1])
         return masks
 
@@ -364,7 +370,7 @@ class HeterPyramidSingle(nn.Module):
         self.lidar_range = a["lidar_range"]
         self.camera_cfg = a[self.modality] if is_camera(a[self.modality]) \
             else None
-        branch = ModalityBranch(a[self.modality], norm=norm)
+        branch = ModalityBranch(a[self.modality], self.modality, norm=norm)
         self.add_module(f"branch_{self.modality}", branch)
         self.pyramid_backbone = PyramidFusion(
             a["fusion_backbone"], branch.out_channels, norm=norm

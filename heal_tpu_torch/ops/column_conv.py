@@ -39,6 +39,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from .. import trace
 from .sparse_conv import INVALID, _offsets
 
 
@@ -52,6 +53,7 @@ def _regroup_weights(weights: torch.Tensor) -> torch.Tensor:
     idx = {off: i for i, off in enumerate(_offsets())}
     order = [idx[(dz, dy, dx)] for dy, dx in _offsets2d() for dz in (-1, 0, 1)]
     _, cin, cout = weights.shape
+    trace.count("host_sync.const")  # the index list crosses, pageable
     return weights[order].reshape(9, 3 * cin, cout)
 
 
@@ -100,6 +102,7 @@ def voxelize_columns(points, mask, lidar_range, voxel_size, max_cols: int,
     dev = points.device
     lo = torch.tensor([lidar_range[:3]], dtype=torch.float32, device=dev)
     size = torch.tensor([voxel_size], dtype=torch.float32, device=dev)
+    trace.count("host_sync.const", 2)
     cell = torch.floor((points[..., :3].float() - lo) / size).to(torch.int32)
     xi, yi, zi = cell.unbind(-1)
     ok = (mask & (xi >= 0) & (xi < nx) & (yi >= 0) & (yi < ny)
@@ -189,6 +192,7 @@ def column_table(cols: dict, dmap=None) -> torch.Tensor:
     _, h, w = cols["grid"]
     offs = torch.tensor(_offsets2d(), dtype=torch.int32,
                         device=coords2.device)
+    trace.count("host_sync.const")
     return _lookup(dmap, coords2[..., None, 0] + offs[:, 0],
                    coords2[..., None, 1] + offs[:, 1], cvalid[..., None],
                    h, w, cols["ckeys"].shape[1])
@@ -288,6 +292,7 @@ def strided_table(cols: dict, out_cols: dict, dmap=None) -> torch.Tensor:
     _, h, w = cols["grid"]
     oc = out_cols["coords2"]
     offs = torch.tensor(_offsets2d(), dtype=torch.int32, device=oc.device)
+    trace.count("host_sync.const")
     return _lookup(dmap, 2 * oc[..., None, 0] + offs[:, 0],
                    2 * oc[..., None, 1] + offs[:, 1],
                    out_cols["cvalid"][..., None], h, w,

@@ -9,6 +9,7 @@ import math
 
 import torch
 
+from .. import trace
 from ..utils.common import limit_period
 
 _CORNER_TEMPLATE = [
@@ -24,14 +25,18 @@ _CORNER_TEMPLATE = [
 
 
 def boxes_to_corners_3d(boxes: torch.Tensor, order: str) -> torch.Tensor:
-    """(..., 7) -> (..., 8, 3); same template as box_np."""
+    """(..., 7) -> (..., 8, 3); same template as box_np. The index list
+    and the template cross to the device as pageable copies
+    (``host_sync.const``)."""
     if order == "hwl":
         boxes = boxes[..., [0, 1, 2, 5, 4, 3, 6]]
+        trace.count("host_sync.const")
     elif order != "lwh":
         raise ValueError(f"unknown order {order!r}")
     template = torch.tensor(
         _CORNER_TEMPLATE, dtype=boxes.dtype, device=boxes.device
     ) / 2.0
+    trace.count("host_sync.const")
     dims = boxes[..., None, 3:6] * template  # (..., 8, 3)
     yaw = boxes[..., 6]
     c, s = torch.cos(yaw), torch.sin(yaw)

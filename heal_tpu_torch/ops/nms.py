@@ -8,6 +8,7 @@ from __future__ import annotations
 
 import torch
 
+from .. import trace
 from ..utils.rotated_iou import rotated_iou_matrix
 
 
@@ -26,8 +27,9 @@ def nms_rotated_fixed(
     iteration extends the correct prefix by at least one index, so it
     converges in about the depth of the longest suppression chain. The
     loop runs on the host and reads ``changed`` back once per iteration:
-    one device sync per iteration, a few per frame (JAX runs the same
-    fixpoint inside a ``lax.while_loop``).
+    one device sync per iteration, a few per frame, each counted as
+    ``host_sync.nms`` (JAX runs the same fixpoint inside a
+    ``lax.while_loop``).
     """
     del scores
     k = corners_bev.shape[0]
@@ -41,6 +43,7 @@ def nms_rotated_fixed(
         hit = keep.to(torch.float32) @ sup
         new = valid & (hit < 0.5)
         changed = bool(torch.any(new != keep))
+        trace.count("host_sync.nms")
         keep = new
         if not changed:
             break

@@ -7,9 +7,11 @@ sorted scatter-add that expands its rows (heal_tpu/models/encoders.py
 ``_pallas_eval``). On a CUDA tensor it launches the hand-written kernel of
 csrc/pillar_tables.cu once: a block per tile of canvas rows finds its runs
 by searching the sorted ids and writes every row exactly once, zeros
-included, with no host sync (see the notes there on design and bounds).
-On a CPU tensor it takes ``pillar_tables_plain``, the same result by
-``scatter_reduce`` over the ids.
+included, with no host sync (see the notes there on design and bounds);
+the tracer counts each launch as ``kernel1.launches``
+(heal_tpu_torch/trace.py). On a CPU tensor it takes
+``pillar_tables_plain``, the same result by ``scatter_reduce`` over the
+ids.
 
 ``pillar_rows_plain`` reproduces the Pallas kernel's own (vals, cells)
 row contract, so tests can hold the port against the TPU kernel run in
@@ -21,6 +23,7 @@ from typing import NamedTuple
 
 import torch
 
+from .. import trace
 from ..kernels import build
 
 
@@ -151,11 +154,8 @@ def pillar_tables(
     )
     build.check(code, "pillar_tables")
     if canvas.numel():  # a canvas of no rows launches nothing
-        pillar_tables.launches += 1
+        trace.count("kernel1.launches")
     return canvas
-
-
-pillar_tables.launches = 0  # kernel launches, counted where they happen
 
 
 def pillar_rows_plain(u, g4, cidx, ends, cellf, sampf, consts):

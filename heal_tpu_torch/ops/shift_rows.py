@@ -32,14 +32,16 @@ every shift).
 On a CUDA tensor both directions launch csrc/shift_rows.cu (16-byte
 vectors of each row's positions, rows staged through shared memory,
 columns walked down bands; all images in one launch; notes on design and
-bounds there); ``shift_rows.launches`` counts forward launches and
-``shift_rows.backward_launches`` backward ones. On a CPU tensor both take
+bounds there); the tracer counts forward launches as
+``kernel2.launches`` and backward ones as ``kernel2.backward_launches``
+(heal_tpu_torch/trace.py). On a CPU tensor both take
 ``shift_rows_plain`` / ``shift_cols_plain``.
 """
 from __future__ import annotations
 
 import torch
 
+from .. import trace
 from ..kernels import build
 
 
@@ -100,10 +102,8 @@ def _launch(x: torch.Tensor, shifts: torch.Tensor, axis: int, pad: int,
         pad, build.stream_ptr(x.device),
     )
     build.check(code, "shift_rows")
-    if backward:
-        shift_rows.backward_launches += 1
-    else:
-        shift_rows.launches += 1
+    trace.count("kernel2.backward_launches" if backward
+                else "kernel2.launches")
     return out
 
 
@@ -150,7 +150,3 @@ def shift_cols(
     Differentiable in x."""
     return _Shift.apply(x, shifts, max_shift, 1)
 
-
-# kernel launches (rows and columns), counted where they happen
-shift_rows.launches = 0
-shift_rows.backward_launches = 0

@@ -38,6 +38,10 @@ Counterpart of heal_tpu/parallel/trainer.py, on one device or on a
     computes on the same global batch.
 Steps return their aux dict as device scalars and never synchronise
 (under a mesh the collectives are queued on the device like the rest).
+The tracer's spans (heal_tpu_torch/trace.py): ``train.step`` opens a
+request around each step; inside it ``train.forward`` (forward and
+loss), ``train.backward`` and ``train.optimizer`` (the zero gradients'
+fill, the learning rate and the optimizer's step).
 """
 from __future__ import annotations
 
@@ -48,6 +52,7 @@ from typing import Any, Callable
 import numpy as np
 import torch
 
+from .. import trace
 from ..models.layers import rng_streams
 from .freezing import freeze, frozen_eval
 from .sharding import sharded_parameters
@@ -236,17 +241,19 @@ class Trainer:
         batch): each trainable parameter's ``.grad`` then holds the step's
         gradient, the global batch's under a mesh. -> the aux terms."""
         self.optimizer.zero_grad(set_to_none=True)
-        with self.streams():
+        with trace.span("train.forward"), self.streams():
             loss, aux = self.loss(batch)
-        loss.backward()
+        with trace.span("train.backward"):
+            loss.backward()
         # a parameter the loss does not reach (VoxelNet's direction head:
         # its loss has no direction term) has a zero gradient in JAX, and
         # optax still applies the weight decay to it: so here too
         params = [p for group in self.optimizer.param_groups
                   for p in group["params"]]
-        for p in params:
-            if p.grad is None:
-                p.grad = torch.zeros_like(p)
+        with trace.span("train.optimizer"):
+            for p in params:
+                if p.grad is None:
+                    p.grad = torch.zeros_like(p)
         if self.mesh is not None:
             self.mesh.reduce_gradients(params, self._sharded)
         return self._global(dict(aux, total_loss=loss))
@@ -254,14 +261,17 @@ class Trainer:
     def train_step(self, batch: dict) -> dict[str, Any]:
         """One update on a device batch (:meth:`gradients`, then the
         optimizer at the scheduled learning rate). After it, each
-        parameter's ``.grad`` holds this step's gradient."""
-        aux = self.gradients(batch)
-        lr = self.schedule(self.step)
-        for group in self.optimizer.param_groups:
-            group["lr"] = lr
-        self.optimizer.step()
-        self.step += 1
-        return aux
+        parameter's ``.grad`` holds this step's gradient. The step is a
+        request of the tracer (span ``train.step``)."""
+        with trace.request("train.step"):
+            aux = self.gradients(batch)
+            with trace.span("train.optimizer"):
+                lr = self.schedule(self.step)
+                for group in self.optimizer.param_groups:
+                    group["lr"] = lr
+                self.optimizer.step()
+            self.step += 1
+            return aux
 
     def _global(self, aux: dict) -> dict:
         """The aux terms detached; under a mesh each scalar is averaged

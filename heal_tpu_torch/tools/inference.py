@@ -41,6 +41,7 @@ import time
 import numpy as np
 import torch
 
+from .. import trace
 from ..config import load_yaml, reparse
 from ..data import assembler_class, build_dataset
 from ..data.scene import collate
@@ -108,12 +109,14 @@ def _model_inputs(batch: dict, keys, device) -> dict:
     slots_mX), as tensors on ``device``; an array the batch holds under
     two keys (collate aliases ``points`` and ``inputs_m1/points``)
     crosses once. Points, affines and labels stay f32 whatever the
-    model's dtype."""
+    model's dtype. Each array's copy is pageable and blocking
+    (``host_sync.h2d``)."""
     memo: dict = {}
 
     def conv(x):
         if id(x) not in memo:  # keep x alive: its id stays unique
             memo[id(x)] = (x, torch.from_numpy(np.asarray(x)).to(device))
+            trace.count("host_sync.h2d")
         return memo[id(x)][1]
 
     out = {}
@@ -128,12 +131,14 @@ def _model_inputs(batch: dict, keys, device) -> dict:
 def frame_inputs(batch: dict, keys, device, late: bool):
     """One test frame's model inputs on ``device``: a dict, or for late
     fusion a list of them, the ego's then each agent sample's (batch 1
-    each)."""
-    if not late:
-        return _model_inputs(batch, keys, device)
-    return [_model_inputs(batch, keys, device)] + [
-        _model_inputs(collate([s]), keys, device)
-        for s in batch["agent_samples"][0]]
+    each). Opens the frame's request in the tracer (span
+    ``serve.inputs``)."""
+    with trace.request("serve.inputs"):
+        if not late:
+            return _model_inputs(batch, keys, device)
+        return [_model_inputs(batch, keys, device)] + [
+            _model_inputs(collate([s]), keys, device)
+            for s in batch["agent_samples"][0]]
 
 
 def device_frames(cfg: dict, device, max_batches: int | None = None) -> list:

@@ -16,6 +16,7 @@ import numpy as np
 import pytest
 import torch
 
+from heal_tpu_torch import trace
 from heal_tpu_torch.kernels.measure import device_kernels
 from heal_tpu_torch.ops import pillar, shift_rows
 from heal_tpu_torch.ops.warp import warp_agents_to_ego
@@ -29,6 +30,11 @@ def dev():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
     return torch.device("cuda")
+
+
+def _launches(name: str) -> int:
+    """The launches the tracer has counted under ``name``."""
+    return trace.counters().get(name, 0)
 
 
 def _close(got, want, dtype):
@@ -52,9 +58,9 @@ def test_pillar_tables_kernel_matches_plain(dev, dtype):
     w = torch.from_numpy(rng.randn(7, f).astype(np.float32)).to(dev)
     grid = pillar.PillarGrid(nx, stride, cells, 0.4, 0.4, 0.2, 0.2, -1.0)
     fi_t = torch.from_numpy(fi).to(dev)
-    before = pillar.pillar_tables.launches
+    before = _launches("kernel1.launches")
     got = pillar.pillar_tables(u, g4, fi_t, w, grid, b)
-    assert pillar.pillar_tables.launches == before + 1
+    assert _launches("kernel1.launches") == before + 1
     want = pillar.pillar_tables_plain(u, g4, fi_t, w, grid, b)
     torch.cuda.synchronize()
     assert got.shape == want.shape == (b * stride, f) and got.dtype == dtype
@@ -82,9 +88,9 @@ def test_pillar_tables_kernel_edge_cases(dev, name, dtype):
     canvas, and the same bits from two calls (each run reduced in one
     fixed order)."""
     args = _pillar_args(name, dev, dtype)
-    before = pillar.pillar_tables.launches
+    before = _launches("kernel1.launches")
     got = pillar.pillar_tables(*args)
-    assert pillar.pillar_tables.launches == before + 1
+    assert _launches("kernel1.launches") == before + 1
     again = pillar.pillar_tables(*args)
     want = pillar.pillar_tables_plain(*args)
     torch.cuda.synchronize()
@@ -116,10 +122,10 @@ def test_pillar_tables_takes_misaligned_u_and_empty_batches(dev):
     want = pillar.pillar_tables_plain(u, g4, fi, w, grid, batch)
     torch.cuda.synchronize()
     _close(got, want, torch.float32)
-    before = pillar.pillar_tables.launches
+    before = _launches("kernel1.launches")
     empty = pillar.pillar_tables(u[:0], g4[:0], fi[:0], w, grid, 0)
     assert empty.shape == (0, u.shape[1])
-    assert pillar.pillar_tables.launches == before
+    assert _launches("kernel1.launches") == before
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -182,9 +188,9 @@ def test_shift_backward_kernel_matches_plain_backward(dev, dtype, axis):
     s = (torch.rand((3, x.shape[1 + axis]), generator=gen,
                     device=dev) * 2 - 1) * 7
     xr = x.clone().requires_grad_()
-    before = shift_rows.shift_rows.backward_launches
+    before = _launches("kernel2.backward_launches")
     fn(xr, s, 7).backward(g)
-    assert shift_rows.shift_rows.backward_launches == before + 1
+    assert _launches("kernel2.backward_launches") == before + 1
     want = plain(g, -s, 7)
     torch.cuda.synchronize()
     assert xr.grad.dtype == dtype
@@ -219,9 +225,9 @@ def test_shear_warp_input_gradient_goes_through_the_kernel(dev, monkeypatch):
         (warp_agents_to_ego(x, aff) * cot).sum().backward()
         return x.grad
 
-    before = shift_rows.shift_rows.backward_launches
+    before = _launches("kernel2.backward_launches")
     got = grad()
-    assert shift_rows.shift_rows.backward_launches > before
+    assert _launches("kernel2.backward_launches") > before
     monkeypatch.setattr(shift_rows, "shift_rows", shift_rows.shift_rows_plain)
     monkeypatch.setattr(shift_rows, "shift_cols", shift_rows.shift_cols_plain)
     want = grad()
@@ -252,11 +258,11 @@ def test_warp_pairwise_shear_on_the_card_matches_plain(dev, monkeypatch, c):
         (out * cot).sum().backward()
         return out.detach(), x.grad
 
-    fwd = shift_rows.shift_rows.launches
-    bwd = shift_rows.shift_rows.backward_launches
+    fwd = _launches("kernel2.launches")
+    bwd = _launches("kernel2.backward_launches")
     got, got_g = run()
-    assert shift_rows.shift_rows.launches == fwd + 5
-    assert shift_rows.shift_rows.backward_launches == bwd + 5
+    assert _launches("kernel2.launches") == fwd + 5
+    assert _launches("kernel2.backward_launches") == bwd + 5
     assert got.shape == (2, 3, 3, 24, 40, c)
     monkeypatch.setattr(shift_rows, "shift_rows", shift_rows.shift_rows_plain)
     monkeypatch.setattr(shift_rows, "shift_cols", shift_rows.shift_cols_plain)
@@ -273,10 +279,10 @@ def test_pillar_tables_raises_under_grad_on_the_card(dev):
     args = (torch.zeros((3, 4), device=dev),
             torch.zeros(3, dtype=torch.int32, device=dev),
             torch.zeros((7, 8), device=dev), grid, 1)
-    before = pillar.pillar_tables.launches
+    before = _launches("kernel1.launches")
     with pytest.raises(RuntimeError, match="no backward"):
         pillar.pillar_tables(u, *args)
-    assert pillar.pillar_tables.launches == before
+    assert _launches("kernel1.launches") == before
 
 
 def test_kernels_raise_on_inputs_they_do_not_take(dev):
@@ -310,11 +316,11 @@ def test_late_and_early_frames_launch_kernel_1_once_per_forward(dev, method,
     cfg["fusion"]["core_method"] = method
     model = build_weights(cfg, seed=0).to(dev)
     frames = device_frames(cfg, dev, 2)
-    k1, k2 = pillar.pillar_tables.launches, shift_rows.shift_rows.launches
+    k1, k2 = _launches("kernel1.launches"), _launches("kernel2.launches")
     got = run_inference(cfg=cfg, device=dev, model=model, frames=frames,
                         collect_heads=True)
-    assert pillar.pillar_tables.launches - k1 == 2 * per_frame
-    assert shift_rows.shift_rows.launches == k2
+    assert _launches("kernel1.launches") - k1 == 2 * per_frame
+    assert _launches("kernel2.launches") == k2
     assert len(got["heads"]) == 2 * per_frame
     with pytest.MonkeyPatch.context() as mp:
         mp.setattr(pillar, "pillar_tables", pillar.pillar_tables_plain)
@@ -342,11 +348,11 @@ def test_compressed_pyramid_frames_launch_both_kernels(dev):
     model = build_weights(cfg, seed=0).to(dev)
     assert model.compressor is not None
     frames = device_frames(cfg, dev, 2)
-    k1, k2 = pillar.pillar_tables.launches, shift_rows.shift_rows.launches
+    k1, k2 = _launches("kernel1.launches"), _launches("kernel2.launches")
     got = run_inference(cfg=cfg, device=dev, model=model, frames=frames,
                         collect_heads=True)
-    assert pillar.pillar_tables.launches - k1 == 2
-    assert shift_rows.shift_rows.launches - k2 == 2 * 15
+    assert _launches("kernel1.launches") - k1 == 2
+    assert _launches("kernel2.launches") - k2 == 2 * 15
     with pytest.MonkeyPatch.context() as mp:
         mp.setattr(pillar, "pillar_tables", pillar.pillar_tables_plain)
         mp.setattr(shift_rows, "_shift",
@@ -389,7 +395,7 @@ def test_center_point_and_second_frames_launch_the_kernels(dev, core,
         a["shrink_header"].update(dim=[32], input_dim=32)
     model = build_weights(cfg, seed=0).to(dev)
     frames = device_frames(cfg, dev, 2)
-    k1, k2 = pillar.pillar_tables.launches, shift_rows.shift_rows.launches
+    k1, k2 = _launches("kernel1.launches"), _launches("kernel2.launches")
     with pytest.MonkeyPatch.context() as mp:
         mp.setattr(torch.backends.cudnn, "allow_tf32", False)
         mp.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
@@ -397,8 +403,8 @@ def test_center_point_and_second_frames_launch_the_kernels(dev, core,
         try:
             got = run_inference(cfg=cfg, device=dev, model=model,
                                 frames=frames, collect_heads=True)
-            assert pillar.pillar_tables.launches - k1 == 2 * launches[0]
-            assert shift_rows.shift_rows.launches - k2 == 2 * launches[1]
+            assert _launches("kernel1.launches") - k1 == 2 * launches[0]
+            assert _launches("kernel2.launches") - k2 == 2 * launches[1]
             mp.setattr(pillar, "pillar_tables", pillar.pillar_tables_plain)
             mp.setattr(shift_rows, "_shift",
                        lambda x, s, m, axis, backward=False: (
@@ -449,11 +455,11 @@ def test_option_frames_launch_exactly_their_kernels(dev, case, launches):
     model = build_weights(cfg, seed=0).to(dev)
     frames = device_frames(cfg, dev, 2)
     forwards = sum(len(f) if isinstance(f, list) else 1 for _, f in frames)
-    k1, k2 = pillar.pillar_tables.launches, shift_rows.shift_rows.launches
+    k1, k2 = _launches("kernel1.launches"), _launches("kernel2.launches")
     got = run_inference(cfg=cfg, device=dev, model=model, frames=frames,
                         collect_heads=True)
-    assert pillar.pillar_tables.launches - k1 == forwards * launches[0]
-    assert shift_rows.shift_rows.launches - k2 == forwards * launches[1]
+    assert _launches("kernel1.launches") - k1 == forwards * launches[0]
+    assert _launches("kernel2.launches") - k2 == forwards * launches[1]
     assert all(torch.isfinite(t).all() for h in got["heads"]
                for t in h.values())
 
@@ -489,15 +495,15 @@ def test_legacy_frames_launch_exactly_their_kernels(dev, core, args,
     cfg = _legacy_tiny(core, **args)
     model = build_weights(cfg, seed=0).to(dev)
     frames = device_frames(cfg, dev, 2)
-    k1, k2 = pillar.pillar_tables.launches, shift_rows.shift_rows.launches
+    k1, k2 = _launches("kernel1.launches"), _launches("kernel2.launches")
     for dtype in (torch.float32, torch.bfloat16):
         got = run_inference(cfg=cfg, device=dev, dtype=dtype,
                             model=model.to(dtype), frames=frames,
                             collect_heads=True)
         assert all(torch.isfinite(t).all() for h in got["heads"]
                    for t in h.values())
-    assert pillar.pillar_tables.launches - k1 == 4 * launches[0]
-    assert shift_rows.shift_rows.launches - k2 == 4 * launches[1]
+    assert _launches("kernel1.launches") - k1 == 4 * launches[0]
+    assert _launches("kernel2.launches") - k2 == 4 * launches[1]
 
 
 def test_kd_step_launches_the_teacher_once(dev, tmp_path):
@@ -524,13 +530,13 @@ def test_kd_step_launches_the_teacher_once(dev, tmp_path):
     tr = build_trainer(cfg, dev, 1, trainer_cls=train_w_kd.KDTrainer,
                        teacher=teacher)
     batch, _ = next(device_batches(cfg, 2, dev))
-    k1, k2 = pillar.pillar_tables.launches, shift_rows.shift_rows.launches
-    kb = shift_rows.shift_rows.backward_launches
+    k1, k2 = _launches("kernel1.launches"), _launches("kernel2.launches")
+    kb = _launches("kernel2.backward_launches")
     aux = tr.train_step(batch)
     torch.cuda.synchronize()
-    assert pillar.pillar_tables.launches - k1 == 1
-    assert shift_rows.shift_rows.launches - k2 == 5
-    assert shift_rows.shift_rows.backward_launches - kb == 5
+    assert _launches("kernel1.launches") - k1 == 1
+    assert _launches("kernel2.launches") - k2 == 5
+    assert _launches("kernel2.backward_launches") - kb == 5
     assert aux["kd_loss"].item() > 0
     for k, v in teacher.state_dict().items():
         assert torch.equal(v, before[k]), k
@@ -652,12 +658,12 @@ def test_transplanted_flagship_launches_1_and_15(dev):
         strict=True)
     model = model.to(dev)
     frames = device_frames(cfg, dev, 1)
-    k1, k2 = pillar.pillar_tables.launches, shift_rows.shift_rows.launches
+    k1, k2 = _launches("kernel1.launches"), _launches("kernel2.launches")
     for dtype in (torch.float32, torch.bfloat16):
         got = run_inference(cfg=cfg, device=dev, dtype=dtype,
                             model=model.to(dtype), frames=frames,
                             collect_heads=True)
         assert all(torch.isfinite(t).all() for h in got["heads"]
                    for t in h.values())
-    assert pillar.pillar_tables.launches - k1 == 2
-    assert shift_rows.shift_rows.launches - k2 == 30
+    assert _launches("kernel1.launches") - k1 == 2
+    assert _launches("kernel2.launches") - k2 == 30

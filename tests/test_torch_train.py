@@ -46,7 +46,7 @@ from heal_tpu.parallel.schedulers import build_optimizer as jax_optimizer
 from heal_tpu.utils import box_np, eval_np
 from heal_tpu_torch.models import build_loss, build_model
 from heal_tpu_torch.models.layers import init_weights
-from heal_tpu_torch.ops import pillar
+from heal_tpu_torch import trace
 from heal_tpu_torch.parallel import Trainer, build_optimizer, to_device
 from heal_tpu_torch.postprocess.decode import post_process_single, strip_padding
 from heal_tpu_torch.tools import checkpoint as ckpt_lib
@@ -57,6 +57,11 @@ from heal_tpu_torch.utils.bridge import load_flax, to_flax
 torch.set_num_threads(1)
 TINY = "tests/configs/entry_tiny.yaml"
 STEPS_PER_EPOCH = 8
+
+
+def _launches(name: str) -> int:
+    """The launches the tracer has counted under ``name``."""
+    return trace.counters().get(name, 0)
 
 
 def _rel(a, b) -> float:
@@ -107,9 +112,9 @@ def test_train_step_matches_jax(tiny):
     aux = dict(aux, total_loss=loss)
 
     port = _port(cfg, state)
-    before = pillar.pillar_tables.launches
+    before = _launches("kernel1.launches")
     got = port.train_step(to_device(batch, "cpu"))
-    assert pillar.pillar_tables.launches == before
+    assert _launches("kernel1.launches") == before
     assert sorted(got) == sorted(aux)
     for k in aux:
         np.testing.assert_allclose(got[k].item(), aux[k], rtol=3e-5,
