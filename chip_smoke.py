@@ -15,13 +15,22 @@ Phases, in order; any failure raises and the exit code is non-zero:
      dense as OPV2V lidar, each call held to one device kernel and no
      host sync (torch.profiler, sync debug mode "error"); kernel 2 at its
      3 levels, rows and columns, forward and backward (the kernel run
-     with -s, against shift_*_plain(g, -s));
+     with -s, against shift_*_plain(g, -s)); kernel 3 (one SECOND conv
+     layer) at the alliance's m3 shapes, the first layer of each of its
+     six (Cin, Cout, stride), each call one device kernel and no host
+     sync, with its bound (the bytes, or the occupied output voxels'
+     products at 67 TFLOP/s), then the m3 encoder with kernel 3 and with
+     the plain layers (10 launches a forward). Every later phase counts
+     kernel 3 too: M3_LAUNCHES an f32 eval forward of a SECOND encoder
+     (the alliance's m3, the m1m2m3m4 baselines, the SECOND detectors),
+     never in bf16, in training or in a flagship frame;
   4. serve 8 synthetic flagship frames through
      heal_tpu_torch.tools.inference.run_inference with seeded random
      weights, f32 (TF32 off) and bf16 (points, affines and decode f32);
      the f32 heads must match the same frames run with the plain kernel
-     versions on the card; both kernels' launch counters must rise while
-     serving; frames/s for both, and the exact-vs-shear warp time;
+     versions on the card; kernels 1 and 2's launch counters must rise
+     while serving, kernel 3's stay 0; frames/s for both, and the
+     exact-vs-shear warp time;
   5. train the flagship model (batch_size 2, full width and depth) with
      heal_tpu_torch.parallel.Trainer: one f32 step through the kernels and
      one through the plain versions from the same weights and batch (loss
@@ -365,7 +374,16 @@ STAGE2_STEPS = 4  # timed stage-2 steps after a warm one
 # launches of each kernel a served alliance frame: kernel 1 once per
 # PointPillars branch (m1, m4); kernel 2 in weighted_fuse (3 levels x 5);
 # the SECOND (m3) and camera (m2) branches launch neither
-ALLIANCE_LAUNCHES = {"pillar_tables": 2, "shift_rows": 15}
+# the kernels as the launch tables below index them: (kernel 1, kernel 2,
+# kernel 3)
+KERNELS = ("pillar_tables", "shift_rows", "column_conv")
+# kernel-3 launches an f32 eval forward of a SECOND encoder at the
+# published widths on the card: one a conv layer (conv_input, three
+# strided, six submanifold). bf16 and training take its plain version
+M3_LAUNCHES = 10
+# a served alliance frame; kernel 3 in its f32 frames only
+ALLIANCE_LAUNCHES = {"pillar_tables": 2, "shift_rows": 15,
+                     "column_conv": M3_LAUNCHES}
 # the SECOND encoder on the card vs on the CPU, one frame: f32 features
 # as max |d| / (1 + max |cpu|) (GEMMs and segment sums in another order)
 SECOND_CPU_TOL = 1e-5
@@ -439,12 +457,13 @@ AF_CFGS = {"center_point": "opv2v/lidar_only/center_point_where2comm.yaml",
 AF_FRAMES = 6
 AF_BATCH = 4  # published
 AF_AGENTS = {"second": 2}  # DAIR-V2X-C: one vehicle, one roadside unit
-# (kernel 1, kernel 2) launches a forward, counted from the code: kernel 1
-# once in CenterPoint's eval encoder (all B*L agents in one call) and
-# never in SECOND; kernel 2 five times a warp_agents_to_ego (three shears
-# and two integer shifts), the where2comm or att fusion's one warp. A
-# train step launches kernel 2 as often again backward, kernel 1 never
-AF_LAUNCHES = {"center_point": (1, 5), "second": (0, 5)}
+# (kernel 1, kernel 2, kernel 3) launches a forward, counted from the
+# code: kernel 1 once in CenterPoint's eval encoder (all B*L agents in one
+# call) and never in SECOND; kernel 2 five times a warp_agents_to_ego
+# (three shears and two integer shifts), the where2comm or att fusion's
+# one warp; kernel 3 M3_LAUNCHES times an f32 SECOND forward. A train
+# step launches kernel 2 as often again backward, kernels 1 and 3 never
+AF_LAUNCHES = {"center_point": (1, 5, 0), "second": (0, 5, M3_LAUNCHES)}
 # phase 11: the disk datasets, published configs read from files the
 # phase writes (heal_tpu/configs/...)
 DISK_CFGS = {"opv2v": "opv2v/heal/final_infer/m1m2m3m4.yaml",
@@ -463,12 +482,14 @@ DISK_GROUND_POINTS = 60000
 DISK_BOX_POINTS = 2000
 DISK_FRAMES = {"opv2v": 6, "dairv2x": 4, "v2xsim": 4}
 DISK_BATCH = 4  # published
-# (kernel 1, kernel 2) launches a served frame: every branch runs on its
-# fixed-capacity packing whatever modalities the backend drew, so kernel
-# 1 runs once per PointPillars branch (the alliance's m1 and m4; the m1
-# of DAIR-V2X's pyramid; V2X-Sim's one encoder) and kernel 2 five times
-# a warp call (the pyramid's 3 levels; fcooper's one ego warp)
-DISK_LAUNCHES = {"opv2v": (2, 15), "dairv2x": (1, 15), "v2xsim": (1, 5)}
+# (kernel 1, kernel 2, kernel 3) launches a served frame: every branch
+# runs on its fixed-capacity packing whatever modalities the backend drew,
+# so kernel 1 runs once per PointPillars branch (the alliance's m1 and m4;
+# the m1 of DAIR-V2X's pyramid; V2X-Sim's one encoder), kernel 2 five
+# times a warp call (the pyramid's 3 levels; fcooper's one ego warp) and
+# kernel 3 M3_LAUNCHES times in an f32 frame of the alliance (its m3)
+DISK_LAUNCHES = {"opv2v": (2, 15, M3_LAUNCHES), "dairv2x": (1, 15, 0),
+                 "v2xsim": (1, 5, 0)}
 # phase 12, the camera-only table and the models' other options
 # (heal_tpu/configs/opv2v/...): the eight camera_only configs as published
 # (CAMERA_FRAMES test frames, one train batch of CAMERA_BATCH), the four
@@ -518,19 +539,24 @@ LEGACY_LIDAR = "opv2v/lidar_only/max.yaml"
 LEGACY_DISCONET = "opv2v/lidar_only/disconet.yaml"
 LEGACY_PIXOR = "opv2v/lidar_only/center_point_where2comm.yaml"
 LEGACY_SECOND = "dairv2x/second_coalign.yaml"
-# (kernel 1, kernel 2) launches a served frame, rehearsed on the CPU with
-# spies (the warp forced to the shear path): the multiscale baseline
-# warps its three levels (5 each), DiscoNet and the intermediate VoxelNet
-# and PIXOR their fused map once; the teacher is a PointPillars detector
-# on early frames; VoxelNet, PIXOR and the SECOND detectors alone launch
-# nothing, FPV-RCNN neither (it moves boxes and keypoints, not maps). A
-# train step: kernel 1 never (the KD step's frozen teacher: once), kernel
-# 2 as often backward as forward
+# (kernel 1, kernel 2, kernel 3) launches a served frame, rehearsed on
+# the CPU with spies (the warp forced to the shear path): the multiscale
+# baseline warps its three levels (5 each), DiscoNet and the intermediate
+# VoxelNet and PIXOR their fused map once; the teacher is a PointPillars
+# detector on early frames; VoxelNet, PIXOR and the SECOND detectors
+# launch neither kernel 1 nor 2, FPV-RCNN neither (it moves boxes and
+# keypoints, not maps); the SECOND detectors and FPV-RCNN run one SECOND
+# encoder a forward, kernel 3 M3_LAUNCHES times in f32. A train step:
+# kernel 1 never (the KD step's frozen teacher: once), kernel 2 as often
+# backward as forward, kernel 3 never
 LEGACY_LAUNCHES = {
-    "multiscale": (1, 15), "disconet": (1, 5), "disconet_teacher": (1, 0),
-    "voxel_net": (0, 0), "voxel_net_intermediate": (0, 5), "pixor": (0, 0),
-    "pixor_intermediate": (0, 5), "ciassd": (0, 0), "second_ssfa": (0, 0),
-    "second_ssfa_uncertainty": (0, 0), "fpvrcnn": (0, 0)}
+    "multiscale": (1, 15, 0), "disconet": (1, 5, 0),
+    "disconet_teacher": (1, 0, 0), "voxel_net": (0, 0, 0),
+    "voxel_net_intermediate": (0, 5, 0), "pixor": (0, 0, 0),
+    "pixor_intermediate": (0, 5, 0), "ciassd": (0, 0, M3_LAUNCHES),
+    "second_ssfa": (0, 0, M3_LAUNCHES),
+    "second_ssfa_uncertainty": (0, 0, M3_LAUNCHES),
+    "fpvrcnn": (0, 0, M3_LAUNCHES)}
 # phase 14 (tools): TOOLS_FRAMES flagship frames served after the
 # transplant and one drawn by --save_vis; the profiler's timed forwards
 # (train steps: half as many, after a warm one; plus one counted and 5
@@ -550,13 +576,14 @@ CKA_CELLS = 2048
 # the oracle engine vs the column engine, f32: max |d| / (1 + max |col|)
 # (the two sum a conv's taps in different orders)
 ORACLE_TOL = 1e-5
-# (kernel 1, kernel 2) launches a forward: the flagship (transplanted,
-# profiled, ap_curve's stage-1 model); bench_matrix's paths (the m3
-# single model and SECOND bypass both; the camera has no kernel 1); a
-# pp_max train step launches kernel 2 5 times each way
-TOOLS_LAUNCHES = (1, 15)
-BENCH_LAUNCHES = {"pp_max": (1, 5), "second": (0, 0), "lss": (0, 15),
-                  "heter4": (2, 15)}
+# (kernel 1, kernel 2, kernel 3) launches a forward: the flagship
+# (transplanted, profiled, ap_curve's stage-1 model); bench_matrix's
+# paths (the m3 single model and SECOND bypass kernels 1 and 2; the
+# camera has no kernel 1; bench_matrix serves in bf16, so kernel 3
+# never); a pp_max train step launches kernel 2 5 times each way
+TOOLS_LAUNCHES = (1, 15, 0)
+BENCH_LAUNCHES = {"pp_max": (1, 5, 0), "second": (0, 0, 0),
+                  "lss": (0, 15, 0), "heter4": (2, 15, 0)}
 BENCH_TRAIN_SHIFTS = 5
 # the paths whose own inputs the kernels are held on (kernel 1, kernel 2):
 # the multiscale baseline's frame and its three levels' warps, the KD
@@ -600,20 +627,23 @@ def rel_err(a: torch.Tensor, b: torch.Tensor) -> tuple[float, float]:
 @contextlib.contextmanager
 def plain_kernels():
     """Route the model through the kernels' plain PyTorch versions (for the
-    reference run only): kernel 1's wrapper is swapped at module level, and
-    kernel 2's one-direction launcher, which its autograd function calls
-    forward with s and backward with -s."""
-    from heal_tpu_torch.ops import pillar, shift_rows
+    reference run only): kernel 1's and kernel 3's wrappers are swapped at
+    module level, and kernel 2's one-direction launcher, which its
+    autograd function calls forward with s and backward with -s."""
+    from heal_tpu_torch.ops import column_conv, pillar, shift_rows
 
-    saved = (pillar.pillar_tables, shift_rows._shift)
+    saved = (pillar.pillar_tables, shift_rows._shift,
+             column_conv.column_conv_layer)
     pillar.pillar_tables = pillar.pillar_tables_plain
     shift_rows._shift = lambda x, s, m, axis, backward=False: (
         shift_rows.shift_rows_plain if axis == 0
         else shift_rows.shift_cols_plain)(x, s, m)
+    column_conv.column_conv_layer = column_conv.column_conv_layer_plain
     try:
         yield
     finally:
-        pillar.pillar_tables, shift_rows._shift = saved
+        (pillar.pillar_tables, shift_rows._shift,
+         column_conv.column_conv_layer) = saved
 
 
 def phase_card() -> str:
@@ -778,7 +808,7 @@ def pillar_case(name, args, dt) -> dict:
         if launched:
             break
     else:
-        launched = trace_in_fresh_process(args)
+        launched = trace_in_fresh_process([(list(args), {})])
         traces = f"{TRACE_TRIES} empty, then one in a fresh process"
     if len(launched) != 1 or "pillar_tables" not in launched[0]:
         raise AssertionError(f"pillar_tables {name} {dt}: one call put "
@@ -808,22 +838,31 @@ def pillar_case(name, args, dt) -> dict:
 _TRACE = """
 import json, sys, torch
 from heal_tpu_torch.kernels.measure import device_kernels
-from heal_tpu_torch.ops import pillar
-args = torch.load(sys.argv[1], weights_only=False)
-print(json.dumps(device_kernels(lambda: pillar.pillar_tables(*args))))
+from heal_tpu_torch.ops import column_conv, pillar
+calls = torch.load(sys.argv[1], weights_only=False)
+fn = {"pillar_tables": pillar.pillar_tables,
+      "column_conv": column_conv.column_conv_layer}[sys.argv[2]]
+def run():
+    with torch.inference_mode():
+        for args, kwargs in calls:
+            fn(*args, **kwargs)
+print(json.dumps(device_kernels(run)))
 """
 
 
-def trace_in_fresh_process(args) -> list[str]:
-    """``device_kernels`` of one kernel-1 call on ``args`` (saved to a
-    temporary file) in a new Python process with its own CUPTI session."""
+def trace_in_fresh_process(calls, kernel: str = "pillar_tables") -> list:
+    """``device_kernels`` of ``calls`` [(args, kwargs)] of the wrapper of
+    ``kernel`` (``pillar_tables`` or ``column_conv``), saved to a
+    temporary file, in a new Python process with its own CUPTI
+    session."""
     root = os.path.dirname(os.path.abspath(__file__))
     with tempfile.TemporaryDirectory() as tmp:
-        path = os.path.join(tmp, "args.pt")
-        torch.save(list(args), path)
-        proc = subprocess.run([sys.executable, "-c", _TRACE, path], cwd=root,
-                              capture_output=True, text=True, timeout=300,
-                              env=dict(os.environ, PYTHONPATH=root))
+        path = os.path.join(tmp, "calls.pt")
+        torch.save(list(calls), path)
+        proc = subprocess.run([sys.executable, "-c", _TRACE, path, kernel],
+                              cwd=root, capture_output=True, text=True,
+                              timeout=300, env=dict(os.environ,
+                                                    PYTHONPATH=root))
     if proc.returncode != 0:
         raise AssertionError(f"the fresh trace failed: {proc.stderr[-2000:]}")
     return json.loads(proc.stdout.strip().splitlines()[-1])
@@ -933,6 +972,248 @@ def shift_case(x, s, ms_bound, name: str, gen, what: str = "") -> list:
     return cases
 
 
+def column_conv_work(cols, table, weights, out_cols) -> dict:
+    """The work of kernel 3 on these arguments: ``flops`` the products of
+    the agents' valid output columns, every z layer of them (2*27*Cin*Cout
+    a voxel; the epilogue's few operations a channel left out), ``bytes``
+    the valid input columns' features and occupancy, the table, the
+    weights and LayerNorm's parameters read once and the whole output
+    written once; ``voxels`` those output voxels. The function needs the
+    products of the occupied output voxels alone (every other output is
+    0): :func:`column_conv_case` bounds by those."""
+    b, vc, z, cin = cols["feats"].shape
+    cout = weights.shape[-1]
+    dst = out_cols if out_cols is not None else cols
+    zo = dst["grid"][0]
+    o = dst["cvalid"].shape[1]
+    voxels = int(dst["cvalid"].sum()) * zo
+    n_in = int(cols["cvalid"].sum())
+    out_bytes = b * o * zo * (cout * 4 + (out_cols is not None))
+    return dict(
+        flops=2 * 27 * cin * cout * voxels, voxels=voxels,
+        bytes=(n_in * z * (cin * 4 + 1) + table.numel() * 4
+               + weights.numel() * 4 + 2 * cout * 4 + b * o + out_bytes),
+        zo=zo, o=o)
+
+
+def column_conv_layers(enc, points, mask) -> list:
+    """Kernel 3's arguments at each conv layer of the SECOND encoder
+    ``enc`` (eval) on these agents, in order: (name, args, kwargs) of
+    ``cc.column_conv_layer`` as the layer called it."""
+    from heal_tpu_torch.models.second import ColumnConvLayer
+    from heal_tpu_torch.ops import column_conv as cc
+
+    seen = []
+    fused = cc.column_conv_layer
+
+    def spy(*args, **kwargs):
+        seen.append((args, kwargs))
+        return fused(*args, **kwargs)
+
+    names = [n for n, m in enc.named_modules()
+             if isinstance(m, ColumnConvLayer)]
+    cc.column_conv_layer = spy
+    try:
+        with torch.inference_mode():
+            enc(points, mask)
+    finally:
+        cc.column_conv_layer = fused
+    if len(seen) != len(names):
+        raise AssertionError(f"{len(seen)} kernel-3 calls for the "
+                             f"{len(names)} conv layers {names}")
+    return [(n.rsplit(".", 1)[-1], a, k) for n, (a, k) in zip(names, seen)]
+
+
+def dense_m3_frame(points, mask, stack, seed: int):
+    """An m3 frame as dense as OPV2V lidar on the SECOND ``stack``'s grid:
+    the first slot holds as many real points as ``points`` has rows,
+    spread over the whole BEV range and the lowest 2 m (one or two
+    occupied voxels a column, enough distinct columns to fill every
+    level's capacity), ordered by the full voxel key as the host presort
+    orders them (data/scene.py ``_presort_voxel``; binned as the engine
+    bins); the other slots stay empty."""
+    from heal_tpu_torch.ops import column_conv as cc
+
+    dev = points.device
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    x0, y0, z0, x1, y1, _ = stack.lidar_range
+    n = points.shape[1]
+    lo = torch.tensor([x0, y0, z0, 0.0], device=dev)
+    span = torch.tensor([x1 - x0, y1 - y0, 2.0, 1.0], device=dev)
+    pts = lo + span * torch.rand((n, 4), generator=gen, device=dev)
+    nz, _, nx = cc.grid_shape(stack.lidar_range, stack.voxel_size)
+    cell = torch.floor((pts[:, :3] - lo[:3]) / torch.tensor(
+        stack.voxel_size, device=dev)).long()
+    key = (cell[:, 1] * nx + cell[:, 0]) * nz + cell[:, 2]
+    out = torch.zeros_like(points)
+    out[0] = pts[torch.argsort(key, stable=True)]
+    msk = torch.zeros_like(mask)
+    msk[0] = True
+    return out, msk
+
+
+def column_conv_case(frame: str, name, args, kwargs) -> dict:
+    """Kernel 3 on one layer's arguments against its plain version
+    (KERNEL_TOL; the output occupancy exactly), with both device times
+    and the bound."""
+    from heal_tpu_torch.ops import column_conv as cc
+
+    cols, table, weights = args[:3]
+    out_cols = kwargs.get("out_cols")
+    cin, cout = weights.shape[1:]
+    strided = out_cols is not None
+    work = column_conv_work(cols, table, weights, out_cols)
+
+    def call():
+        return cc.column_conv_layer(*args, **kwargs)
+
+    def plain():
+        return cc.column_conv_layer_plain(*args, **kwargs)
+
+    with torch.inference_mode():
+        got, want = call(), plain()
+        torch.cuda.synchronize()
+        d, r = rel_err(got["feats"], want["feats"])
+        if not r <= KERNEL_TOL[torch.float32]:
+            raise AssertionError(f"column_conv {frame} {name}: {r}")
+        if not torch.equal(got["occ"], want["occ"]):
+            raise AssertionError(f"column_conv {frame} {name}: occupancy")
+        occupied = int(got["occ"].sum())
+        ms = device_ms(call)
+        plain_ms = device_ms(plain)
+    # the function's bound: the occupied output voxels' products or the
+    # bytes; the valid columns' every voxel (Z dense) is a note
+    flops = 2 * 27 * cin * cout * occupied
+    b_ms, b_by = bound(work["bytes"], flops)
+    dense_ms = bound(0, work["flops"])[0]
+    print(f"[kernel] column_conv {frame} {name} ({cin} -> {cout}"
+          f"{', stride 2' if strided else ''}) feats "
+          f"{tuple(cols['feats'].shape)} -> {tuple(got['feats'].shape)} "
+          f"({work['voxels']} voxels in valid columns, {occupied} "
+          f"occupied): max_abs_err {d:.3e} (rel {r:.3e}, tol "
+          f"{KERNEL_TOL[torch.float32]}), {ms:.4f} ms vs plain "
+          f"{plain_ms:.4f} ms; the occupied voxels' {flops} flops, "
+          f"{work['bytes']} bytes, bound {b_ms:.4f} ms ({b_by}), "
+          f"{100 * b_ms / ms:.1f}% of bound; every voxel of the valid "
+          f"columns ({work['flops']} flops) {dense_ms:.4f} ms "
+          f"({100 * dense_ms / ms:.1f}%)")
+    return dict(
+        frame=frame, layer=name, cin=cin, cout=cout, strided=strided,
+        feats=list(cols["feats"].shape), out=list(got["feats"].shape),
+        voxels=work["voxels"], occupied=occupied, max_abs_err=d, ms=ms,
+        plain_ms=plain_ms, flops=flops, bytes=work["bytes"],
+        bound_ms=b_ms, bound_by=b_by, pct_of_bound=100 * b_ms / ms,
+        dense_flops=work["flops"], dense_bound_ms=dense_ms)
+
+
+def phase_column_conv(final_cfg) -> dict:
+    """Kernel 3 against its plain version on the card at the alliance's
+    m3 shapes (seeded weights, 5 slots, one real agent), on the first
+    served frame of ``final_cfg`` and on a dense frame that fills every
+    level's capacity (:func:`dense_m3_frame`): the first layer of each
+    (Cin, Cout, strided) (:func:`column_conv_case`), the work's FLOP bound
+    being the real agent's output voxels at the f32 rate; then the
+    encoder's forward with the kernel and with the plain layers, its
+    launches (one a conv layer) and host syncs a forward. Returns the
+    JSON row's numbers."""
+    from heal_tpu_torch import trace
+    from heal_tpu_torch.ops import column_conv as cc
+    from heal_tpu_torch.tools.inference import build_weights
+    from heal_tpu_torch.tools.train import device_batches
+
+    dev = torch.device("cuda")
+    enc = build_weights(final_cfg, seed=SEED).branch_m3.encoder.to(dev).eval()
+    batch, _ = next(device_batches(final_cfg, 1, dev, train=False))
+    frame = (batch["inputs_m3"]["points"][0],
+             batch["inputs_m3"]["point_mask"][0])
+    frames = {"frame": frame, "dense": dense_m3_frame(
+        *frame, enc.VmapSecondStack_0, SEED)}
+    cases, encoder = [], {}
+    for fname, (pts, msk) in frames.items():
+        layers = column_conv_layers(enc, pts, msk)
+        done = {}
+        for name, args, kwargs in layers:
+            key = (*args[2].shape[1:], kwargs.get("out_cols") is not None)
+            if key not in done:
+                done[key] = (args, kwargs)
+                cases.append(column_conv_case(fname, name, args, kwargs))
+
+        # each call one device kernel and no host sync: the six calls in
+        # one trace (CUPTI now and then hands back empty traces for the
+        # rest of a session: trace again then, and after TRACE_TRIES empty
+        # ones in a fresh process)
+        def six():
+            with torch.inference_mode():
+                for args, kwargs in done.values():
+                    cc.column_conv_layer(*args, **kwargs)
+
+        for traces in range(1, TRACE_TRIES + 1):
+            launched = device_kernels(six)
+            if launched:
+                break
+        else:
+            launched = trace_in_fresh_process(done.values(), "column_conv")
+            traces = f"{TRACE_TRIES} empty, then one in a fresh process"
+        if (len(launched) != len(done)
+                or not all("column_conv" in k for k in launched)):
+            raise AssertionError(f"column_conv {fname}: {len(done)} calls "
+                                 f"put {launched} on the card ({traces} "
+                                 "traces)")
+        print(f"[kernel] column_conv {fname}: {len(done)} calls, one device "
+              f"kernel each and no sync ({traces} trace"
+              f"{'' if traces == 1 else 's'})")
+
+        # the whole encoder: launches and host syncs a forward, then its
+        # time with the kernel and with the plain layers
+        def forward(pts=pts, msk=msk):
+            with torch.inference_mode():
+                return enc(pts, msk)
+
+        forward()
+        torch.cuda.synchronize()
+        trace.clear()
+        forward()
+        counts = dict(trace.counters())
+        if counts.get("kernel3.launches") != len(layers):
+            raise AssertionError(f"{counts} in one m3 forward, want "
+                                 f"{len(layers)} kernel-3 launches")
+        enc_ms = device_ms(forward, iters=5)
+        saved = cc.column_conv_layer
+        cc.column_conv_layer = cc.column_conv_layer_plain
+        try:
+            enc_plain_ms = device_ms(forward, iters=5)
+        finally:
+            cc.column_conv_layer = saved
+        # the occupied output voxels' products, layer by layer
+        with torch.inference_mode():
+            flops = sum(2 * 27 * a[2].shape[1] * a[2].shape[2] * int(
+                cc.column_conv_layer(*a, **k)["occ"].sum())
+                for _, a, k in layers)
+        b_ms = bound(0, flops)[0]
+        syncs = {k: v for k, v in counts.items() if k.startswith("host_sync")}
+        print(f"[kernel] column_conv {fname}: one m3 forward launches "
+              f"{counts['kernel3.launches']} (one a conv layer), host syncs "
+              f"{syncs}; the m3 encoder {enc_ms:.3f} ms with kernel 3, "
+              f"{enc_plain_ms:.3f} ms with the plain layers; its "
+              f"{len(layers)} layers' occupied voxels' products {flops} "
+              f"flops, bound {b_ms:.4f} ms")
+        encoder[fname] = dict(launches=counts["kernel3.launches"],
+                              host_syncs=syncs, ms=enc_ms,
+                              plain_ms=enc_plain_ms, flops=flops,
+                              bound_ms=b_ms)
+    # the row's numbers: the dense frame's 64 -> 64 submanifold layer, the
+    # most frequent; every case is in "cases"
+    head = next(c for c in cases if c["frame"] == "dense" and (
+        c["cin"], c["cout"], c["strided"]) == (64, 64, False))
+    return dict(
+        max_abs_err=max(c["max_abs_err"] for c in cases), ms=head["ms"],
+        plain_ms=head["plain_ms"], bound_ms=head["bound_ms"],
+        bound_by=head["bound_by"], library_ms=None, bytes=head["bytes"],
+        pct_of_bound=head["pct_of_bound"], cases=cases,
+        launches_per_m3_forward=encoder["frame"]["launches"],
+        encoder=encoder)
+
+
 def phase_serve(cfg, model32) -> dict:
     import numpy as np
 
@@ -950,8 +1231,10 @@ def phase_serve(cfg, model32) -> dict:
     launches = _counts()
     del launches["shift_rows_backward"]
     print(f"[serve] kernel launches while serving: {launches}")
-    for name, n in launches.items():
-        if n <= 0:
+    if launches["column_conv"]:
+        raise AssertionError("kernel 3 was launched in a flagship frame")
+    for name in KERNELS[:2]:
+        if launches[name] <= 0:
             raise AssertionError(f"{name} was not launched while serving")
 
     with plain_kernels():
@@ -1130,8 +1413,8 @@ def phase_train(cfg, model32) -> dict:
     # the launch counters of the training run
     launches = _counts()
     print(f"[train] kernel launches while training: {launches}")
-    if launches["pillar_tables"] != 0:
-        raise AssertionError("kernel 1 was launched in training")
+    if launches["pillar_tables"] != 0 or launches["column_conv"] != 0:
+        raise AssertionError("kernel 1 or 3 was launched in training")
     if launches["shift_rows"] <= 0 or launches["shift_rows_backward"] <= 0:
         raise AssertionError("kernel 2 was not launched in both directions "
                              "while training")
@@ -1146,7 +1429,8 @@ def _counts() -> dict:
     c = trace.counters()
     return {"pillar_tables": c.get("kernel1.launches", 0),
             "shift_rows": c.get("kernel2.launches", 0),
-            "shift_rows_backward": c.get("kernel2.backward_launches", 0)}
+            "shift_rows_backward": c.get("kernel2.backward_launches", 0),
+            "column_conv": c.get("kernel3.launches", 0)}
 
 
 def _zero_counts() -> None:
@@ -1223,8 +1507,10 @@ def phase_protocol(cfgs: dict) -> dict:
         torch.cuda.empty_cache()
         _zero_counts()
         out.update(phase_second(cfgs["stage2_m3"], s2dirs["m3"]))
-        if any(_counts().values()):
-            raise AssertionError("the SECOND checks launched a kernel")
+        second = _counts()
+        if second != dict.fromkeys(second, 0) | {"column_conv": M3_LAUNCHES}:
+            raise AssertionError(f"the SECOND checks launched {second}: "
+                                 "want kernel 3 once a conv layer")
 
         # stage 3: the merge, served as the m1+m2+m3+m4 alliance
         merged = os.path.join(tmp, "merged")
@@ -1256,8 +1542,10 @@ def phase_protocol(cfgs: dict) -> dict:
         r32, r16 = runs["f32"], runs["bf16"]
         serve = _counts()
         frames = r32["frames"] + r16["frames"]
-        want = {k: n * frames for k, n in ALLIANCE_LAUNCHES.items()}
-        print(f"[protocol] alliance launches over {frames} frames: {serve}")
+        want = {k: n * (r32["frames"] if k == "column_conv" else frames)
+                for k, n in ALLIANCE_LAUNCHES.items()}
+        print(f"[protocol] alliance launches over {frames} frames "
+              f"({r32['frames']} f32): {serve}")
         if {k: serve[k] for k in want} != want:
             raise AssertionError(f"alliance launches {serve}, want {want}")
         # kernels vs plain versions on the same frames: the synthetic
@@ -1793,7 +2081,8 @@ def phase_baselines(cfgs: dict) -> dict:
         n = runs["f32"]["frames"] + runs["bf16"]["frames"]
         want = {"pillar_tables": BASELINE_PILLAR_LAUNCHES * n,
                 "shift_rows": BASELINE_LAUNCHES[name] * n,
-                "shift_rows_backward": 0}
+                "shift_rows_backward": 0,
+                "column_conv": M3_LAUNCHES * runs["f32"]["frames"]}
         if served != want:
             raise AssertionError(f"{name}: launches {served}, want {want}")
         for dname, r in runs.items():
@@ -1853,13 +2142,17 @@ def phase_baselines(cfgs: dict) -> dict:
             raise AssertionError(f"{name}: fusion parameters without a "
                                  f"gradient: {dead[:5]}")
         if trained["pillar_tables"] != 0 or trained["shift_rows"] <= 0 \
-                or trained["shift_rows_backward"] <= 0:
+                or trained["shift_rows_backward"] <= 0 \
+                or trained["column_conv"] != 0:
             raise AssertionError(f"{name} training launches {trained}")
         for k in total:
             total[k] += trained[k]
 
         ms32 = 1e3 * sum(times[1:]) / BASELINE_STEPS
-        row = {"launches_per_frame": {k: served[k] // n for k in served},
+        row = {"launches_per_frame": dict(
+                   {k: served[k] // n for k in served},
+                   column_conv=served["column_conv"] // runs["f32"][
+                       "frames"]),
                "heads_rel": worst, "train_launches": trained,
                "ms_step_f32": ms32, "ms_step_bf16": ms16,
                "peak_gib_f32": peak32, "peak_gib_bf16": peak16,
@@ -2078,7 +2371,7 @@ def phase_fusion_timings(cfgs: dict) -> dict:
         n = len(_forwards(frames))
         want = {"pillar_tables": 2 * n,
                 "shift_rows": 2 * len(frames) * shift_per_frame,
-                "shift_rows_backward": 0}
+                "shift_rows_backward": 0, "column_conv": 0}
         if served != want:
             raise AssertionError(f"{name}: launches {served}, want {want}")
         add(served)
@@ -2185,7 +2478,8 @@ def phase_fusion_timings(cfgs: dict) -> dict:
             raise AssertionError(f"{name}: fusion parameters without a "
                                  f"gradient: {dead[:5]}")
         if trained["pillar_tables"] != 0 or trained["shift_rows"] <= 0 \
-                or trained["shift_rows_backward"] <= 0:
+                or trained["shift_rows_backward"] <= 0 \
+                or trained["column_conv"] != 0:
             raise AssertionError(f"{name} training launches {trained}")
         add(trained)
         row["fusion_params"] = len(fusion_params)
@@ -2333,7 +2627,8 @@ def phase_pose(cfgs: dict) -> dict:
         got = _counts()
         k1, k2 = want_per_forward
         want = {"pillar_tables": k1 * forwards,
-                "shift_rows": k2 * forwards, "shift_rows_backward": 0}
+                "shift_rows": k2 * forwards, "shift_rows_backward": 0,
+                "column_conv": 0}
         if got != want:
             raise AssertionError(f"{what}: launches {got}, want {want}")
         for k in total:
@@ -2481,7 +2776,7 @@ def phase_pose(cfgs: dict) -> dict:
         trained = _counts()
         k1, k2 = POSE_LAUNCHES["compress"]
         want = {"pillar_tables": 2 * k1, "shift_rows": 2 * k2,
-                "shift_rows_backward": 2 * k2}
+                "shift_rows_backward": 2 * k2, "column_conv": 0}
         if trained != want:
             raise AssertionError(f"compress training launches {trained}, "
                                  f"want {want}")
@@ -2508,7 +2803,7 @@ def phase_pose(cfgs: dict) -> dict:
         per = POSE_LAUNCHES["compress"]
         want = {"pillar_tables": 2 * POSE_FRAMES * per[0],
                 "shift_rows": 2 * POSE_FRAMES * per[1],
-                "shift_rows_backward": 0}
+                "shift_rows_backward": 0, "column_conv": 0}
         if served != want:
             raise AssertionError(f"compress served: {served}, want {want}")
         for k in total:
@@ -2520,7 +2815,7 @@ def phase_pose(cfgs: dict) -> dict:
         del model32, frames
 
     out["launches_per_frame"] = {
-        name: dict(zip(("pillar_tables", "shift_rows"), POSE_LAUNCHES[name]))
+        name: dict(zip(KERNELS, (*POSE_LAUNCHES[name], 0)))
         for name in POSE_LAUNCHES}
     out["s"] = time.perf_counter() - t_phase
     step = out["train"]
@@ -2624,14 +2919,15 @@ def phase_anchor_free(cfgs: dict) -> dict:
     rows = {}
     for name, cfg in cfgs.items():
         torch.cuda.empty_cache()
-        k1, k2 = AF_LAUNCHES[name]
+        k1, k2, k3 = AF_LAUNCHES[name]
         frames = device_frames(cfg, dev, AF_FRAMES)
         model32 = channels_last(build_weights(cfg, seed=SEED).to(dev))
         row = {"kernels": path_kernels(name, cfg, model32, frames[0][1],
                                        gen)}
         runs, served = _serve(cfg, model32, frames, name)
         want = {"pillar_tables": 2 * AF_FRAMES * k1,
-                "shift_rows": 2 * AF_FRAMES * k2, "shift_rows_backward": 0}
+                "shift_rows": 2 * AF_FRAMES * k2, "shift_rows_backward": 0,
+                "column_conv": AF_FRAMES * k3}
         if served != want:
             raise AssertionError(f"{name} served: launches {served}, want "
                                  f"{want}")
@@ -2656,7 +2952,7 @@ def phase_anchor_free(cfgs: dict) -> dict:
         row["train"] = _steps(tr, batch, 2)
         trained = _counts()
         want = {"pillar_tables": 0, "shift_rows": 2 * k2,
-                "shift_rows_backward": 2 * k2}
+                "shift_rows_backward": 2 * k2, "column_conv": 0}
         if trained != want:
             raise AssertionError(f"{name} training launches {trained}, "
                                  f"want {want}")
@@ -2682,7 +2978,8 @@ def phase_anchor_free(cfgs: dict) -> dict:
         print(f"[anchor_free] {AF_CFGS[name]} ({name}): serve ms/frame "
               f"(after the first of {AF_FRAMES}) f32 "
               f"{row['serve_ms_f32']:.3f}, bf16 {row['serve_ms_bf16']:.3f}; "
-              f"launches a frame kernel 1 {k1}, kernel 2 {k2}; f32 heads vs "
+              f"launches a frame kernel 1 {k1}, kernel 2 {k2}, kernel 3 "
+              f"{k3} (f32); f32 heads vs "
               f"plain max rel err {row['heads_rel']:.3e} (tol {HEADS_TOL})"
               + (f"; comm_rate {row['comm_rate']:.4f}" if "comm_rate" in row
                  else "")
@@ -2856,7 +3153,7 @@ def phase_disk(cfgs: dict, trees: dict, readers: dict, smi: str) -> dict:
     for name in DISK_CFGS:
         cfg = cfgs[name]
         torch.cuda.empty_cache()
-        k1, k2 = DISK_LAUNCHES[name]
+        k1, k2, k3 = DISK_LAUNCHES[name]
         frames, host = disk_frames(cfg, DISK_FRAMES[name], dev)
         # every lidar sweep holds max_points in range, but DAIR-V2X's
         # roadside unit (agent 1): the writer (JAX's) puts it 4 m up, its
@@ -2880,7 +3177,7 @@ def phase_disk(cfgs: dict, trees: dict, readers: dict, smi: str) -> dict:
         runs, served = _serve(cfg, model32, frames, f"disk {name}")
         n = len(frames)
         want = {"pillar_tables": 2 * n * k1, "shift_rows": 2 * n * k2,
-                "shift_rows_backward": 0}
+                "shift_rows_backward": 0, "column_conv": n * k3}
         if served != want:
             raise AssertionError(f"disk {name} served: launches {served}, "
                                  f"want {want}")
@@ -2902,7 +3199,8 @@ def phase_disk(cfgs: dict, trees: dict, readers: dict, smi: str) -> dict:
               f"{row['assemble_ms']:.1f} ms (host clock); serve ms/frame "
               f"(after the first) f32 {row['serve_ms_f32']:.3f}, bf16 "
               f"{row['serve_ms_bf16']:.3f}; launches a frame kernel 1 {k1}, "
-              f"kernel 2 {k2}; f32 heads vs plain max rel err "
+              f"kernel 2 {k2}, kernel 3 {k3} (f32); f32 heads vs plain max "
+              f"rel err "
               f"{row['heads_rel']:.3e} (tol {HEADS_TOL})"
               + (f"; depth RMSE m2 {row['depth_rmse_m2']:.3f} m"
                  if "depth_rmse_m2" in row else "") + f"; {smi}")
@@ -2930,7 +3228,7 @@ def phase_disk(cfgs: dict, trees: dict, readers: dict, smi: str) -> dict:
             t0 = time.perf_counter()
     trained = _counts()
     want = {"pillar_tables": 0, "shift_rows": 15 * len(steps),
-            "shift_rows_backward": 15 * len(steps)}
+            "shift_rows_backward": 15 * len(steps), "column_conv": 0}
     if len(steps) != 3 or trained != want:
         raise AssertionError(f"disk training: {len(steps)} steps, launches "
                              f"{trained}, want {want}")
@@ -3094,13 +3392,12 @@ def phase_camera_options(cfgs: dict) -> dict:
         forwards = 2 * len(_forwards(frames))
         want = {"pillar_tables": forwards * launches[0],
                 "shift_rows": forwards * launches[1],
-                "shift_rows_backward": 0}
+                "shift_rows_backward": 0, "column_conv": 0}
         if served != want:
             raise AssertionError(f"{name} served: launches {served}, want "
                                  f"{want}")
         add(served)
-        row = {"launches_per_forward": dict(zip(
-            ("pillar_tables", "shift_rows"), launches)),
+        row = {"launches_per_forward": dict(zip(KERNELS, (*launches, 0))),
             "heads_rel": heads_vs_plain(model32, frames, name, hw),
             "serve_peak_gib": peak}
         for d, r in runs.items():
@@ -3120,7 +3417,7 @@ def phase_camera_options(cfgs: dict) -> dict:
         trained = _counts()
         back = launches[1] if backward is None else backward
         want = {"pillar_tables": 0, "shift_rows": steps * launches[1],
-                "shift_rows_backward": steps * back}
+                "shift_rows_backward": steps * back, "column_conv": 0}
         if trained != want:
             raise AssertionError(f"{name} training launches {trained}, "
                                  f"want {want}")
@@ -3189,8 +3486,7 @@ def phase_camera_options(cfgs: dict) -> dict:
                    if ".aligner." in n}
         step = _steps(tr, batch, 2)
         trained = _counts()
-        if trained != {"pillar_tables": 0, "shift_rows": 0,
-                       "shift_rows_backward": 0}:
+        if any(trained.values()):
             raise AssertionError(f"{name} training launches {trained}")
         moved = _snapshot(tr.model, fixed)
         bad = [n for n, t in base.items() if not torch.equal(t, moved[n])]
@@ -3478,9 +3774,9 @@ def phase_legacy(cfgs: dict) -> dict:
         for k in total:
             total[k] += counts[k]
 
-    def expect(what, got, k1, k2, k2b):
+    def expect(what, got, k1, k2, k2b, k3=0):
         want = {"pillar_tables": k1, "shift_rows": k2,
-                "shift_rows_backward": k2b}
+                "shift_rows_backward": k2b, "column_conv": k3}
         if got != want:
             raise AssertionError(f"{what}: launches {got}, want {want}")
         add(got)
@@ -3515,7 +3811,7 @@ def phase_legacy(cfgs: dict) -> dict:
     try:
         for name, cfg in cfgs.items():
             torch.cuda.empty_cache()
-            k1, k2 = LEGACY_LAUNCHES[name]
+            k1, k2, k3 = LEGACY_LAUNCHES[name]
             lead = (cfg["train_params"]["max_cav"] if name == "fpvrcnn"
                     else 1)
             frames = device_frames(cfg, dev, LEGACY_FRAMES)
@@ -3529,7 +3825,7 @@ def phase_legacy(cfgs: dict) -> dict:
             runs, served = _serve(cfg, model32, frames, name, lead=lead)
             row["serve_peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
             expect(f"{name} served", served, 2 * LEGACY_FRAMES * k1,
-                   2 * LEGACY_FRAMES * k2, 0)
+                   2 * LEGACY_FRAMES * k2, 0, LEGACY_FRAMES * k3)
             if name == "fpvrcnn" and len(stage2_calls) != 2 * LEGACY_FRAMES:
                 raise AssertionError(f"fpvrcnn: {len(stage2_calls)} stage-2 "
                                      "decodes, want one a frame")
@@ -3611,7 +3907,8 @@ def phase_legacy(cfgs: dict) -> dict:
                   f", f32 {_fmt(row['serve_ms_f32'])}, bf16 "
                   f"{_fmt(row['serve_ms_bf16'])} (peak "
                   f"{row['serve_peak_gib']:.3f} GiB); launches a frame "
-                  f"kernel 1 {k1}, kernel 2 {k2}; f32 heads vs plain max rel"
+                  f"kernel 1 {k1}, kernel 2 {k2}, kernel 3 {k3} (f32); f32 "
+                  f"heads vs plain max rel"
                   f" err {row['heads_rel']:.3e} (tol {HEADS_TOL}); train "
                   f"step {step['ms']:.3f} ms f32 (batch {step['batch']}, "
                   f"after a warm one), peak {step['peak_gib']:.3f} GiB, "
@@ -3899,10 +4196,10 @@ def phase_tools(cfgs: dict) -> dict:
     total = {k: 0 for k in _counts()}
     rows = {}
 
-    def expect(what, k1, k2, k2b=0):
+    def expect(what, k1, k2, k2b=0, k3=0):
         got = _counts()
         want = {"pillar_tables": k1, "shift_rows": k2,
-                "shift_rows_backward": k2b}
+                "shift_rows_backward": k2b, "column_conv": k3}
         if got != want:
             raise AssertionError(f"{what}: launches {got}, want {want}")
         for k in total:
@@ -3925,7 +4222,7 @@ def phase_tools(cfgs: dict) -> dict:
     try:
         # -- transplant: a synthetic opencood checkpoint into the flagship
         cfg = cfgs["flagship"]
-        k1, k2 = TOOLS_LAUNCHES
+        k1, k2, _ = TOOLS_LAUNCHES
         model = build_weights(cfg, seed=SEED)
         sd = model.state_dict()
         ref = synthetic_reference(sd, seed=SEED)
@@ -3939,7 +4236,7 @@ def phase_tools(cfgs: dict) -> dict:
         _zero_counts()
         if served != {"pillar_tables": 2 * TOOLS_FRAMES * k1,
                       "shift_rows": 2 * TOOLS_FRAMES * k2,
-                      "shift_rows_backward": 0}:
+                      "shift_rows_backward": 0, "column_conv": 0}:
             raise AssertionError(f"transplanted flagship: launches {served}")
         for k in total:
             total[k] += served[k]
@@ -4049,7 +4346,8 @@ def phase_tools(cfgs: dict) -> dict:
             oracle = oracle_vs_columns(pts[0], msk[0], lr, vs, gen)
         if not (torch.isfinite(out).all() and out.abs().max() > 0):
             raise AssertionError("SecondRefEncoder: bad output")
-        expect("SecondRef and the oracle", 0, 0)
+        # the column encoder's warm and 3 timed forwards, f32
+        expect("SecondRef and the oracle", 0, 0, k3=4 * M3_LAUNCHES)
         rows["second_ref"] = dict(oracle, ms=ref_ms, column_ms=col_ms,
                                   bev=list(out.shape))
         print(f"[tools] SecondRefEncoder (m3's encoder args, "
@@ -4110,8 +4408,8 @@ def phase_tools(cfgs: dict) -> dict:
                        BENCH_TRAIN_SHIFTS * n)
             else:
                 n = 4 * BENCH_FRAMES  # a warm pass and 3 timed
-                b1, b2 = BENCH_LAUNCHES[name]
-                expect(f"bench {name}", b1 * n, b2 * n)
+                b1, b2, b3 = BENCH_LAUNCHES[name]
+                expect(f"bench {name}", b1 * n, b2 * n, k3=b3 * n)
             if not row["fps"] > 0:
                 raise AssertionError(f"bench {name}: {row}")
             bench.append(row)
@@ -4161,7 +4459,7 @@ def phase_tools(cfgs: dict) -> dict:
 
         # -- CPM sizes: FPV-RCNN's keypoints, Where2comm's sent cells
         cpm = {}
-        for name, launches in (("fpvrcnn", (0, 0)),
+        for name, launches in (("fpvrcnn", (0, 0, M3_LAUNCHES)),
                                ("where2comm", AF_LAUNCHES["center_point"])):
             c = cfgs[name]
             torch.cuda.empty_cache()
@@ -4176,7 +4474,7 @@ def phase_tools(cfgs: dict) -> dict:
                     raise AssertionError(f"cpm {name}: no sender")
                 sizes.append(cpm_frame(msgs))
             expect(f"cpm {name}", launches[0] * CPM_FRAMES,
-                   launches[1] * CPM_FRAMES)
+                   launches[1] * CPM_FRAMES, k3=launches[2] * CPM_FRAMES)
             kb = {k: statistics.mean(s[k] for s in sizes) / 1024
                   for k in ("raw", "quantized", "compressed")}
             if not kb["raw"] > 0:
@@ -4416,7 +4714,7 @@ def phase_multi_device(cfg, dev=torch.device("cuda")) -> dict:
                 raise AssertionError(
                     f"the one-rank NCCL step is not the plain step: |dloss| "
                     f"{d_loss}, max |dgrad| {d_grad}")
-            want = {"pillar_tables": 0, "shift_rows": 15,
+            want = {"pillar_tables": 0, "shift_rows": 15, "column_conv": 0,
                     "shift_rows_backward": 15}
             if step_counts != want:
                 raise AssertionError(f"the mesh step launched {step_counts}, "
@@ -4560,6 +4858,8 @@ def main() -> int:
     model32 = build_weights(cfg, seed=SEED).cuda().to(
         memory_format=torch.channels_last)
     rows = phase_kernels(cfg, model32, pcfgs["final"])
+    conv = phase_column_conv(pcfgs["final"])
+    torch.cuda.empty_cache()
     launches = phase_serve(cfg, model32)
     trained = phase_train(cfg, model32)
     del model32
@@ -4588,7 +4888,11 @@ def main() -> int:
     phase_pipeline()
     torch.cuda.empty_cache()
     multi = phase_multi_device(cfg)
+    # kernel 3's row: its own cases (phase_column_conv), its launches from
+    # every phase's run as the others'
+    rows["column_conv"] = conv
     for name in rows:
+        i = KERNELS.index(name)
         rows[name]["protocol_launches"] = protocol["launches"][name]
         rows[name]["alliance_launches_per_frame"] = ALLIANCE_LAUNCHES[name]
         rows[name]["baselines_launches"] = baselines["launches"][name]
@@ -4610,21 +4914,21 @@ def main() -> int:
             "train_launches_per_step"][name]
         rows[name]["anchor_free_launches"] = anchor_free["launches"][name]
         rows[name]["anchor_free_launches_per_frame"] = {
-            c: AF_LAUNCHES[c][name == "shift_rows"] for c in AF_CFGS}
+            c: AF_LAUNCHES[c][i] for c in AF_CFGS}
         rows[name]["disk_launches"] = disk["launches"][name]
         rows[name]["disk_launches_per_frame"] = {
-            c: DISK_LAUNCHES[c][name == "shift_rows"] for c in DISK_CFGS}
+            c: DISK_LAUNCHES[c][i] for c in DISK_CFGS}
         rows[name]["camera_and_options_launches"] = camera["launches"][name]
         rows[name]["camera_and_options_launches_per_forward"] = {
             c: r["launches_per_forward"][name]
             for c, r in camera["rows"].items()}
         rows[name]["legacy_launches"] = legacy["launches"][name]
         rows[name]["legacy_launches_per_frame"] = {
-            c: n[name == "shift_rows"] for c, n in LEGACY_LAUNCHES.items()}
+            c: n[i] for c, n in LEGACY_LAUNCHES.items()}
         rows[name]["tools_launches"] = tools["launches"][name]
         rows[name]["tools_launches_per_frame"] = {
-            "flagship": TOOLS_LAUNCHES[name == "shift_rows"],
-            **{f"bench_{c}": n[name == "shift_rows"]
+            "flagship": TOOLS_LAUNCHES[i],
+            **{f"bench_{c}": n[i]
                for c, n in BENCH_LAUNCHES.items()}}
     rows["shift_rows"]["disk_launches_per_step"] = 15
     for name in rows:
@@ -4645,8 +4949,8 @@ def main() -> int:
             err = ("backward_max_abs_err"
                    if case.get("direction") == "backward" else "max_abs_err")
             row[err] = max(row[err], case["max_abs_err"])
-    rows["pillar_tables"]["train_launches"] = trained["pillar_tables"]
-    rows["shift_rows"]["train_launches"] = trained["shift_rows"]
+    for name in rows:
+        rows[name]["train_launches"] = trained[name]
     rows["shift_rows"]["backward_launches"] = trained["shift_rows_backward"]
     rows["shift_rows"]["tools_backward_launches"] = tools["launches"][
         "shift_rows_backward"]
@@ -4659,6 +4963,8 @@ def main() -> int:
                           "heal_tpu/ops/pallas_pillar.py:214"),
         "shift_rows": ("heal_tpu_torch/csrc/shift_rows.cu",
                        "heal_tpu/ops/pallas_shear.py:54"),
+        "column_conv": ("heal_tpu_torch/csrc/column_conv.cu",
+                        "none: JAX's column engine is XLA ops"),
     }
     kernels = [
         {"name": name, "route": "cuda", "source": src, "replaces": rep,
@@ -4696,6 +5002,13 @@ def main() -> int:
               f" of bound, plain {k['plain_ms']:.4f} ms, library call "
               + (f"{k['library_ms']:.4f} ms" if k["library_ms"] is not None
                  else "none"))
+    print(f"[kernels] column_conv: {conv['launches_per_m3_forward']} "
+          f"launches an m3 forward; the dense frame's 64 -> 64 subm "
+          f"{conv['ms']:.4f} ms = {conv['pct_of_bound']:.1f}% of its bound "
+          f"{conv['bound_ms']:.4f} ms ({conv['bound_by']}), plain "
+          f"{conv['plain_ms']:.4f} ms; the m3 encoder " + ", ".join(
+              f"{f} {e['ms']:.3f} ms (plain layers {e['plain_ms']:.3f} ms)"
+              for f, e in conv["encoder"].items()))
     print(f"[card] {smi}")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

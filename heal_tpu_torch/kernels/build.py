@@ -26,7 +26,8 @@ CSRC = os.path.join(_PKG, "csrc")
 BUILD_ROOT = os.path.join(_PKG, "_build")
 # --fmad=false: no multiply-add contraction, so each product rounds as in
 # the plain PyTorch versions and kernel 2 agrees with its plain version bit
-# for bit (the kernels are bound by bytes, not by flops)
+# for bit (kernels 1 and 2 are bound by bytes; kernel 3, bound by
+# operations, writes its multiply-adds as explicit FMAs)
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "--fmad=false", "-Xcompiler", "-fPIC",
@@ -47,6 +48,10 @@ _SIGNATURES = {
     # x, shifts, out, n, h, w, c, axis, pad, stream
     "heal_shift_rows_f32": [P, P, P, I, I, I, I, I, I, P],
     "heal_shift_rows_bf16": [P, P, P, I, I, I, I, I, I, P],
+    # feats, occ, table, weights, scale, shift, valid, out, out_occ,
+    # batch, vc, ocap, z, zo, cin, cout, strided, eps, stream
+    "heal_column_conv_f32": [P, P, P, P, P, P, P, P, P,
+                             I, I, I, I, I, I, I, I, F, P],
 }
 
 _lock = threading.Lock()

@@ -428,11 +428,16 @@ class LayerNorm(nn.Module):
         self.bias = nn.Parameter(torch.zeros(channels))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        xf = x.float()
-        m = xf.mean(-1, keepdim=True)
-        v = torch.clamp((xf * xf).mean(-1, keepdim=True) - m * m, min=0.0)
-        mul = torch.rsqrt(v + self.epsilon) * self.scale.float()
-        return ((xf - m) * mul + self.bias.float()).to(x.dtype)
+        return layer_norm(x, self.scale, self.bias, self.epsilon)
+
+
+def layer_norm(x: torch.Tensor, scale, bias, epsilon: float) -> torch.Tensor:
+    """:class:`LayerNorm`'s forward on given parameters."""
+    xf = x.float()
+    m = xf.mean(-1, keepdim=True)
+    v = torch.clamp((xf * xf).mean(-1, keepdim=True) - m * m, min=0.0)
+    mul = torch.rsqrt(v + epsilon) * scale.float()
+    return ((xf - m) * mul + bias.float()).to(x.dtype)
 
 
 class ConvNormAct(nn.Module):

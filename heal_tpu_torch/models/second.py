@@ -48,7 +48,12 @@ from .layers import LayerNorm
 
 class ColumnConvLayer(nn.Module):
     """One sparse conv (subm or strided) + LayerNorm + ReLU on columns.
-    ``table`` is the level's precomputed neighbour table."""
+    ``table`` is the level's precomputed neighbour table.
+
+    On the card an f32 layer that no gradient needs runs as one launch of
+    kernel 3 (``cc.column_conv_layer``, which raises at widths it is not
+    built for); everywhere else (the CPU, training, bf16) the layer runs
+    the kernel's plain version, ``cc.column_conv_layer_plain``."""
 
     def __init__(self, cin: int, cout: int, strided: bool = False,
                  precise_input: bool = False):
@@ -58,22 +63,24 @@ class ColumnConvLayer(nn.Module):
         self.kernel = nn.Parameter(torch.empty(27, cin, cout))
         self.LayerNorm_0 = LayerNorm(cout, epsilon=1e-3)
 
+    def _fused(self, feats) -> bool:
+        """Whether this call takes kernel 3."""
+        ln = self.LayerNorm_0
+        params = (self.kernel, ln.scale, ln.bias)
+        return (feats.is_cuda and feats.dtype == torch.float32
+                and all(p.dtype == torch.float32 for p in params)
+                and not (torch.is_grad_enabled() and any(
+                    t.requires_grad for t in (feats,) + params)))
+
     def forward(self, cols: dict, table, out: dict | None = None) -> dict:
-        kdt = self.kernel.dtype
-        if kdt == torch.bfloat16 and not self.precise_input:
-            cols = dict(cols, feats=cols["feats"].to(kdt))
-        if self.strided:
-            new_cols = cc.strided_conv(cols, out, self.kernel, table=table)
-            occ = new_cols["occ"]
-        else:
-            new_cols = dict(cols, feats=cc.subm_conv(cols, self.kernel,
-                                                     table=table))
-            occ = cols["occ"]
-        h = self.LayerNorm_0(new_cols["feats"])
-        if kdt == torch.bfloat16:
-            h = h.to(kdt)
-        new_cols["feats"] = torch.relu(h) * occ[..., None].to(h.dtype)
-        return new_cols
+        ln = self.LayerNorm_0
+        args = (table, self.kernel, ln.scale, ln.bias, ln.epsilon)
+        out_cols = out if self.strided else None
+        if self._fused(cols["feats"]):
+            return cc.column_conv_layer(cols, *args, out_cols=out_cols)
+        if self.kernel.dtype == torch.bfloat16 and not self.precise_input:
+            cols = dict(cols, feats=cols["feats"].to(torch.bfloat16))
+        return cc.column_conv_layer_plain(cols, *args, out_cols=out_cols)
 
 
 class _DenseSubmLayer(nn.Module):

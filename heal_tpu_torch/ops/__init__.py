@@ -1,5 +1,6 @@
-"""Device-side operators (torch), with the two hand-written CUDA kernels.
+"""Device-side operators (torch), with the three hand-written CUDA kernels.
 
-``pillar.pillar_tables`` and ``shift_rows.shift_rows`` launch CUDA kernels
-for CUDA tensors and take their plain PyTorch versions for CPU tensors.
+``pillar.pillar_tables``, ``shift_rows.shift_rows`` and
+``column_conv.column_conv_layer`` launch CUDA kernels for CUDA tensors and
+take their plain PyTorch versions for CPU tensors.
 """

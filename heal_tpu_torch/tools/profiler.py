@@ -7,11 +7,12 @@ tools/profiler/{params_calc.py, traintp_calc.py}) for the port:
   * ``flop_count``: one eval forward under
     ``torch.utils.flop_counter.FlopCounterMode`` in place of XLA's
     ``cost_analysis``. The counter sees the ATen products (convolutions,
-    matmuls); kernels 1 and 2 are launches of their own that it cannot
-    see, so they run outside it on every device (their plain versions
-    too, on the CPU) and their operations are reported apart, from the
-    counts their bounds use (kernels/cases.pillar_work for kernel 1,
-    three a blended element for kernel 2). ``counter_flops`` is not XLA's
+    matmuls); kernels 1, 2 and 3 are launches of their own that it
+    cannot see, so they run outside it on every device (their plain
+    versions too, on the CPU) and their operations are reported apart,
+    from the counts their bounds use (kernels/cases.pillar_work for
+    kernel 1, three a blended element for kernel 2, 2*27*Cin*Cout an
+    output voxel for kernel 3). ``counter_flops`` is not XLA's
     ``flops``: XLA counts every elementwise op of the fused program;
     the counter counts only products;
   * ``profile_inference``: the frame already on the device, ``warmup``
@@ -46,16 +47,19 @@ def count_params(model: torch.nn.Module) -> int:
 
 @contextlib.contextmanager
 def kernels_apart(ops: dict):
-    """Run kernels 1 and 2 outside any dispatch mode (a FlopCounterMode
+    """Run kernels 1, 2 and 3 outside any dispatch mode (a FlopCounterMode
     then sees none of their work, on the card or in their plain versions
     on the CPU), adding each call's operations to ``ops`` under
-    ``pillar_tables`` / ``shift_rows``."""
+    ``pillar_tables`` / ``shift_rows`` / ``column_conv`` (kernel 3: the
+    conv's products at every output voxel, as its plain version
+    multiplies)."""
     from torch.utils._python_dispatch import _disable_current_modes
 
     from ..kernels.cases import pillar_work
-    from ..ops import pillar, shift_rows
+    from ..ops import column_conv, pillar, shift_rows
 
-    saved = (pillar.pillar_tables, shift_rows._shift)
+    saved = (pillar.pillar_tables, shift_rows._shift,
+             column_conv.column_conv_layer, column_conv.column_conv_layer_plain)
 
     def tables(*args, **kw):
         with _disable_current_modes():
@@ -67,11 +71,31 @@ def kernels_apart(ops: dict):
             ops["shift_rows"] += 3 * x.numel()
             return saved[1](x, *args, **kw)
 
-    pillar.pillar_tables, shift_rows._shift = tables, shift
+    def conv(fn):
+        # the layer takes kernel 3 on the card and its plain version
+        # elsewhere; kernel 3's wrapper on a CPU tensor calls the plain
+        # version, which counts then
+        def call(cols, table, weights, *args, out_cols=None, **kw):
+            with _disable_current_modes():
+                if fn is saved[3] or cols["feats"].is_cuda:
+                    b, _, _, cin = cols["feats"].shape
+                    dst = cols if out_cols is None else out_cols
+                    ops["column_conv"] += (
+                        2 * 27 * cin * weights.shape[-1] * b
+                        * dst["cvalid"].shape[1] * dst["grid"][0])
+                return fn(cols, table, weights, *args, out_cols=out_cols,
+                          **kw)
+        return call
+
+    (pillar.pillar_tables, shift_rows._shift, column_conv.column_conv_layer,
+     column_conv.column_conv_layer_plain) = (
+        tables, shift, conv(saved[2]), conv(saved[3]))
     try:
         yield ops
     finally:
-        pillar.pillar_tables, shift_rows._shift = saved
+        (pillar.pillar_tables, shift_rows._shift,
+         column_conv.column_conv_layer,
+         column_conv.column_conv_layer_plain) = saved
 
 
 def forward(model, inputs):
@@ -84,10 +108,11 @@ def forward(model, inputs):
 
 def flop_count(model, inputs) -> dict:
     """The counter's FLOPs of one eval forward (``counter_flops``, and by
-    ATen op), with kernels 1 and 2's operations apart (``kernel_ops``)."""
+    ATen op), with kernels 1, 2 and 3's operations apart
+    (``kernel_ops``)."""
     from torch.utils.flop_counter import FlopCounterMode
 
-    ops = {"pillar_tables": 0, "shift_rows": 0}
+    ops = {"pillar_tables": 0, "shift_rows": 0, "column_conv": 0}
     with torch.inference_mode(), kernels_apart(ops), \
             FlopCounterMode(display=False) as counter:
         forward(model, inputs)

@@ -1,7 +1,8 @@
-"""The two CUDA kernels of heal_tpu_torch against their plain versions, on
+"""The CUDA kernels of heal_tpu_torch against their plain versions, on
 the card: kernel 1 on the edge cases the CPU tests share
 (tests/torch_pillar_cases.py), one kernel and no host sync a call; kernel
-2 in both directions; and the gradient repairs. Marked
+2 in both directions; the gradient repairs; kernel 3 (one SECOND conv
+layer) at each published width and the SECOND encoder. Marked
 ``cuda``: they skip where torch sees no GPU (a CUDA
 kernel has no CPU or interpret mode). On a machine with one card:
 
@@ -368,17 +369,20 @@ def test_compressed_pyramid_frames_launch_both_kernels(dev):
 
 
 @pytest.mark.parametrize("core,launches", [
-    ("center_point_where2comm", (1, 5)), ("second_intermediate", (0, 5))])
+    ("center_point_where2comm", (1, 5, 0)),
+    ("second_intermediate", (0, 5, 10))])
 def test_center_point_and_second_frames_launch_the_kernels(dev, core,
                                                           launches):
     """tests/configs/tiny_intermediate.yaml as CenterPoint with Where2comm
     (kernel 1 once a frame, kernel 2 5 times: one warp) and as SECOND
-    intermediate with att at small widths (kernel 2 only); the f32 heads
-    within 1e-4 of the same frames through both plain versions, both
+    intermediate with att at the published SECOND widths (kernel 2 and
+    kernel 3 at each of the 10 conv layers); the f32 heads within 1e-4 of
+    the same frames through the kernels' plain versions, both
     runs with deterministic algorithms and TF32 off, as chip_smoke's
     heads check (without them the two SECOND runs' reg heads differed by
     1.06e-4 relative on an H100)."""
     from heal_tpu_torch.config import load_yaml
+    from heal_tpu_torch.ops import column_conv as cc
     from heal_tpu_torch.tools.inference import (build_weights, device_frames,
                                                 run_inference)
 
@@ -387,7 +391,7 @@ def test_center_point_and_second_frames_launch_the_kernels(dev, core,
     cfg["model"]["core_method"] = core
     if core == "second_intermediate":
         a.update(voxel_size=[0.15, 0.15, 0.5], fusion_method="att",
-                 second={"channels": [8, 16, 16, 16],
+                 second={"channels": [16, 32, 64, 64],
                          "max_voxels": [4096, 3072, 2048, 1536]})
         a["base_bev_backbone"].update(layer_strides=[1, 2],
                                       num_filters=[16, 32],
@@ -396,6 +400,7 @@ def test_center_point_and_second_frames_launch_the_kernels(dev, core,
     model = build_weights(cfg, seed=0).to(dev)
     frames = device_frames(cfg, dev, 2)
     k1, k2 = _launches("kernel1.launches"), _launches("kernel2.launches")
+    k3 = _launches("kernel3.launches")
     with pytest.MonkeyPatch.context() as mp:
         mp.setattr(torch.backends.cudnn, "allow_tf32", False)
         mp.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
@@ -405,15 +410,18 @@ def test_center_point_and_second_frames_launch_the_kernels(dev, core,
                                 frames=frames, collect_heads=True)
             assert _launches("kernel1.launches") - k1 == 2 * launches[0]
             assert _launches("kernel2.launches") - k2 == 2 * launches[1]
+            assert _launches("kernel3.launches") - k3 == 2 * launches[2]
             mp.setattr(pillar, "pillar_tables", pillar.pillar_tables_plain)
             mp.setattr(shift_rows, "_shift",
                        lambda x, s, m, axis, backward=False: (
                            shift_rows.shift_rows_plain if axis == 0
                            else shift_rows.shift_cols_plain)(x, s, m))
+            mp.setattr(cc, "column_conv_layer", cc.column_conv_layer_plain)
             want = run_inference(cfg=cfg, device=dev, model=model,
                                  frames=frames, collect_heads=True)
         finally:
             torch.use_deterministic_algorithms(False)
+    assert _launches("kernel3.launches") - k3 == 2 * launches[2]
     assert got["heads"][0]["cls_preds"].shape[1:3] == (64, 64)
     for g, w in zip(got["heads"], want["heads"]):
         for k in g:
@@ -667,3 +675,235 @@ def test_transplanted_flagship_launches_1_and_15(dev):
                    for t in h.values())
     assert _launches("kernel1.launches") - k1 == 2
     assert _launches("kernel2.launches") - k2 == 30
+
+
+# ----------------------------------------------------------- kernel 3
+# kernel 3 against its plain version: 32 f32 ulps of the layer's largest
+# output. Each conv output sums 27*Cin products in another order than the
+# nine cuBLAS products and their adds (a few ulps of the sum), and
+# LayerNorm scales those by 1/std, at most 1/sqrt(eps) = 31.6 (eps 1e-3);
+# chip_smoke's alliance frame reads up to 5.5 ulps
+K3_TOL = 32 * 2.0 ** -23
+# each published (Cin, Cout, strided) at the z layers of its level(s)
+K3_SHAPES = [(4, 16, False, 40), (16, 32, True, 40), (32, 32, False, 20),
+             (32, 64, True, 20), (64, 64, False, 10), (64, 64, False, 5),
+             (64, 64, True, 10)]
+# active columns an agent offers (capacity 600 at the input, 400 out)
+K3_CASES = {"four_empty_slots": [450, 0, 0, 0, 0],
+            "agent_without_columns": [0, 300],
+            "full_capacity": [1500, 900],
+            "partly_filled": [100, 350, 599]}
+
+
+def _k3_inputs(dev, cin, strided, z, actives, seed):
+    """Column-engine inputs on a (z, 64, 64) grid: each agent's active
+    cells drawn at random (its first ``vc`` kept, in key order, as the
+    engine keeps them), random occupancy and features; the level's table
+    and, for a strided layer, its output columns (``downsample_columns``,
+    capacity 400)."""
+    from heal_tpu_torch.ops import column_conv as cc
+
+    rng = np.random.default_rng(seed)
+    h = w = 64
+    vc = 600
+    ckeys = np.full((len(actives), vc), cc.INVALID, np.int32)
+    for a, n in enumerate(actives):
+        keys = np.sort(rng.choice(h * w, n, replace=False))[:vc]
+        ckeys[a, :len(keys)] = keys
+    ck = torch.from_numpy(ckeys).to(dev)
+    valid = ck != cc.INVALID
+    kk = torch.where(valid, ck, 0)
+    coords2 = torch.where(valid[..., None],
+                          torch.stack([kk // w, kk % w], -1), 0)
+    occ = torch.from_numpy(rng.random((len(actives), vc, z)) < 0.25).to(
+        dev) & valid[..., None]
+    feats = torch.from_numpy(rng.normal(
+        size=(len(actives), vc, z, cin)).astype(np.float32)).to(dev)
+    cols = {"ckeys": ck, "coords2": coords2.int(), "cvalid": valid,
+            "occ": occ, "feats": feats * occ[..., None], "grid": (z, h, w)}
+    if not strided:
+        return cols, cc.column_table(cols), None
+    out = cc.downsample_columns(cols, 400)
+    return cols, cc.strided_table(cols, out), out
+
+
+def _k3_params(dev, cin, cout, seed):
+    gen = torch.Generator().manual_seed(seed)
+    w = torch.randn((27, cin, cout), generator=gen) * (2.0 / (27 * cin)) ** .5
+    scale = 0.5 + torch.rand(cout, generator=gen)
+    bias = 0.3 * torch.randn(cout, generator=gen)
+    return w.to(dev), scale.to(dev), bias.to(dev)
+
+
+@pytest.mark.parametrize("case", K3_CASES)
+@pytest.mark.parametrize("cin,cout,strided,z", K3_SHAPES,
+                         ids=[f"{a}_{b}_{'s2' if s else 'subm'}_z{z}"
+                              for a, b, s, z in K3_SHAPES])
+def test_column_conv_kernel_matches_plain(dev, cin, cout, strided, z, case):
+    """One launch of kernel 3 per call, the plain layer's values (K3_TOL),
+    its output occupancy exactly, zeros at every unoccupied voxel and in
+    the columns past an agent's valid prefix, and the same bits from two
+    calls."""
+    from heal_tpu_torch.ops import column_conv as cc
+
+    cols, table, out = _k3_inputs(dev, cin, strided, z, K3_CASES[case],
+                                  cin + cout + z)
+    args = (cols, table, *_k3_params(dev, cin, cout, z), 1e-3)
+    with torch.no_grad():
+        before = _launches("kernel3.launches")
+        got = cc.column_conv_layer(*args, out_cols=out)
+        assert _launches("kernel3.launches") == before + 1
+        again = cc.column_conv_layer(*args, out_cols=out)
+        want = cc.column_conv_layer_plain(*args, out_cols=out)
+    torch.cuda.synchronize()
+    assert got["feats"].shape == want["feats"].shape
+    assert torch.equal(got["occ"], want["occ"])
+    scale = want["feats"].abs().max().item()
+    err = (got["feats"] - want["feats"]).abs().max().item()
+    assert err <= K3_TOL * scale, (err, scale)
+    off = ~got["occ"]
+    assert not got["feats"][off].any() and not want["feats"][off].any()
+    assert torch.equal(got["feats"], again["feats"])
+    if case != "agent_without_columns":
+        assert scale > 0.5 and int(got["occ"].sum()) > 100
+
+
+# one kernel-3 call traced in a process of its own (argv: the saved
+# arguments)
+_FRESH_TRACE = """
+import json, sys, torch
+from heal_tpu_torch.kernels.measure import device_kernels
+from heal_tpu_torch.ops import column_conv as cc
+args, kwargs = torch.load(sys.argv[1], weights_only=False)
+with torch.no_grad():
+    cc.column_conv_layer(*args, **kwargs)
+    print(json.dumps(device_kernels(
+        lambda: cc.column_conv_layer(*args, **kwargs))))
+"""
+
+
+def test_column_conv_kernel_is_one_kernel_and_never_syncs(dev, tmp_path):
+    """One call puts exactly one kernel on the card, under sync debug
+    mode "error". CUPTI now and then hands back empty traces for the rest
+    of a process (as chip_smoke.py meets it): an empty trace is taken
+    again in a fresh process, held to the same count."""
+    import json
+    import os
+    import subprocess
+    import sys
+
+    from heal_tpu_torch.ops import column_conv as cc
+
+    cols, table, out = _k3_inputs(dev, 32, True, 20, [450, 0, 0, 0, 0], 1)
+    args = (cols, table, *_k3_params(dev, 32, 64, 1), 1e-3)
+    with torch.no_grad():
+        cc.column_conv_layer(*args, out_cols=out)  # built and loaded
+        launched = device_kernels(
+            lambda: cc.column_conv_layer(*args, out_cols=out))
+    if not launched:
+        path = tmp_path / "args.pt"
+        torch.save((args, {"out_cols": out}), path)
+        root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+        proc = subprocess.run(
+            [sys.executable, "-c", _FRESH_TRACE, str(path)], cwd=root,
+            capture_output=True, text=True, timeout=300,
+            env=dict(os.environ, PYTHONPATH=root))
+        assert proc.returncode == 0, proc.stderr[-2000:]
+        launched = json.loads(proc.stdout.strip().splitlines()[-1])
+    assert len(launched) == 1 and "column_conv" in launched[0], launched
+
+
+def test_column_conv_kernel_refuses_grad_widths_and_dtypes(dev):
+    from heal_tpu_torch.ops import column_conv as cc
+
+    cols, table, _ = _k3_inputs(dev, 32, False, 20, [300, 40], 2)
+    w, scale, bias = _k3_params(dev, 32, 32, 2)
+    before = _launches("kernel3.launches")
+    with pytest.raises(RuntimeError, match="no backward"):
+        cc.column_conv_layer(cols, table, w.requires_grad_(), scale, bias,
+                             1e-3)
+    w = w.detach()
+    with torch.no_grad():
+        with pytest.raises(ValueError, match="no kernel"):
+            cc.column_conv_layer(cols, table, w[:, :, :16].contiguous(),
+                                 scale[:16], bias[:16], 1e-3)
+        with pytest.raises(ValueError):
+            cc.column_conv_layer(dict(cols, feats=cols["feats"].to(
+                torch.bfloat16)), table, w, scale, bias, 1e-3)
+        with pytest.raises(ValueError):
+            cc.column_conv_layer(cols, table.long(), w, scale, bias, 1e-3)
+    assert _launches("kernel3.launches") == before
+
+
+def test_layer_on_the_card_raises_at_unbuilt_widths(dev):
+    """An f32 eval ColumnConvLayer on the card at a width kernel 3 is not
+    built for reaches the wrapper and raises (no quiet plain path); under
+    a gradient it takes the plain version, as training does."""
+    from heal_tpu_torch.models.second import ColumnConvLayer
+
+    cols, table, _ = _k3_inputs(dev, 8, False, 10, [300, 40], 4)
+    layer = ColumnConvLayer(8, 16).to(dev)
+    torch.nn.init.normal_(layer.kernel, 0, 0.3)
+    before = _launches("kernel3.launches")
+    with torch.no_grad(), pytest.raises(ValueError, match="no kernel"):
+        layer(cols, table)
+    got = layer(cols, table)
+    assert got["feats"].shape == (2, 600, 10, 16) and got["feats"].any()
+    assert _launches("kernel3.launches") == before
+
+
+def test_second_encoder_on_the_card_matches_the_cpu(dev):
+    """SECOND at the published channels (16/32/64/64) on a 40 z-layer
+    grid, 5 slots with one real agent: the card's forward (kernel 3 at
+    each of its 10 conv layers, none of which counts a host sync) within
+    1e-5 of the CPU's, which takes the plain layers; under a gradient the
+    card takes the layers' own path (no launch)."""
+    from heal_tpu_torch.models.layers import init_weights
+    from heal_tpu_torch.models.second import ColumnConvLayer, SecondEncoder
+
+    rng = np.random.default_rng(3)
+    lr, vs = (-6.4, -6.4, -3.0, 6.4, 6.4, 1.0), (0.1, 0.1, 0.1)
+    pts = np.zeros((5, 8000, 4), np.float32)
+    pts[0, :, :3] = rng.uniform(lr[:3], lr[3:], (8000, 3))
+    pts[0, :, 2] = np.minimum(pts[0, :, 2], rng.uniform(-3, -1, 8000))
+    pts[0, :, 3] = rng.uniform(0, 1, 8000)
+    mask = np.zeros((5, 8000), bool)
+    mask[0] = True
+    enc = init_weights(SecondEncoder(vs, lr, max_voxels=(3000, 2000, 1500,
+                                                         1000)),
+                       torch.Generator().manual_seed(0)).eval()
+    x = torch.from_numpy(pts), torch.from_numpy(mask)
+    with torch.no_grad():
+        want = enc(*x)
+    enc = enc.to(dev)
+    xd = x[0].to(dev), x[1].to(dev)
+    in_convs = []
+
+    def watch(layer):
+        def pre(*_):
+            in_convs.append(dict(trace.counters()))
+
+        def post(*_):
+            now = trace.counters()
+            in_convs[-1] = {k: now.get(k, 0) - v
+                            for k, v in in_convs[-1].items()
+                            if k.startswith("host_sync")}
+        layer.register_forward_pre_hook(pre)
+        layer.register_forward_hook(post)
+
+    for m in enc.modules():
+        if isinstance(m, ColumnConvLayer):
+            watch(m)
+    with torch.no_grad():
+        before = _launches("kernel3.launches")
+        got = enc(*xd)
+        assert _launches("kernel3.launches") == before + 10
+    torch.cuda.synchronize()
+    assert len(in_convs) == 10 and not any(any(c.values()) for c in in_convs)
+    assert want.shape == (5, 16, 16, 320) and want.abs().max() > 0.5
+    assert not want[1:].any() and not got[1:].any()
+    _close(got, want.to(dev), torch.float32)
+    before = _launches("kernel3.launches")
+    enc(*xd).sum().backward()
+    assert _launches("kernel3.launches") == before
+    assert enc.VmapSecondStack_0.conv_input.kernel.grad.abs().sum() > 0

@@ -388,3 +388,163 @@ def test_second_encoder_bf16_keeps_conv_input_f32(encoder_inputs):
     assert cols["feats"].dtype == torch.float32
     assert _rel(got.float().numpy(), want.numpy()) <= 1e-2
     assert torch.equal(got, want.to(torch.bfloat16))
+
+
+# ------------------------------------ kernel 3's plain version, dispatch
+# the published (Cin, Cout, strided) of each SECOND layer kind
+PUBLISHED = sorted(cc.KERNEL3_SHAPES)
+
+
+def _layer_inputs(level0, cin, strided, seed):
+    """Random features of width ``cin`` on the tiny grid, the level's
+    table and, for a strided layer, its output columns."""
+    cols = _with_feats(level0, seed, cin, torch.float32)
+    if not strided:
+        return cols, cc.column_table(cols), None
+    out = cc.downsample_columns(level0, 256)
+    return cols, cc.strided_table(cols, out), out
+
+
+def _layer_params(seed, cin, cout):
+    rng = np.random.default_rng(seed)
+    return (_weights(seed, cin, cout), rng.uniform(0.5, 1.5, cout).astype(
+        np.float32), rng.normal(0, 0.3, cout).astype(np.float32))
+
+
+@pytest.mark.parametrize("cin,cout,strided", PUBLISHED,
+                         ids=[f"{a}_{b}_{'s2' if s else 'subm'}"
+                              for a, b, s in PUBLISHED])
+def test_fused_layer_plain_matches_jax_layer(level0, cin, cout, strided):
+    """``column_conv_layer_plain`` (conv, LayerNorm, ReLU, mask) against
+    JAX's ``ColumnConvLayer`` on each published channel pair, two agents
+    at the tiny grid; the CPU wrapper takes the plain version."""
+    from heal_tpu.models.second import ColumnConvLayer as JaxLayer
+
+    cols, table, out = _layer_inputs(level0, cin, strided, 20 + cin)
+    w, scale, bias = _layer_params(30 + cout, cin, cout)
+    got = cc.column_conv_layer_plain(
+        cols, table, torch.from_numpy(w), torch.from_numpy(scale),
+        torch.from_numpy(bias), 1e-3, out)
+    with torch.no_grad():
+        again = cc.column_conv_layer(
+            cols, table, torch.from_numpy(w), torch.from_numpy(scale),
+            torch.from_numpy(bias), 1e-3, out)
+    params = {"kernel": jnp.asarray(w), "LayerNorm_0": {
+        "scale": jnp.asarray(scale), "bias": jnp.asarray(bias)}}
+    layer = JaxLayer(cout=cout, strided=strided)
+    jc = dict(_jax_cols(level0), feats=jnp.asarray(cols["feats"].numpy()))
+    if strided:
+        want = _vmapped(lambda c, o: {k: v for k, v in layer.apply(
+            {"params": params}, c, GRID, out=o, out_grid=(4, 16, 16)).items()
+            if k in ("feats", "occ")}, jc, _jax_cols(out))
+        np.testing.assert_array_equal(got["occ"].numpy(), want["occ"])
+        assert got["feats"].shape == (2, 256, 4, cout)
+    else:
+        want = _vmapped(lambda c: {k: v for k, v in layer.apply(
+            {"params": params}, c, GRID).items() if k == "feats"}, jc)
+        assert got["feats"].shape == (2, 512, 8, cout)
+        assert got["occ"] is cols["occ"]
+    assert _rel(got["feats"].numpy(), want["feats"]) <= 1e-5
+    assert (got["feats"] > 0).sum() > 100  # ReLU leaves real outputs
+    assert torch.equal(again["feats"], got["feats"])
+
+
+@pytest.mark.parametrize("cin,cout,strided", PUBLISHED,
+                         ids=[f"{a}_{b}_{'s2' if s else 'subm'}"
+                              for a, b, s in PUBLISHED])
+def test_layer_dispatch_on_the_cpu(level0, monkeypatch, cin, cout, strided):
+    """On the CPU ColumnConvLayer never calls kernel 3's wrapper, in eval,
+    in training, frozen or in bf16: it runs the plain version, whose
+    values are bit-equal to the conv, ``LayerNorm``, ReLU and mask
+    composed op by op, and which training differentiates."""
+    from heal_tpu_torch.models import second
+
+    calls = []
+    monkeypatch.setattr(cc, "column_conv_layer",
+                        lambda *a, **k: calls.append(1))
+    layer = second.ColumnConvLayer(cin, cout, strided=strided)
+    w, scale, bias = _layer_params(40 + cin, cin, cout)
+    with torch.no_grad():
+        layer.kernel.copy_(torch.from_numpy(w))
+        layer.LayerNorm_0.scale.copy_(torch.from_numpy(scale))
+        layer.LayerNorm_0.bias.copy_(torch.from_numpy(bias))
+    cols, table, out = _layer_inputs(level0, cin, strided, 50 + cin)
+    with torch.no_grad():
+        eval_out = layer(cols, table, out=out)
+        if strided:
+            conv = cc.strided_conv(cols, out, layer.kernel, table=table)
+            occ = conv["occ"]
+        else:
+            conv = dict(cols, feats=cc.subm_conv(cols, layer.kernel,
+                                                 table=table))
+            occ = cols["occ"]
+        want = torch.relu(layer.LayerNorm_0(conv["feats"])) * occ[..., None]
+    assert torch.equal(eval_out["feats"], want)
+    assert torch.equal(eval_out["occ"], occ)
+    trained = layer(cols, table, out=out)  # grad on, parameters need it
+    assert trained["feats"].requires_grad
+    assert torch.equal(eval_out["feats"], trained["feats"].detach())
+    trained["feats"].sum().backward()
+    assert float(layer.kernel.grad.abs().sum()) > 0
+    layer.requires_grad_(False)  # a frozen layer under grad: no gradient
+    frozen = layer(cols, table, out=out)
+    assert torch.equal(frozen["feats"], eval_out["feats"])
+    with torch.no_grad():
+        layer.to(torch.bfloat16)(cols, table, out=out)
+    assert calls == []
+
+
+def test_layer_dispatch_keeps_other_widths_and_refuses_grad(level0):
+    """On the CPU a width kernel 3 is not built for runs the layer's plain
+    version (on the card the wrapper raises there:
+    tests/test_torch_kernels_cuda.py); ``column_conv_layer`` itself
+    raises under a gradient."""
+    from heal_tpu_torch.models import second
+
+    layer = second.ColumnConvLayer(6, 10)
+    torch.nn.init.normal_(layer.kernel, 0, 0.3)
+    cols, table, _ = _layer_inputs(level0, 6, False, 60)
+    with torch.no_grad():
+        got = layer(cols, table)
+        want = cc.column_conv_layer(cols, table, layer.kernel,
+                                    torch.ones(10), torch.zeros(10), 1e-3)
+    assert got["feats"].shape == (2, 512, 8, 10)
+    assert torch.equal(got["feats"], want["feats"])
+    w = torch.zeros((27, 6, 10), requires_grad=True)
+    with pytest.raises(RuntimeError, match="no backward"):
+        cc.column_conv_layer(cols, table, w, torch.ones(10), torch.zeros(10),
+                             1e-3)
+
+
+def test_profiler_counts_kernel_3_apart():
+    """tools/profiler.flop_count runs a published-width SECOND layer's
+    ``column_conv_layer`` outside its FlopCounterMode (as kernel 3 runs
+    on the card) and reports 2*27*Cin*Cout an output voxel apart; the
+    counter then sees none of the convs' products."""
+    from heal_tpu_torch.models.layers import init_weights
+    from heal_tpu_torch.tools import profiler
+
+    enc = init_weights(SecondEncoder(
+        (0.3, 0.3, 0.1), (-4.8, -4.8, -3.0, 4.8, 4.8, 1.0),
+        max_voxels=(256, 192, 128, 64)), torch.Generator().manual_seed(0))
+
+    class Frame(torch.nn.Module):
+        def __init__(self):
+            super().__init__()
+            self.enc = enc
+
+        def forward(self, x):
+            return self.enc(x["points"], x["mask"])
+
+    pts, mask = _points(11)
+    got = profiler.flop_count(Frame().eval(), {
+        "points": torch.from_numpy(pts), "mask": torch.from_numpy(mask)})
+    z = (40, 20, 10, 5)
+    caps = (256, 192, 128, 64)
+    chans = (4, 16, 32, 64, 64)
+    want = 2 * 27 * 4 * 16 * 2 * 256 * 40
+    for si in range(1, 4):
+        want += 2 * 27 * 2 * caps[si] * z[si] * chans[si + 1] * (
+            chans[si] + 2 * chans[si + 1])
+    assert got["kernel_ops"]["column_conv"] == want
+    assert not any("mm" in op for op in got["by_op"]), got["by_op"]
