@@ -12,7 +12,8 @@ distinct output once):
     warp, the shrink and the heads themselves;
   * ``boxes_m``: each served detection's corners against those of the
     reference's box at the same place (the anchor with the nearest
-    centre, among all of them), the widest coordinate gap in metres;
+    centre, among all of them, by exact distance), the widest
+    coordinate gap in metres;
   * ``scores``: the widest score gap of the same pairs and, where the
     served and the reference's kept sets differ, of each detection that
     one side kept and the other did not against the closest-scored
@@ -60,7 +61,10 @@ def detections(dets: dict, dec: dict, kept: np.ndarray, hypes: dict,
     idx = []
     centers = rc.mean(1)
     for chunk in pc.split(64):
-        d = torch.cdist(chunk.mean(1), centers)
+        # exact distances: cdist's matmul form loses centimetres at a
+        # hundred metres, and pairs a box with another anchor's there
+        d = torch.cdist(chunk.mean(1), centers,
+                        compute_mode="donot_use_mm_for_euclid_dist")
         near = d.argmin(1)
         idx.append(near)
         out["boxes_m"] = max(out["boxes_m"], float(

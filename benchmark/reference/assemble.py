@@ -8,10 +8,11 @@ pairwise transforms as normalised BEV affines, each lidar sweep
 range-filtered and padded to ``max_points`` (the first points when
 serving; a random subset drawn from numpy's global state when training,
 as the program draws it), each agent type packed with the slots it
-fills, camera agents with their images and calibration, and for
-training the anchor labels (``labels.py``). None of the program's
-host-side preparations (the presort, the splat plans) is made here: the
-reference model does not need them.
+fills (with a ``heter`` block) or every slot's sweep as ``points`` and
+``point_mask`` (without one), camera agents with their images and
+calibration, and for training the anchor labels (``labels.py``). None
+of the program's host-side preparations (the presort, the splat plans)
+is made here: the reference model does not need them.
 """
 from __future__ import annotations
 
@@ -84,6 +85,9 @@ def assemble(hypes: dict, scene: dict, train: bool) -> dict:
     sample = {"agent_mask": mask,
               "pairwise_affine": pairwise_affine([poses[i] for i in keep],
                                                  slots, rng)}
+    if not hypes.get("heter"):
+        # one agent type: the model reads every slot's points
+        sample["points"], sample["point_mask"] = pts, pmask
     setting = (hypes.get("heter") or {}).get("modality_setting") or {}
     kinds = [agents[i].get("modality", "m1") for i in keep]
     for m in sorted(setting):

@@ -40,18 +40,30 @@ def _shrink_cameras(node):
             _shrink_cameras(v)
 
 
+def shrink(hypes: dict, max_points: int = 1500) -> dict:
+    """``hypes`` cut in place to a tiny range and ``max_points`` points
+    an agent, with small cameras."""
+    _set_range(hypes, RANGE)
+    hypes["preprocess"]["args"]["max_points"] = max_points
+    _shrink_cameras(hypes)
+    return hypes
+
+
+def shrink_traffic(t: dict, **traffic) -> dict:
+    """The traffic file ``t`` cut in place to tiny scenes, then
+    ``traffic``'s sizes."""
+    t.update(frames=2, warmup_passes=1, traced_frames=2, vehicles=6,
+             area_m=12.0, ground_points=2500, max_range_m=20.0)
+    t.update(traffic)
+    return t
+
+
 def cell(name: str, max_points: int = 1500, **traffic) -> dict:
     """harness.cell(name) with a tiny range, ``max_points`` points an
     agent and the traffic's sizes replaced by ``traffic``."""
     c = copy.deepcopy(harness.cell(name))
-    hypes = c["config_file"]["hypes"]
-    _set_range(hypes, RANGE)
-    hypes["preprocess"]["args"]["max_points"] = max_points
-    _shrink_cameras(hypes)
-    t = c["traffic_file"]
-    t.update(frames=2, warmup_passes=1, traced_frames=2, vehicles=6,
-             area_m=12.0, ground_points=2500, max_range_m=20.0)
-    t.update(traffic)
+    shrink(c["config_file"]["hypes"], max_points)
+    shrink_traffic(c["traffic_file"], **traffic)
     return c
 
 
