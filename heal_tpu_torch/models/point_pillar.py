@@ -45,6 +45,7 @@ from __future__ import annotations
 import torch
 import torch.nn as nn
 
+from .. import trace
 from .encoders import PointPillarEncoder
 from .fuse.fusion_in_one import build_fusion
 from .heads import DetectionHeads
@@ -181,9 +182,11 @@ class IntermediateChain(DetectorChain):
         return bev.permute(0, 3, 1, 2), b, l
 
     def agent_features(self, batch: dict):
-        """-> the (B*L, C, H, W) maps of every agent slot, B, L."""
-        bev, b, l = self.agent_bev(batch)
-        return self.bev_features(bev), b, l
+        """-> the (B*L, C, H, W) maps of every agent slot, B, L: encoder,
+        backbone and shrink under the span ``encoder.lidar``."""
+        with trace.span("encoder.lidar"):
+            bev, b, l = self.agent_bev(batch)
+            return self.bev_features(bev), b, l
 
     def fused_heads(self, feat: torch.Tensor, b: int, l: int, batch: dict,
                     heads: nn.Module) -> dict:

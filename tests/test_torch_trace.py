@@ -274,3 +274,52 @@ def test_the_buffer_stays_bounded(monkeypatch):
         with trace.span("again"):
             pass
     assert [r["name"] for r in trace.records()] == ["again"]
+
+
+def test_a_published_v2xvit_frame_records_its_encoder_and_fusion_layers():
+    """The benchmark's V2X-ViT configuration (benchmark/configs/
+    v2xvit.json) on the tiny range at depth 2, one forward: with no
+    profiler, no record; profiled, ``encoder.lidar`` then ``fusion``,
+    with each depth layer's ``v2xvit.hmsa``, ``v2xvit.mswin`` and
+    ``v2xvit.ffn`` nested in ``fusion``, in that order."""
+    import copy
+    import json
+    import os
+    import sys
+
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    if root not in sys.path:
+        sys.path.insert(0, root)
+    from benchmark import weights as wlib
+    from benchmark.reference import assemble
+    from benchmark.tests import tiny
+    from benchmark.traffic import scenes as gen
+    from heal_tpu_torch.config import reparse
+    from heal_tpu_torch.models import build_model
+
+    with open(os.path.join(root, "benchmark", "configs",
+                           "v2xvit.json")) as f:
+        hypes = tiny.shrink(json.load(f)["hypes"])
+    hypes["model"]["args"]["v2xvit"]["transformer"]["encoder"]["depth"] = 2
+    h = reparse(copy.deepcopy(hypes))
+    model = build_model(h["model"], max_cav=h["train_params"]["max_cav"])
+    model.load_state_dict(wlib.make(wlib.shapes_of(model), 1, "cpu"))
+    model.eval()
+    with open(os.path.join(root, "benchmark", "traffic",
+                           "serve8.json")) as f:
+        traffic = tiny.shrink_traffic(json.load(f))
+    scene = gen.scenes(hypes, traffic, 3, 1)[0]
+    batch = assemble.to_device(assemble.collate(
+        [assemble.assemble(hypes, scene, train=False)]), "cpu")
+    with torch.inference_mode():
+        off = model(batch)
+    assert trace.records() == []
+    with recording(), torch.inference_mode():
+        on = model(batch)
+    assert torch.equal(on["cls_preds"], off["cls_preds"])
+    recs = trace.records()
+    top = [(i, r["name"]) for i, r in enumerate(recs) if r["parent"] == -1]
+    assert [n for _, n in top] == ["encoder.lidar", "fusion"]
+    fusion = top[1][0]
+    assert [r["name"] for r in recs if r["parent"] == fusion] == [
+        "v2xvit.hmsa", "v2xvit.mswin", "v2xvit.ffn"] * 2
