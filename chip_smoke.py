@@ -23,7 +23,15 @@ Phases, in order; any failure raises and the exit code is non-zero:
      the plain layers (10 launches a forward). Every later phase counts
      kernel 3 too: M3_LAUNCHES an f32 eval forward of a SECOND encoder
      (the alliance's m3, the m1m2m3m4 baselines, the SECOND detectors),
-     never in bf16, in training or in a flagship frame;
+     never in bf16, in training or in a flagship frame; kernel 4 (the
+     window attention of V2X-ViT's MSwin branches) at the v2xvit.serve
+     cell's three branches, each call one device kernel and no host
+     sync, with its bound and F.scaled_dot_product_attention's time as a
+     yardstick, then the published V2X-ViT fusion on the cell's maps
+     with kernel 4 and with the plain versions (9 launches a forward).
+     Every serving phase checks kernel 4 too: one launch an MSwin branch
+     of an f32 eval forward (the V2X-ViT baselines), never in bf16, in
+     training or outside V2X-ViT;
   4. serve 8 synthetic flagship frames through
      heal_tpu_torch.tools.inference.run_inference with seeded random
      weights, f32 (TF32 off) and bf16 (points, affines and decode f32);
@@ -374,16 +382,17 @@ STAGE2_STEPS = 4  # timed stage-2 steps after a warm one
 # launches of each kernel a served alliance frame: kernel 1 once per
 # PointPillars branch (m1, m4); kernel 2 in weighted_fuse (3 levels x 5);
 # the SECOND (m3) and camera (m2) branches launch neither
-# the kernels as the launch tables below index them: (kernel 1, kernel 2,
-# kernel 3)
-KERNELS = ("pillar_tables", "shift_rows", "column_conv")
+# the kernels as the launch counts name them; the launch tables below
+# index the first three (kernel 1, kernel 2, kernel 3): kernel 4 launches
+# only in V2X-ViT's f32 eval forwards, k4_per_forward a forward
+KERNELS = ("pillar_tables", "shift_rows", "column_conv", "window_attention")
 # kernel-3 launches an f32 eval forward of a SECOND encoder at the
 # published widths on the card: one a conv layer (conv_input, three
 # strided, six submanifold). bf16 and training take its plain version
 M3_LAUNCHES = 10
 # a served alliance frame; kernel 3 in its f32 frames only
 ALLIANCE_LAUNCHES = {"pillar_tables": 2, "shift_rows": 15,
-                     "column_conv": M3_LAUNCHES}
+                     "column_conv": M3_LAUNCHES, "window_attention": 0}
 # the SECOND encoder on the card vs on the CPU, one frame: f32 features
 # as max |d| / (1 + max |cpu|) (GEMMs and segment sums in another order)
 SECOND_CPU_TOL = 1e-5
@@ -627,23 +636,28 @@ def rel_err(a: torch.Tensor, b: torch.Tensor) -> tuple[float, float]:
 @contextlib.contextmanager
 def plain_kernels():
     """Route the model through the kernels' plain PyTorch versions (for the
-    reference run only): kernel 1's and kernel 3's wrappers are swapped at
-    module level, and kernel 2's one-direction launcher, which its
-    autograd function calls forward with s and backward with -s."""
-    from heal_tpu_torch.ops import column_conv, pillar, shift_rows
+    reference run only): kernel 1's, kernel 3's and kernel 4's wrappers
+    are swapped at module level, and kernel 2's one-direction launcher,
+    which its autograd function calls forward with s and backward with
+    -s."""
+    from heal_tpu_torch.ops import (column_conv, pillar, shift_rows,
+                                    window_attention)
 
     saved = (pillar.pillar_tables, shift_rows._shift,
-             column_conv.column_conv_layer)
+             column_conv.column_conv_layer, window_attention.window_attention)
     pillar.pillar_tables = pillar.pillar_tables_plain
     shift_rows._shift = lambda x, s, m, axis, backward=False: (
         shift_rows.shift_rows_plain if axis == 0
         else shift_rows.shift_cols_plain)(x, s, m)
     column_conv.column_conv_layer = column_conv.column_conv_layer_plain
+    window_attention.window_attention = (
+        window_attention.window_attention_plain)
     try:
         yield
     finally:
         (pillar.pillar_tables, shift_rows._shift,
-         column_conv.column_conv_layer) = saved
+         column_conv.column_conv_layer,
+         window_attention.window_attention) = saved
 
 
 def phase_card() -> str:
@@ -838,10 +852,11 @@ def pillar_case(name, args, dt) -> dict:
 _TRACE = """
 import json, sys, torch
 from heal_tpu_torch.kernels.measure import device_kernels
-from heal_tpu_torch.ops import column_conv, pillar
+from heal_tpu_torch.ops import column_conv, pillar, window_attention
 calls = torch.load(sys.argv[1], weights_only=False)
 fn = {"pillar_tables": pillar.pillar_tables,
-      "column_conv": column_conv.column_conv_layer}[sys.argv[2]]
+      "column_conv": column_conv.column_conv_layer,
+      "window_attention": window_attention.window_attention}[sys.argv[2]]
 def run():
     with torch.inference_mode():
         for args, kwargs in calls:
@@ -852,7 +867,8 @@ print(json.dumps(device_kernels(run)))
 
 def trace_in_fresh_process(calls, kernel: str = "pillar_tables") -> list:
     """``device_kernels`` of ``calls`` [(args, kwargs)] of the wrapper of
-    ``kernel`` (``pillar_tables`` or ``column_conv``), saved to a
+    ``kernel`` (``pillar_tables``, ``column_conv`` or
+    ``window_attention``), saved to a
     temporary file, in a new Python process with its own CUPTI
     session."""
     root = os.path.dirname(os.path.abspath(__file__))
@@ -1214,6 +1230,185 @@ def phase_column_conv(final_cfg) -> dict:
         encoder=encoder)
 
 
+# kernel 4 at the v2xvit.serve cell's MSwin branches, (window, heads, head
+# width), on its map: 5 slots of 128 x 256 tokens
+K4_BRANCHES = ((4, 16, 16), (8, 8, 32), (16, 4, 64))
+K4_MAP = (5, 128, 256)
+# kernel-4 launches an f32 eval forward of V2X-ViT's published block on
+# the card: one an MSwin branch of each layer (3 layers x 3 windows; any
+# model: k4_per_forward). bf16 and training take its plain version
+K4_PUBLISHED = 9
+
+
+def k4_per_forward(model) -> int:
+    """Kernel-4 launches an f32 eval forward of ``model`` on the card: one
+    for each MSwin branch (none outside V2X-ViT)."""
+    from heal_tpu_torch.models.fuse.v2xvit import WindowAttention
+
+    return sum(isinstance(m, WindowAttention) for m in model.modules())
+
+
+def v2xvit_args() -> dict:
+    """V2X-ViT's published fusion block as benchmark/configs/v2xvit.json
+    states it (the v2xvit.serve cell's)."""
+    root = os.path.dirname(os.path.abspath(__file__))
+    with open(os.path.join(root, "benchmark", "configs", "v2xvit.json")) as f:
+        return json.load(f)["hypes"]["model"]["args"]["v2xvit"]
+
+
+def window_attention_inputs(window, heads, dh, n, h, w, seed):
+    """Random (N, H, W, 3, heads, dh) projections and a table on the
+    card: q . k / sqrt(dh) and the bias each about unit spread."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    qkv = torch.randn((n, h, w, 3, heads, dh), generator=gen, device="cuda")
+    table = torch.randn(((2 * window - 1) ** 2, heads), generator=gen,
+                        device="cuda")
+    return qkv, table
+
+
+def window_attention_case(window, heads, dh) -> dict:
+    """Kernel 4 on one branch of the cell's map against its plain version
+    (KERNEL_TOL), both device times, the bound (q, k and v read once and
+    the output written once, or the products at 67 TFLOP/s) and, as a
+    yardstick the port never calls, F.scaled_dot_product_attention on the
+    windows already partitioned with the bias as its float attn_mask."""
+    import torch.nn.functional as F
+
+    from heal_tpu_torch.ops import window_attention as wa
+
+    n, h, w = K4_MAP
+    qkv, table = window_attention_inputs(window, heads, dh, n, h, w,
+                                         SEED + window)
+    args = (qkv, table, window, heads, dh)
+    t = window * window
+    with torch.inference_mode():
+        got, want = wa.window_attention(*args), wa.window_attention_plain(
+            *args)
+        torch.cuda.synchronize()
+        d, r = rel_err(got, want)
+        if not r <= KERNEL_TOL[torch.float32]:
+            raise AssertionError(f"window_attention {window}: {r}")
+        ms = device_ms(lambda: wa.window_attention(*args))
+        plain_ms = device_ms(lambda: wa.window_attention_plain(*args),
+                             iters=5)
+        win = qkv.reshape(n, h // window, window, w // window, window, 3,
+                          heads, dh).permute(5, 0, 1, 3, 6, 2, 4, 7)
+        q, k, v = (x.reshape(-1, heads, t, dh).contiguous() for x in win)
+        mask = table[wa.window_rel_index(window, table.device).reshape(-1)]
+        mask = mask.reshape(t, t, heads).permute(2, 0, 1).contiguous()
+        lib = F.scaled_dot_product_attention(q, k, v, attn_mask=mask)
+        lib_err = rel_err(lib.reshape(n, h // window, w // window, heads,
+                                      window, window, dh).permute(
+            0, 1, 4, 2, 5, 3, 6).reshape(got.shape), want)[1]
+        library_ms = device_ms(
+            lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=mask),
+            iters=5)
+    tokens = n * h * w
+    flops = 4 * tokens * t * heads * dh
+    nbytes = 4 * (4 * tokens * heads * dh + table.numel())
+    b_ms, b_by = bound(nbytes, flops)
+    print(f"[kernel] window_attention window {window}, {heads} x {dh} heads,"
+          f" qkv {tuple(qkv.shape)}: max_abs_err {d:.3e} (rel {r:.3e}, tol "
+          f"{KERNEL_TOL[torch.float32]}), {ms:.4f} ms vs plain "
+          f"{plain_ms:.4f} ms; {flops} flops, {nbytes} bytes, bound "
+          f"{b_ms:.4f} ms ({b_by}), {100 * b_ms / ms:.1f}% of bound; "
+          f"F.scaled_dot_product_attention on partitioned windows "
+          f"{library_ms:.4f} ms (rel err {lib_err:.2e})")
+    return dict(window=window, heads=heads, dim_head=dh,
+                qkv=list(qkv.shape), max_abs_err=d, ms=ms, plain_ms=plain_ms,
+                library_ms=library_ms, library_rel_err=lib_err, flops=flops,
+                bytes=nbytes, bound_ms=b_ms, bound_by=b_by,
+                pct_of_bound=100 * b_ms / ms)
+
+
+def phase_window_attention() -> dict:
+    """Kernel 4 against its plain version at the v2xvit.serve cell's three
+    MSwin branches (:func:`window_attention_case`); each call one device
+    kernel and no host sync; then the published V2X-ViT fusion (3 layers
+    at 256, benchmark/configs/v2xvit.json's block, seeded weights) on the
+    cell's 5 x 128 x 256 maps: its launches a forward (K4_PUBLISHED),
+    its output with kernel 4 against the plain versions
+    (HEADS_TOL) and both device times. Returns the JSON row's numbers."""
+    from heal_tpu_torch.models.fuse import build_fusion
+    from heal_tpu_torch.models.layers import init_weights
+    from heal_tpu_torch.ops import window_attention as wa
+
+    cases = [window_attention_case(*b) for b in K4_BRANCHES]
+
+    # each call one device kernel and no host sync, at a small map
+    calls = [((*window_attention_inputs(ws, m, dh, 1, 16, 16, SEED), ws, m,
+               dh), {}) for ws, m, dh in K4_BRANCHES]
+
+    def three():
+        with torch.inference_mode():
+            for args, _ in calls:
+                wa.window_attention(*args)
+
+    for traces in range(1, TRACE_TRIES + 1):
+        launched = device_kernels(three)
+        if launched:
+            break
+    else:
+        launched = trace_in_fresh_process(calls, "window_attention")
+        traces = f"{TRACE_TRIES} empty, then one in a fresh process"
+    if (len(launched) != len(calls)
+            or not all("window_attention" in k for k in launched)):
+        raise AssertionError(f"window_attention: {len(calls)} calls put "
+                             f"{launched} on the card ({traces} traces)")
+    print(f"[kernel] window_attention: {len(calls)} calls, one device "
+          f"kernel each and no sync ({traces} trace"
+          f"{'' if traces == 1 else 's'})")
+
+    # the published fusion on the cell's maps
+    n, h, w = K4_MAP
+    c = 256
+    fusion = init_weights(build_fusion("v2xvit", v2xvit_args(), c, n),
+                          torch.Generator().manual_seed(SEED)).cuda().eval()
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    x = torch.randn((1, n, h, w, c), generator=gen, device="cuda")
+    affine = torch.eye(2, 3, device="cuda").expand(1, n, n, 2,
+                                                   3).contiguous()
+    agent_mask = torch.tensor([[True] * 4 + [False]], device="cuda")
+    types = torch.tensor([[0, 1, 0, 1, 0]], device="cuda")
+
+    def forward():
+        with torch.inference_mode():
+            return fusion(x, affine, agent_mask, types)
+
+    forward()
+    torch.cuda.synchronize()
+    _zero_counts()
+    got = forward()
+    launches = _counts()["window_attention"]
+    want_launches = k4_per_forward(fusion)
+    if launches != want_launches or want_launches != K4_PUBLISHED:
+        raise AssertionError(f"V2X-ViT forward: {launches} kernel-4 "
+                             f"launches, want {want_launches}")
+    fusion_ms = device_ms(forward, iters=5)
+    before = _counts()
+    with plain_kernels():
+        want = forward()
+        fusion_plain_ms = device_ms(forward, iters=5)
+    if _counts() != before:
+        raise AssertionError("V2X-ViT: the plain run launched kernel 4")
+    err = rel_err(got, want)[1]
+    if not err <= HEADS_TOL:
+        raise AssertionError(f"V2X-ViT fusion, kernel 4 vs plain: {err}")
+    print(f"[kernel] window_attention: the published V2X-ViT fusion on "
+          f"{n} x {h} x {w} x {c} maps launches {launches} a forward; "
+          f"{fusion_ms:.3f} ms with kernel 4, {fusion_plain_ms:.3f} ms "
+          f"with the plain versions; output rel err {err:.2e} (tol "
+          f"{HEADS_TOL})")
+    head = cases[-1]  # the row's numbers: window 16, the largest branch
+    return dict(
+        max_abs_err=max(k["max_abs_err"] for k in cases), ms=head["ms"],
+        plain_ms=head["plain_ms"], bound_ms=head["bound_ms"],
+        bound_by=head["bound_by"], library_ms=head["library_ms"],
+        bytes=head["bytes"], pct_of_bound=head["pct_of_bound"], cases=cases,
+        launches_per_v2xvit_forward=launches, fusion_ms=fusion_ms,
+        fusion_plain_ms=fusion_plain_ms, fusion_rel_err=err)
+
+
 def phase_serve(cfg, model32) -> dict:
     import numpy as np
 
@@ -1231,8 +1426,9 @@ def phase_serve(cfg, model32) -> dict:
     launches = _counts()
     del launches["shift_rows_backward"]
     print(f"[serve] kernel launches while serving: {launches}")
-    if launches["column_conv"]:
-        raise AssertionError("kernel 3 was launched in a flagship frame")
+    if launches["column_conv"] or launches["window_attention"]:
+        raise AssertionError("kernel 3 or 4 was launched in a flagship "
+                             "frame")
     for name in KERNELS[:2]:
         if launches[name] <= 0:
             raise AssertionError(f"{name} was not launched while serving")
@@ -1413,8 +1609,9 @@ def phase_train(cfg, model32) -> dict:
     # the launch counters of the training run
     launches = _counts()
     print(f"[train] kernel launches while training: {launches}")
-    if launches["pillar_tables"] != 0 or launches["column_conv"] != 0:
-        raise AssertionError("kernel 1 or 3 was launched in training")
+    if (launches["pillar_tables"] or launches["column_conv"]
+            or launches["window_attention"]):
+        raise AssertionError("kernel 1, 3 or 4 was launched in training")
     if launches["shift_rows"] <= 0 or launches["shift_rows_backward"] <= 0:
         raise AssertionError("kernel 2 was not launched in both directions "
                              "while training")
@@ -1430,7 +1627,8 @@ def _counts() -> dict:
     return {"pillar_tables": c.get("kernel1.launches", 0),
             "shift_rows": c.get("kernel2.launches", 0),
             "shift_rows_backward": c.get("kernel2.backward_launches", 0),
-            "column_conv": c.get("kernel3.launches", 0)}
+            "column_conv": c.get("kernel3.launches", 0),
+            "window_attention": c.get("kernel4.launches", 0)}
 
 
 def _zero_counts() -> None:
@@ -2082,8 +2280,12 @@ def phase_baselines(cfgs: dict) -> dict:
         want = {"pillar_tables": BASELINE_PILLAR_LAUNCHES * n,
                 "shift_rows": BASELINE_LAUNCHES[name] * n,
                 "shift_rows_backward": 0,
-                "column_conv": M3_LAUNCHES * runs["f32"]["frames"]}
-        if served != want:
+                "column_conv": M3_LAUNCHES * runs["f32"]["frames"],
+                # each MSwin branch of an f32 frame (v2xvit's 2 layers)
+                "window_attention": k4_per_forward(model32)
+                * runs["f32"]["frames"]}
+        if served != want or (name == "v2xvit") != (
+                want["window_attention"] > 0):
             raise AssertionError(f"{name}: launches {served}, want {want}")
         for dname, r in runs.items():
             for i, h in enumerate(r["heads"]):
@@ -2143,7 +2345,8 @@ def phase_baselines(cfgs: dict) -> dict:
                                  f"gradient: {dead[:5]}")
         if trained["pillar_tables"] != 0 or trained["shift_rows"] <= 0 \
                 or trained["shift_rows_backward"] <= 0 \
-                or trained["column_conv"] != 0:
+                or trained["column_conv"] != 0 \
+                or trained["window_attention"] != 0:
             raise AssertionError(f"{name} training launches {trained}")
         for k in total:
             total[k] += trained[k]
@@ -2152,7 +2355,9 @@ def phase_baselines(cfgs: dict) -> dict:
         row = {"launches_per_frame": dict(
                    {k: served[k] // n for k in served},
                    column_conv=served["column_conv"] // runs["f32"][
-                       "frames"]),
+                       "frames"],
+                   window_attention=served["window_attention"] // runs[
+                       "f32"]["frames"]),
                "heads_rel": worst, "train_launches": trained,
                "ms_step_f32": ms32, "ms_step_bf16": ms16,
                "peak_gib_f32": peak32, "peak_gib_bf16": peak16,
@@ -2371,7 +2576,9 @@ def phase_fusion_timings(cfgs: dict) -> dict:
         n = len(_forwards(frames))
         want = {"pillar_tables": 2 * n,
                 "shift_rows": 2 * len(frames) * shift_per_frame,
-                "shift_rows_backward": 0, "column_conv": 0}
+                "shift_rows_backward": 0, "column_conv": 0,
+                # V2X-ViT's MSwin branches, f32 forwards only
+                "window_attention": k4_per_forward(model32) * n}
         if served != want:
             raise AssertionError(f"{name}: launches {served}, want {want}")
         add(served)
@@ -2479,7 +2686,8 @@ def phase_fusion_timings(cfgs: dict) -> dict:
                                  f"gradient: {dead[:5]}")
         if trained["pillar_tables"] != 0 or trained["shift_rows"] <= 0 \
                 or trained["shift_rows_backward"] <= 0 \
-                or trained["column_conv"] != 0:
+                or trained["column_conv"] != 0 \
+                or trained["window_attention"] != 0:
             raise AssertionError(f"{name} training launches {trained}")
         add(trained)
         row["fusion_params"] = len(fusion_params)
@@ -2628,7 +2836,7 @@ def phase_pose(cfgs: dict) -> dict:
         k1, k2 = want_per_forward
         want = {"pillar_tables": k1 * forwards,
                 "shift_rows": k2 * forwards, "shift_rows_backward": 0,
-                "column_conv": 0}
+                "column_conv": 0, "window_attention": 0}
         if got != want:
             raise AssertionError(f"{what}: launches {got}, want {want}")
         for k in total:
@@ -2776,7 +2984,8 @@ def phase_pose(cfgs: dict) -> dict:
         trained = _counts()
         k1, k2 = POSE_LAUNCHES["compress"]
         want = {"pillar_tables": 2 * k1, "shift_rows": 2 * k2,
-                "shift_rows_backward": 2 * k2, "column_conv": 0}
+                "shift_rows_backward": 2 * k2, "column_conv": 0,
+                "window_attention": 0}
         if trained != want:
             raise AssertionError(f"compress training launches {trained}, "
                                  f"want {want}")
@@ -2803,7 +3012,8 @@ def phase_pose(cfgs: dict) -> dict:
         per = POSE_LAUNCHES["compress"]
         want = {"pillar_tables": 2 * POSE_FRAMES * per[0],
                 "shift_rows": 2 * POSE_FRAMES * per[1],
-                "shift_rows_backward": 0, "column_conv": 0}
+                "shift_rows_backward": 0, "column_conv": 0,
+                "window_attention": 0}
         if served != want:
             raise AssertionError(f"compress served: {served}, want {want}")
         for k in total:
@@ -2815,7 +3025,7 @@ def phase_pose(cfgs: dict) -> dict:
         del model32, frames
 
     out["launches_per_frame"] = {
-        name: dict(zip(KERNELS, (*POSE_LAUNCHES[name], 0)))
+        name: dict(zip(KERNELS, (*POSE_LAUNCHES[name], 0, 0)))
         for name in POSE_LAUNCHES}
     out["s"] = time.perf_counter() - t_phase
     step = out["train"]
@@ -2927,7 +3137,7 @@ def phase_anchor_free(cfgs: dict) -> dict:
         runs, served = _serve(cfg, model32, frames, name)
         want = {"pillar_tables": 2 * AF_FRAMES * k1,
                 "shift_rows": 2 * AF_FRAMES * k2, "shift_rows_backward": 0,
-                "column_conv": AF_FRAMES * k3}
+                "column_conv": AF_FRAMES * k3, "window_attention": 0}
         if served != want:
             raise AssertionError(f"{name} served: launches {served}, want "
                                  f"{want}")
@@ -2952,7 +3162,8 @@ def phase_anchor_free(cfgs: dict) -> dict:
         row["train"] = _steps(tr, batch, 2)
         trained = _counts()
         want = {"pillar_tables": 0, "shift_rows": 2 * k2,
-                "shift_rows_backward": 2 * k2, "column_conv": 0}
+                "shift_rows_backward": 2 * k2, "column_conv": 0,
+                "window_attention": 0}
         if trained != want:
             raise AssertionError(f"{name} training launches {trained}, "
                                  f"want {want}")
@@ -3177,7 +3388,8 @@ def phase_disk(cfgs: dict, trees: dict, readers: dict, smi: str) -> dict:
         runs, served = _serve(cfg, model32, frames, f"disk {name}")
         n = len(frames)
         want = {"pillar_tables": 2 * n * k1, "shift_rows": 2 * n * k2,
-                "shift_rows_backward": 0, "column_conv": n * k3}
+                "shift_rows_backward": 0, "column_conv": n * k3,
+                "window_attention": 0}
         if served != want:
             raise AssertionError(f"disk {name} served: launches {served}, "
                                  f"want {want}")
@@ -3228,7 +3440,8 @@ def phase_disk(cfgs: dict, trees: dict, readers: dict, smi: str) -> dict:
             t0 = time.perf_counter()
     trained = _counts()
     want = {"pillar_tables": 0, "shift_rows": 15 * len(steps),
-            "shift_rows_backward": 15 * len(steps), "column_conv": 0}
+            "shift_rows_backward": 15 * len(steps), "column_conv": 0,
+            "window_attention": 0}
     if len(steps) != 3 or trained != want:
         raise AssertionError(f"disk training: {len(steps)} steps, launches "
                              f"{trained}, want {want}")
@@ -3390,14 +3603,17 @@ def phase_camera_options(cfgs: dict) -> dict:
         runs, served = _serve(cfg, model32, frames, name, hw)
         peak = torch.cuda.max_memory_allocated() / 2**30
         forwards = 2 * len(_forwards(frames))
+        k4 = k4_per_forward(model32)  # an f32 forward: V2X-ViT's branches
         want = {"pillar_tables": forwards * launches[0],
                 "shift_rows": forwards * launches[1],
-                "shift_rows_backward": 0, "column_conv": 0}
+                "shift_rows_backward": 0, "column_conv": 0,
+                "window_attention": k4 * len(_forwards(frames))}
         if served != want:
             raise AssertionError(f"{name} served: launches {served}, want "
                                  f"{want}")
         add(served)
-        row = {"launches_per_forward": dict(zip(KERNELS, (*launches, 0))),
+        row = {"launches_per_forward": dict(zip(KERNELS, (*launches, 0,
+                                                          k4))),
             "heads_rel": heads_vs_plain(model32, frames, name, hw),
             "serve_peak_gib": peak}
         for d, r in runs.items():
@@ -3417,7 +3633,8 @@ def phase_camera_options(cfgs: dict) -> dict:
         trained = _counts()
         back = launches[1] if backward is None else backward
         want = {"pillar_tables": 0, "shift_rows": steps * launches[1],
-                "shift_rows_backward": steps * back, "column_conv": 0}
+                "shift_rows_backward": steps * back, "column_conv": 0,
+                "window_attention": 0}
         if trained != want:
             raise AssertionError(f"{name} training launches {trained}, "
                                  f"want {want}")
@@ -3776,7 +3993,8 @@ def phase_legacy(cfgs: dict) -> dict:
 
     def expect(what, got, k1, k2, k2b, k3=0):
         want = {"pillar_tables": k1, "shift_rows": k2,
-                "shift_rows_backward": k2b, "column_conv": k3}
+                "shift_rows_backward": k2b, "column_conv": k3,
+                "window_attention": 0}
         if got != want:
             raise AssertionError(f"{what}: launches {got}, want {want}")
         add(got)
@@ -4199,7 +4417,8 @@ def phase_tools(cfgs: dict) -> dict:
     def expect(what, k1, k2, k2b=0, k3=0):
         got = _counts()
         want = {"pillar_tables": k1, "shift_rows": k2,
-                "shift_rows_backward": k2b, "column_conv": k3}
+                "shift_rows_backward": k2b, "column_conv": k3,
+                "window_attention": 0}
         if got != want:
             raise AssertionError(f"{what}: launches {got}, want {want}")
         for k in total:
@@ -4236,7 +4455,8 @@ def phase_tools(cfgs: dict) -> dict:
         _zero_counts()
         if served != {"pillar_tables": 2 * TOOLS_FRAMES * k1,
                       "shift_rows": 2 * TOOLS_FRAMES * k2,
-                      "shift_rows_backward": 0, "column_conv": 0}:
+                      "shift_rows_backward": 0, "column_conv": 0,
+                      "window_attention": 0}:
             raise AssertionError(f"transplanted flagship: launches {served}")
         for k in total:
             total[k] += served[k]
@@ -4715,7 +4935,7 @@ def phase_multi_device(cfg, dev=torch.device("cuda")) -> dict:
                     f"the one-rank NCCL step is not the plain step: |dloss| "
                     f"{d_loss}, max |dgrad| {d_grad}")
             want = {"pillar_tables": 0, "shift_rows": 15, "column_conv": 0,
-                    "shift_rows_backward": 15}
+                    "shift_rows_backward": 15, "window_attention": 0}
             if step_counts != want:
                 raise AssertionError(f"the mesh step launched {step_counts}, "
                                      f"want {want}")
@@ -4859,6 +5079,8 @@ def main() -> int:
         memory_format=torch.channels_last)
     rows = phase_kernels(cfg, model32, pcfgs["final"])
     conv = phase_column_conv(pcfgs["final"])
+    torch.cuda.empty_cache()
+    attn = phase_window_attention()
     torch.cuda.empty_cache()
     launches = phase_serve(cfg, model32)
     trained = phase_train(cfg, model32)
@@ -5009,6 +5231,37 @@ def main() -> int:
           f"{conv['plain_ms']:.4f} ms; the m3 encoder " + ", ".join(
               f"{f} {e['ms']:.3f} ms (plain layers {e['plain_ms']:.3f} ms)"
               for f, e in conv["encoder"].items()))
+    # kernel 4's row: its own cases and fusion (phase_window_attention),
+    # its launches from every phase's run as the others' (0 on the
+    # flagship's path; k4_per_forward an f32 V2X-ViT forward)
+    phases = {"protocol": protocol, "baselines": baselines,
+              "fusion_timings": fusion, "pose": pose,
+              "anchor_free": anchor_free, "disk": disk,
+              "camera_and_options": camera, "legacy": legacy, "tools": tools}
+    kernels.append({
+        "name": "window_attention", "route": "cuda",
+        "source": "heal_tpu_torch/csrc/window_attention.cu",
+        "replaces": "none: JAX's MSwin is flax attention, XLA ops",
+        "launches": launches["window_attention"],
+        "train_launches": trained["window_attention"],
+        **{f"{p}_launches": r["launches"]["window_attention"]
+           for p, r in phases.items()},
+        "multi_device_launches": (multi["step"]["window_attention"]
+                                  + multi["main"]["window_attention"]),
+        **attn})
+    print(f"[kernels] window_attention: {attn['launches_per_v2xvit_forward']}"
+          f" launches a published V2X-ViT forward, "
+          f"{kernels[-1]['launches']} serving the flagship, "
+          f"{kernels[-1]['train_launches']} training it, "
+          f"{kernels[-1]['baselines_launches']} in the baselines phase, "
+          f"{kernels[-1]['fusion_timings_launches']} in the fusion timings "
+          f"phase, {kernels[-1]['camera_and_options_launches']} in the "
+          f"camera and options phase; window 16 "
+          f"{attn['ms']:.4f} ms = {attn['pct_of_bound']:.1f}% of its bound "
+          f"{attn['bound_ms']:.4f} ms ({attn['bound_by']}), plain "
+          f"{attn['plain_ms']:.4f} ms, F.scaled_dot_product_attention "
+          f"{attn['library_ms']:.4f} ms; the fusion {attn['fusion_ms']:.3f} "
+          f"ms (plain {attn['fusion_plain_ms']:.3f} ms)")
     print(f"[card] {smi}")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -26,8 +26,8 @@ CSRC = os.path.join(_PKG, "csrc")
 BUILD_ROOT = os.path.join(_PKG, "_build")
 # --fmad=false: no multiply-add contraction, so each product rounds as in
 # the plain PyTorch versions and kernel 2 agrees with its plain version bit
-# for bit (kernels 1 and 2 are bound by bytes; kernel 3, bound by
-# operations, writes its multiply-adds as explicit FMAs)
+# for bit (kernels 1 and 2 are bound by bytes; kernels 3 and 4, bound by
+# operations, write their multiply-adds as explicit FMAs)
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "--fmad=false", "-Xcompiler", "-fPIC",
@@ -52,6 +52,8 @@ _SIGNATURES = {
     # batch, vc, ocap, z, zo, cin, cout, strided, eps, stream
     "heal_column_conv_f32": [P, P, P, P, P, P, P, P, P,
                              I, I, I, I, I, I, I, I, F, P],
+    # qkv, table, out, n, h, w, heads, window, dh, scale, stream
+    "heal_window_attention_f32": [P, P, P, I, I, I, I, I, I, F, P],
 }
 
 _lock = threading.Lock()

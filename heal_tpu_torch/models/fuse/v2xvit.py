@@ -32,6 +32,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from ... import trace
+from ...ops import window_attention as wa
 from ...ops.warp import warp_agents_to_ego
 from ..layers import (Dense, Dropout, LayerNorm, MultiHeadDotProductAttention,
                       gelu)
@@ -124,48 +125,71 @@ class HMSA(nn.Module):
         return self.Dropout_0(out)
 
 
-def window_rel_index(ws: int) -> np.ndarray:
-    """(ws^2, ws^2) index of the (dy, dx) offset between two window
-    tokens into the (2 ws - 1)^2 table."""
-    coords = np.stack(np.meshgrid(np.arange(ws), np.arange(ws),
-                                  indexing="ij"), -1).reshape(-1, 2)
-    rel = coords[None, :, :] - coords[:, None, :] + ws - 1
-    return rel[..., 0] * (2 * ws - 1) + rel[..., 1]
-
-
 class WindowAttention(nn.Module):
     """Non-overlapping window self-attention with a relative-position
     bias (ref mswin.py BaseWindowAttention): ``heads`` heads of
     ``dim_head`` (default dim / heads) over ``window`` x ``window``
-    tokens, projected back to ``dim``."""
+    tokens, projected back to ``dim``.
+
+    The q, k and v projections run as one product into a (N, H, W, 3,
+    heads, dim_head) buffer (the three kernels joined at call time, so
+    the parameters keep flax's layout), the out projection as its own
+    module over the tokens. On the card an f32 forward that
+    no gradient needs runs the attention as one launch of kernel 4
+    (``ops/window_attention.window_attention``, which raises at window
+    sizes and head widths it is not built for); everywhere else (the
+    CPU, training, bf16) it runs the kernel's plain version, which reads
+    the offsets through ``rel_idx``."""
 
     def __init__(self, dim: int, window: int, heads: int = 8,
                  dropout: float = 0.0, dim_head: int | None = None):
         super().__init__()
         dim_head = dim // heads if dim_head is None else dim_head
-        self.window, self.heads = window, heads
+        self.window, self.heads, self.dim_head = window, heads, dim_head
         self.rel_pos_bias = nn.Parameter(torch.empty((2 * window - 1) ** 2,
                                                      heads))
         self.flax_init = {"rel_pos_bias": ("normal", 0.02)}
-        self.register_buffer("rel_idx", torch.from_numpy(
-            window_rel_index(window).reshape(-1)), persistent=False)
+        self.register_buffer("rel_idx", wa.window_rel_index(window).reshape(
+            -1), persistent=False)
         self.MultiHeadDotProductAttention_0 = MultiHeadDotProductAttention(
             dim, heads, heads * dim_head)
         self.Dropout_0 = Dropout(dropout)
 
+    def _fused(self, x) -> bool:
+        """Whether this call takes kernel 4."""
+        params = (self.rel_pos_bias,
+                  *self.MultiHeadDotProductAttention_0.parameters())
+        return (x.is_cuda and x.dtype == torch.float32
+                and all(p.dtype == torch.float32 for p in params)
+                and not (torch.is_grad_enabled() and any(
+                    t.requires_grad for t in (x,) + params)))
+
+    def _qkv(self, x):
+        """(N, H, W, C) -> (N, H, W, 3, heads, dh): the q, k and v
+        projections in one product (each its own under a model axis,
+        where each gathers its slice)."""
+        mha = self.MultiHeadDotProductAttention_0
+        parts = (mha.query, mha.key, mha.value)
+        if any(p.tp is not None for p in parts):
+            return torch.stack([p(x) for p in parts], -3)
+        c, m, dh = mha.query.kernel.shape
+        kernel = torch.cat([p.kernel.reshape(c, m * dh) for p in parts], 1)
+        bias = torch.cat([p.bias.reshape(m * dh) for p in parts])
+        y = torch.addmm(bias, x.reshape(-1, c), kernel)
+        return y.reshape(*x.shape[:-1], 3, m, dh)
+
     def forward(self, x):
         # x (N, H, W, C), H and W multiples of the window (caller pads)
-        n, h, w, c = x.shape
-        ws = self.window
-        x = x.reshape(n, h // ws, ws, w // ws, ws, c)
-        x = x.permute(0, 1, 3, 2, 4, 5).reshape(-1, ws * ws, c)
-        t = ws * ws
-        bias = self.rel_pos_bias[self.rel_idx].reshape(t, t, self.heads)
-        bias = bias.permute(2, 0, 1)[None].to(x.dtype)
-        attn = self.Dropout_0(self.MultiHeadDotProductAttention_0(
-            x, bias=bias))
-        attn = attn.reshape(n, h // ws, w // ws, ws, ws, c)
-        return attn.permute(0, 1, 3, 2, 4, 5).reshape(n, h, w, c)
+        m, dh = self.heads, self.dim_head
+        qkv = self._qkv(x)
+        if self._fused(x):
+            o = wa.window_attention(qkv, self.rel_pos_bias, self.window, m,
+                                    dh)
+        else:
+            o = wa.window_attention_plain(qkv, self.rel_pos_bias,
+                                          self.window, m, dh, self.rel_idx)
+        return self.Dropout_0(self.MultiHeadDotProductAttention_0.out(
+            o.unflatten(-1, (m, dh))))
 
 
 class SplitAttn(nn.Module):
@@ -217,7 +241,8 @@ class MSwin(nn.Module):
         n, h, w, c = x.shape
         outs = []
         for ws in self.windows:
-            xp = F.pad(x, (0, 0, 0, (-w) % ws, 0, (-h) % ws))
+            ph, pw = (-h) % ws, (-w) % ws
+            xp = F.pad(x, (0, 0, 0, pw, 0, ph)) if ph or pw else x
             outs.append(getattr(self, f"win{ws}")(xp)[:, :h, :w])
         return self.split_attn(outs)
 

@@ -709,7 +709,8 @@ def init_weights(model: nn.Module, generator: torch.Generator) -> nn.Module:
     A module's ``flax_init`` (leaf -> rule of :func:`_init_rule`) takes
     precedence: the attention projections, typed denses, relation
     matrices and relative-position tables of the fusion zoo, and
-    CenterPoint's heatmap bias."""
+    CenterPoint's heatmap bias. Buffers other than the running
+    statistics are left as the modules built them."""
     with torch.no_grad():
         for mname, module in model.named_modules():
             rules = getattr(module, "flax_init", {})
@@ -737,7 +738,12 @@ def init_weights(model: nn.Module, generator: torch.Generator) -> nn.Module:
                     p.fill_(1e-6)
                 else:
                     p.zero_()
+        # the running statistics; other buffers (the window attentions'
+        # offset indices) are structure, not weights
         for name, buf in model.named_buffers():
             leaf = name.rsplit(".", 1)[-1]
-            buf.fill_(1.0 if leaf in ("var", "bn_var") else 0.0)
+            if leaf in ("var", "bn_var"):
+                buf.fill_(1.0)
+            elif leaf in ("mean", "bn_mean"):
+                buf.zero_()
     return model

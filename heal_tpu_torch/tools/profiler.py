@@ -47,19 +47,24 @@ def count_params(model: torch.nn.Module) -> int:
 
 @contextlib.contextmanager
 def kernels_apart(ops: dict):
-    """Run kernels 1, 2 and 3 outside any dispatch mode (a FlopCounterMode
-    then sees none of their work, on the card or in their plain versions
-    on the CPU), adding each call's operations to ``ops`` under
-    ``pillar_tables`` / ``shift_rows`` / ``column_conv`` (kernel 3: the
-    conv's products at every output voxel, as its plain version
-    multiplies)."""
+    """Run kernels 1, 2, 3 and 4 outside any dispatch mode (a
+    FlopCounterMode then sees none of their work, on the card or in their
+    plain versions on the CPU), adding each call's operations to ``ops``
+    under ``pillar_tables`` / ``shift_rows`` / ``column_conv`` /
+    ``window_attention`` (kernel 3: the conv's products at every output
+    voxel, as its plain version multiplies; kernel 4: the q k^T and P V
+    products, as its plain version's two batched products. Off the card
+    V2X-ViT calls kernel 4's plain version itself, and the counter counts
+    that)."""
     from torch.utils._python_dispatch import _disable_current_modes
 
     from ..kernels.cases import pillar_work
-    from ..ops import column_conv, pillar, shift_rows
+    from ..ops import column_conv, pillar, shift_rows, window_attention
 
     saved = (pillar.pillar_tables, shift_rows._shift,
-             column_conv.column_conv_layer, column_conv.column_conv_layer_plain)
+             column_conv.column_conv_layer,
+             column_conv.column_conv_layer_plain,
+             window_attention.window_attention)
 
     def tables(*args, **kw):
         with _disable_current_modes():
@@ -87,15 +92,24 @@ def kernels_apart(ops: dict):
                           **kw)
         return call
 
+    def attention(qkv, table, window, heads, dh):
+        with _disable_current_modes():
+            n, h, w = qkv.shape[:3]
+            ops["window_attention"] += (4 * n * h * w * window * window
+                                        * heads * dh)
+            return saved[4](qkv, table, window, heads, dh)
+
     (pillar.pillar_tables, shift_rows._shift, column_conv.column_conv_layer,
-     column_conv.column_conv_layer_plain) = (
-        tables, shift, conv(saved[2]), conv(saved[3]))
+     column_conv.column_conv_layer_plain,
+     window_attention.window_attention) = (
+        tables, shift, conv(saved[2]), conv(saved[3]), attention)
     try:
         yield ops
     finally:
         (pillar.pillar_tables, shift_rows._shift,
          column_conv.column_conv_layer,
-         column_conv.column_conv_layer_plain) = saved
+         column_conv.column_conv_layer_plain,
+         window_attention.window_attention) = saved
 
 
 def forward(model, inputs):
@@ -108,11 +122,12 @@ def forward(model, inputs):
 
 def flop_count(model, inputs) -> dict:
     """The counter's FLOPs of one eval forward (``counter_flops``, and by
-    ATen op), with kernels 1, 2 and 3's operations apart
+    ATen op), with kernels 1, 2, 3 and 4's operations apart
     (``kernel_ops``)."""
     from torch.utils.flop_counter import FlopCounterMode
 
-    ops = {"pillar_tables": 0, "shift_rows": 0, "column_conv": 0}
+    ops = {"pillar_tables": 0, "shift_rows": 0, "column_conv": 0,
+           "window_attention": 0}
     with torch.inference_mode(), kernels_apart(ops), \
             FlopCounterMode(display=False) as counter:
         forward(model, inputs)

@@ -36,9 +36,10 @@ counts belong to the thread that serves or trains.
 Counters the port keeps (each named where it counts):
 
   * ``kernel1.launches``, ``kernel2.launches``,
-    ``kernel2.backward_launches``, ``kernel3.launches``: launches of the
-    hand-written kernels (ops/pillar.py, ops/shift_rows.py,
-    ops/column_conv.py);
+    ``kernel2.backward_launches``, ``kernel3.launches``,
+    ``kernel4.launches``: launches of the hand-written kernels
+    (ops/pillar.py, ops/shift_rows.py, ops/column_conv.py,
+    ops/window_attention.py);
   * ``host_sync.<site>``: each place where the host waits for the
     device on a CUDA device (counted on every device): ``h2d``, a
     pageable host->device copy (the frame's inputs, the camera's

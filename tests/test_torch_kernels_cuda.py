@@ -2,7 +2,9 @@
 the card: kernel 1 on the edge cases the CPU tests share
 (tests/torch_pillar_cases.py), one kernel and no host sync a call; kernel
 2 in both directions; the gradient repairs; kernel 3 (one SECOND conv
-layer) at each published width and the SECOND encoder. Marked
+layer) at each published width and the SECOND encoder; kernel 4 (V2X-ViT's
+window attention) at every window and head width it is built for and in
+the published fusion. Marked
 ``cuda``: they skip where torch sees no GPU (a CUDA
 kernel has no CPU or interpret mode). On a machine with one card:
 
@@ -21,6 +23,7 @@ from heal_tpu_torch import trace
 from heal_tpu_torch.kernels.measure import device_kernels
 from heal_tpu_torch.ops import pillar, shift_rows
 from heal_tpu_torch.ops.warp import warp_agents_to_ego
+from heal_tpu_torch.ops.window_attention import KERNEL4_SHAPES
 from torch_pillar_cases import CASES, make_case
 
 pytestmark = pytest.mark.cuda
@@ -496,7 +499,7 @@ def test_legacy_frames_launch_exactly_their_kernels(dev, core, args,
     """The multiscale baseline (kernel 1 once, kernel 2 5 times at each of
     its two levels), DiscoNet's student (one warp) and the intermediate
     VoxelNet and PIXOR (one warp, no pillar encoder), two frames f32 and
-    bf16 each; heads finite."""
+    bf16 each, none of them kernel 4; heads finite."""
     from heal_tpu_torch.tools.inference import (build_weights, device_frames,
                                                 run_inference)
 
@@ -504,6 +507,7 @@ def test_legacy_frames_launch_exactly_their_kernels(dev, core, args,
     model = build_weights(cfg, seed=0).to(dev)
     frames = device_frames(cfg, dev, 2)
     k1, k2 = _launches("kernel1.launches"), _launches("kernel2.launches")
+    k4 = _launches("kernel4.launches")
     for dtype in (torch.float32, torch.bfloat16):
         got = run_inference(cfg=cfg, device=dev, dtype=dtype,
                             model=model.to(dtype), frames=frames,
@@ -512,6 +516,7 @@ def test_legacy_frames_launch_exactly_their_kernels(dev, core, args,
                    for t in h.values())
     assert _launches("kernel1.launches") - k1 == 4 * launches[0]
     assert _launches("kernel2.launches") - k2 == 4 * launches[1]
+    assert _launches("kernel4.launches") == k4
 
 
 def test_kd_step_launches_the_teacher_once(dev, tmp_path):
@@ -646,7 +651,7 @@ def test_transplanted_flagship_launches_1_and_15(dev):
     """The flagship (heal_tpu/configs/opv2v_m1_pyramid.yaml) with a seeded
     synthetic opencood checkpoint transplanted in (utils/transplant.py),
     loaded strictly, one frame f32 and bf16: kernel 1 once and kernel 2
-    15 times a frame; heads finite."""
+    15 times a frame, kernel 4 never; heads finite."""
     import os
 
     from heal_tpu_torch.tools.inference import (build_weights, device_frames,
@@ -667,6 +672,7 @@ def test_transplanted_flagship_launches_1_and_15(dev):
     model = model.to(dev)
     frames = device_frames(cfg, dev, 1)
     k1, k2 = _launches("kernel1.launches"), _launches("kernel2.launches")
+    k4 = _launches("kernel4.launches")
     for dtype in (torch.float32, torch.bfloat16):
         got = run_inference(cfg=cfg, device=dev, dtype=dtype,
                             model=model.to(dtype), frames=frames,
@@ -675,6 +681,7 @@ def test_transplanted_flagship_launches_1_and_15(dev):
                    for t in h.values())
     assert _launches("kernel1.launches") - k1 == 2
     assert _launches("kernel2.launches") - k2 == 30
+    assert _launches("kernel4.launches") == k4
 
 
 # ----------------------------------------------------------- kernel 3
@@ -907,3 +914,119 @@ def test_second_encoder_on_the_card_matches_the_cpu(dev):
     enc(*xd).sum().backward()
     assert _launches("kernel3.launches") == before
     assert enc.VmapSecondStack_0.conv_input.kernel.grad.abs().sum() > 0
+
+
+# ----------------------------------------------------------- kernel 4
+# every (window, head width) kernel 4 is built for: the published block's
+# branches at the v2xvit.serve cell's map (5 slots of 128 x 256, heads x
+# head width 256), the others at a (2, 32, 64) map with 8 heads; each
+# also on one slot of one window row with 5 heads, so that the last block
+# holds fewer (window, head) units than it takes
+K4_CELL = {(4, 16): 16, (8, 32): 8, (16, 64): 4}
+K4_PAIRS = sorted(KERNEL4_SHAPES)
+
+
+def _k4_inputs(dev, n, h, w, heads, ws, dh, seed):
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    qkv = torch.randn((n, h, w, 3, heads, dh), generator=gen, device=dev)
+    table = torch.randn(((2 * ws - 1) ** 2, heads), generator=gen,
+                        device=dev)
+    return qkv, table
+
+
+@pytest.mark.parametrize("shape", ["main", "ragged"])
+@pytest.mark.parametrize("ws,dh", K4_PAIRS,
+                         ids=[f"w{ws}_dh{dh}" for ws, dh in K4_PAIRS])
+def test_window_attention_kernel_matches_plain(dev, ws, dh, shape):
+    """One launch of kernel 4 a call, the plain version's values (f32,
+    within 1e-5 of 1 + the largest output: the same sums in another order
+    and the softmax normalised once at the end), and the same bits from
+    two calls."""
+    from heal_tpu_torch.ops import window_attention as wa
+
+    if shape == "ragged":
+        n, h, w, heads = 1, ws, 3 * ws, 5
+    elif (ws, dh) in K4_CELL:
+        n, h, w, heads = 5, 128, 256, K4_CELL[ws, dh]
+    else:
+        n, h, w, heads = 2, 32, 64, 8
+    qkv, table = _k4_inputs(dev, n, h, w, heads, ws, dh, ws + dh)
+    with torch.inference_mode():
+        before = _launches("kernel4.launches")
+        got = wa.window_attention(qkv, table, ws, heads, dh)
+        assert _launches("kernel4.launches") == before + 1
+        again = wa.window_attention(qkv, table, ws, heads, dh)
+        want = wa.window_attention_plain(qkv, table, ws, heads, dh)
+    torch.cuda.synchronize()
+    assert got.shape == want.shape == (n, h, w, heads * dh)
+    _close(got, want, torch.float32)
+    assert torch.equal(got, again)
+
+
+def test_window_attention_refuses_unbuilt_shapes_dtypes_and_grad(dev):
+    """Another window or head width, bf16, a map that is not whole
+    windows, or a gradient: the wrapper raises and launches nothing."""
+    from heal_tpu_torch.ops import window_attention as wa
+
+    qkv, table = _k4_inputs(dev, 1, 24, 24, 4, 6, 16, 0)
+    before = _launches("kernel4.launches")
+    with torch.no_grad():
+        with pytest.raises(ValueError, match="no kernel"):
+            wa.window_attention(qkv, table, 6, 4, 16)
+        qkv, table = _k4_inputs(dev, 1, 32, 32, 4, 16, 32, 0)
+        with pytest.raises(ValueError, match="no kernel"):
+            wa.window_attention(qkv, table, 16, 4, 32)
+        qkv, table = _k4_inputs(dev, 1, 24, 24, 4, 4, 24, 0)
+        with pytest.raises(ValueError, match="no kernel"):
+            wa.window_attention(qkv, table, 4, 4, 24)
+        qkv, table = _k4_inputs(dev, 1, 20, 24, 4, 8, 16, 0)
+        with pytest.raises(ValueError, match="does not divide"):
+            wa.window_attention(qkv, table, 8, 4, 16)
+        qkv, table = _k4_inputs(dev, 1, 16, 16, 4, 4, 16, 0)
+        with pytest.raises(ValueError, match="float32"):
+            wa.window_attention(qkv.to(torch.bfloat16), table, 4, 4, 16)
+    with pytest.raises(RuntimeError, match="no backward"):
+        wa.window_attention(qkv, table.requires_grad_(), 4, 4, 16)
+    assert _launches("kernel4.launches") == before
+
+
+def test_published_v2xvit_launches_kernel_4_nine_times(dev):
+    """V2X-ViT's published fusion block (benchmark/configs/v2xvit.json: 3
+    layers, windows 4 / 8 / 16) at C 256, seeded weights, one f32 eval
+    forward on the card: kernel 4 once an MSwin branch of each layer (9),
+    the output within 1e-4 of the same module's on the CPU (the plain
+    version; the maps are not whole 16-windows, so MSwin pads); in
+    training and in bf16 no launch. A flagship frame launches none
+    (test_transplanted_flagship_launches_1_and_15)."""
+    import json
+    import os
+
+    from heal_tpu_torch.models.fuse import build_fusion
+    from heal_tpu_torch.models.layers import init_weights, rng_streams
+
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    with open(os.path.join(repo, "benchmark", "configs", "v2xvit.json")) as f:
+        args = json.load(f)["hypes"]["model"]["args"]["v2xvit"]
+    fusion = init_weights(build_fusion("v2xvit", args, 256, 3),
+                          torch.Generator().manual_seed(0)).eval()
+    gen = torch.Generator().manual_seed(1)
+    x = torch.randn((1, 3, 24, 40, 256), generator=gen)
+    aff = torch.eye(2, 3).expand(1, 3, 3, 2, 3).contiguous()
+    mask = torch.tensor([[True, True, False]])
+    types = torch.tensor([[0, 1, 0]])
+    with torch.no_grad():
+        want = fusion(x, aff, mask, types)
+    fusion = fusion.to(dev)
+    xd = (x.to(dev), aff.to(dev), mask.to(dev), types.to(dev))
+    before = _launches("kernel4.launches")
+    with torch.inference_mode():
+        got = fusion(*xd)
+    assert _launches("kernel4.launches") == before + 9
+    err = (got.cpu() - want).abs().max() / (1 + want.abs().max())
+    assert err <= 1e-4, err
+    before = _launches("kernel4.launches")
+    with rng_streams(fusion, dropout=torch.Generator(dev).manual_seed(0)):
+        fusion.train()(*xd).sum().backward()
+    with torch.inference_mode():
+        fusion.eval().to(torch.bfloat16)(xd[0].to(torch.bfloat16), *xd[1:])
+    assert _launches("kernel4.launches") == before

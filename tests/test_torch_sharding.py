@@ -48,7 +48,7 @@ from heal_tpu.models import build_model as build_jax_model
 from heal_tpu.parallel import Trainer as JaxTrainer
 from heal_tpu.parallel import sharding as jshard
 from heal_tpu.parallel.schedulers import build_optimizer as jax_optimizer
-from heal_tpu_torch.config import save_yaml
+from heal_tpu_torch.config import load_yaml, reparse, save_yaml
 from heal_tpu_torch.models import build_model
 from heal_tpu_torch.parallel import launch, to_device
 from heal_tpu_torch.parallel import sharding as shlib
@@ -518,6 +518,58 @@ def test_eight_rank_step_is_jaxs_sharded_step(world8, setup, variant):
     assert got_g.keys() == want_g.keys()
     d = max(float(np.abs(got_g[k] - want_g[k]).max()) for k in want_g)
     assert d <= (4e-3 if variant == "none_f32" else 0.4), d
+
+
+def _v2xvit_cfg() -> dict:
+    """tests/configs/tiny_late.yaml as intermediate fusion through
+    V2X-ViT's flat form at C = 32: each MSwin branch 8 heads of 4, a head
+    width that a model axis of 2 splits."""
+    cfg = load_yaml(os.path.join(REPO, "tests", "configs", "tiny_late.yaml"))
+    cfg["fusion"]["core_method"] = "intermediate"
+    cfg["model"]["core_method"] = "point_pillar_baseline"
+    a = cfg["model"]["args"]
+    a["pillar_vfe"]["num_filters"] = [16]
+    a["base_bev_backbone"].update(num_filters=[16, 32],
+                                  num_upsample_filter=[16, 16])
+    a["shrink_header"].update(dim=[32], input_dim=32)
+    a.update(fusion_method="v2xvit", v2xvit={"depth": 1})
+    return reparse(cfg)
+
+
+def test_v2xvit_model_axis_step_is_one_process(tmp_path):
+    """Under a model axis of 2 the q, k, v and out projections of every
+    MSwin window attention keep their half of the head width (q, k, v) or
+    of the output channels (out) and gather their outputs, and the f64
+    step over two ranks is the one process's: loss within 1e-9 of it,
+    every gradient within 1e-7 of max |g|. LayerNorm takes its statistics
+    in f32 whatever the dtype (models/layers.layer_norm), so the sharded
+    step's reassociated sums show at f32's rounding there (measured
+    3.2e-8)."""
+    from heal_tpu_torch.models.fuse.v2xvit import WindowAttention
+
+    cfg = _v2xvit_cfg()
+    model = build_trainer(cfg, "cpu", 4).model
+    path = str(tmp_path / "v2xvit.pth")
+    torch.save(model.state_dict(), path)
+    mesh = shlib.Mesh(dict(data=1, agent=1, model=2),
+                      dict(data=0, agent=0, model=1))
+    shlib.shard_state(model, mesh)
+    windows = [m for m in model.modules() if isinstance(m, WindowAttention)]
+    assert len(windows) == 3
+    for w in windows:
+        mha = w.MultiHeadDotProductAttention_0
+        assert all(p.tp is mesh for p in (mha.query, mha.key, mha.value,
+                                          mha.out))
+        assert mha.query.kernel.shape[-1] == w.dim_head // 2 == 2
+    batch = dry.global_batch(cfg, 2)
+    single = dry.one_process(cfg, path, batch, dtype="float64")
+    (sharded,) = dry.sharded_results(
+        [dict(cfg=cfg, state=path, batch=batch, dims=(1, 1, 2),
+              dtype="float64")], 2, "cpu", TIMEOUT_S)
+    d_loss, d_grads = dry.equivalence_deltas(sharded, single)
+    loss = single["aux"]["total_loss"]
+    assert d_loss <= 1e-9 * loss, (d_loss, loss)
+    assert d_grads <= 1e-7 * dry.grad_scale(single), d_grads
 
 
 # ----------------------------------------------------- the other items
