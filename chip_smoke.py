@@ -329,9 +329,11 @@ import torch
 # the port comes from this checkout: the script fails here, before it
 # prints anything, when it stands alone
 from heal_tpu_torch.kernels.cases import (branch_frame_inputs, dense_inputs,
-                                          frame_inputs, pillar_work)
+                                          frame_inputs)
 from heal_tpu_torch.kernels.measure import (bound, device_busy, device_kernels,
                                            device_ms)
+from heal_tpu_torch.ops import KERNELS as OP_KERNELS
+from heal_tpu_torch.ops.pillar import pillar_work
 
 SEED = 0
 FRAMES = 8
@@ -379,18 +381,17 @@ PROTOCOL_SCENES = {"stage1": (4, 4), "stage2": (8, 4), "stage2_m2": (8, 4),
 STAGE1_BATCH = 2  # published 4: two f32 steps are enough for a base
 STAGE1_STEPS = 2
 STAGE2_STEPS = 4  # timed stage-2 steps after a warm one
-# launches of each kernel a served alliance frame: kernel 1 once per
-# PointPillars branch (m1, m4); kernel 2 in weighted_fuse (3 levels x 5);
-# the SECOND (m3) and camera (m2) branches launch neither
 # the kernels as the launch counts name them; the launch tables below
-# index the first three (kernel 1, kernel 2, kernel 3): kernel 4 launches
-# only in V2X-ViT's f32 eval forwards, k4_per_forward a forward
-KERNELS = ("pillar_tables", "shift_rows", "column_conv", "window_attention")
+# index the first three: kernel 4 launches only in V2X-ViT's f32 eval
+# forwards, k4_per_forward a forward
+KERNELS = tuple(k.name for k in OP_KERNELS)
 # kernel-3 launches an f32 eval forward of a SECOND encoder at the
 # published widths on the card: one a conv layer (conv_input, three
 # strided, six submanifold). bf16 and training take its plain version
 M3_LAUNCHES = 10
-# a served alliance frame; kernel 3 in its f32 frames only
+# a served alliance frame: kernel 1 once per PointPillars branch (m1,
+# m4), kernel 2 in weighted_fuse (3 levels x 5), kernel 3 (m3) in its f32
+# frames only
 ALLIANCE_LAUNCHES = {"pillar_tables": 2, "shift_rows": 15,
                      "column_conv": M3_LAUNCHES, "window_attention": 0}
 # the SECOND encoder on the card vs on the CPU, one frame: f32 features
@@ -636,28 +637,12 @@ def rel_err(a: torch.Tensor, b: torch.Tensor) -> tuple[float, float]:
 @contextlib.contextmanager
 def plain_kernels():
     """Route the model through the kernels' plain PyTorch versions (for the
-    reference run only): kernel 1's, kernel 3's and kernel 4's wrappers
-    are swapped at module level, and kernel 2's one-direction launcher,
-    which its autograd function calls forward with s and backward with
-    -s."""
-    from heal_tpu_torch.ops import (column_conv, pillar, shift_rows,
-                                    window_attention)
+    reference run only): each kernel's launching function (ops.KERNELS)
+    is swapped for its plain version at module level."""
+    from heal_tpu_torch.ops import launches_replaced
 
-    saved = (pillar.pillar_tables, shift_rows._shift,
-             column_conv.column_conv_layer, window_attention.window_attention)
-    pillar.pillar_tables = pillar.pillar_tables_plain
-    shift_rows._shift = lambda x, s, m, axis, backward=False: (
-        shift_rows.shift_rows_plain if axis == 0
-        else shift_rows.shift_cols_plain)(x, s, m)
-    column_conv.column_conv_layer = column_conv.column_conv_layer_plain
-    window_attention.window_attention = (
-        window_attention.window_attention_plain)
-    try:
+    with launches_replaced(lambda k: getattr(k.module, k.plain)):
         yield
-    finally:
-        (pillar.pillar_tables, shift_rows._shift,
-         column_conv.column_conv_layer,
-         window_attention.window_attention) = saved
 
 
 def phase_card() -> str:
@@ -852,11 +837,10 @@ def pillar_case(name, args, dt) -> dict:
 _TRACE = """
 import json, sys, torch
 from heal_tpu_torch.kernels.measure import device_kernels
-from heal_tpu_torch.ops import column_conv, pillar, window_attention
+from heal_tpu_torch.ops import KERNELS
 calls = torch.load(sys.argv[1], weights_only=False)
-fn = {"pillar_tables": pillar.pillar_tables,
-      "column_conv": column_conv.column_conv_layer,
-      "window_attention": window_attention.window_attention}[sys.argv[2]]
+k = next(k for k in KERNELS if k.name == sys.argv[2])
+fn = getattr(k.module, k.launch)
 def run():
     with torch.inference_mode():
         for args, kwargs in calls:
@@ -866,11 +850,9 @@ print(json.dumps(device_kernels(run)))
 
 
 def trace_in_fresh_process(calls, kernel: str = "pillar_tables") -> list:
-    """``device_kernels`` of ``calls`` [(args, kwargs)] of the wrapper of
-    ``kernel`` (``pillar_tables``, ``column_conv`` or
-    ``window_attention``), saved to a
-    temporary file, in a new Python process with its own CUPTI
-    session."""
+    """``device_kernels`` of ``calls`` [(args, kwargs)] of the launching
+    function of ``kernel`` (a name of ops.KERNELS), saved to a temporary
+    file, in a new Python process with its own CUPTI session."""
     root = os.path.dirname(os.path.abspath(__file__))
     with tempfile.TemporaryDirectory() as tmp:
         path = os.path.join(tmp, "calls.pt")
@@ -1194,12 +1176,8 @@ def phase_column_conv(final_cfg) -> dict:
             raise AssertionError(f"{counts} in one m3 forward, want "
                                  f"{len(layers)} kernel-3 launches")
         enc_ms = device_ms(forward, iters=5)
-        saved = cc.column_conv_layer
-        cc.column_conv_layer = cc.column_conv_layer_plain
-        try:
+        with plain_kernels():
             enc_plain_ms = device_ms(forward, iters=5)
-        finally:
-            cc.column_conv_layer = saved
         # the occupied output voxels' products, layer by layer
         with torch.inference_mode():
             flops = sum(2 * 27 * a[2].shape[1] * a[2].shape[2] * int(
@@ -1303,9 +1281,8 @@ def window_attention_case(window, heads, dh) -> dict:
         library_ms = device_ms(
             lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=mask),
             iters=5)
-    tokens = n * h * w
-    flops = 4 * tokens * t * heads * dh
-    nbytes = 4 * (4 * tokens * heads * dh + table.numel())
+    flops = wa.window_attention_ops(*args)
+    nbytes = 4 * (4 * n * h * w * heads * dh + table.numel())
     b_ms, b_by = bound(nbytes, flops)
     print(f"[kernel] window_attention window {window}, {heads} x {dh} heads,"
           f" qkv {tuple(qkv.shape)}: max_abs_err {d:.3e} (rel {r:.3e}, tol "

@@ -14,10 +14,12 @@ same module names (``utils/common_np.py`` and ``utils/rotated_iou_np.py``
 hold the numpy halves of ``heal_tpu.utils.common`` and
 ``rotated_iou``); tests hold its batches equal to ``heal_tpu``'s. Its
 C++ host loader (``native/``: anchor IoU, PCD reads) is built with g++
-at first use. The two TPU (Pallas) kernels of the path are hand-written
-CUDA C++ for sm_90a under ``csrc/``, built at first use by
-``kernels/build.py``; kernel 2 also runs its own backward. Each wrapper
-keeps a plain PyTorch version beside it, which serves CPU tensors.
+at first use. Four kernels are hand-written CUDA C++ for sm_90a under
+``csrc/``, built at first use by ``kernels/build.py``: the two TPU
+(Pallas) kernels of the path (kernel 2 also runs its own backward), a
+SECOND conv layer and V2X-ViT's window attention. Each sits behind one op
+of ``ops/`` (listed in ``ops.KERNELS``), which alone chooses between the
+kernel and the plain PyTorch version beside it.
 
 This package imports torch and numpy, and nothing of jax, flax or
 ``heal_tpu``.

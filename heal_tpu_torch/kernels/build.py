@@ -9,7 +9,11 @@ runs at first use, from the sources in this checkout only, into
 cached library. Nothing here runs at import time.
 
 Each C entry point launches on the stream it is given and returns
-``cudaGetLastError()``; :func:`check` raises on a non-zero code.
+``cudaGetLastError()``. Every op of ``heal_tpu_torch/ops`` that launches a
+kernel keeps one contract: :func:`expect` checks the tensors' shapes,
+dtypes, contiguity, device and alignment, and :func:`launch` calls the
+entry point on the current stream, raises on its error code and counts
+the launch for the tracer.
 """
 from __future__ import annotations
 
@@ -20,6 +24,10 @@ import shutil
 import subprocess
 import threading
 from concurrent.futures import ThreadPoolExecutor
+
+import torch
+
+from .. import trace
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
@@ -55,6 +63,8 @@ _SIGNATURES = {
     # qkv, table, out, n, h, w, heads, window, dh, scale, stream
     "heal_window_attention_f32": [P, P, P, I, I, I, I, I, I, F, P],
 }
+
+_SUFFIX = {torch.float32: "f32", torch.bfloat16: "bf16"}
 
 _lock = threading.Lock()
 _lib = None
@@ -100,7 +110,10 @@ def _nvcc_run(cmd: list[str]) -> str:
     return log
 
 
-def _build(sources: list[str], out_dir: str) -> str:
+def _build() -> str:
+    """The built library of this checkout's sources, built if absent."""
+    sources = _sources()
+    out_dir = os.path.join(BUILD_ROOT, _digest(sources))
     lib_path = os.path.join(out_dir, "libheal_kernels.so")
     if os.path.exists(lib_path):
         return lib_path
@@ -129,46 +142,70 @@ def _build(sources: list[str], out_dir: str) -> str:
     return lib_path
 
 
-def bind(path: str, names=tuple(_SIGNATURES),
-         signatures: dict = _SIGNATURES) -> ctypes.CDLL:
-    """Load a built library and set the C signature of its entry points
-    ``names`` (a library built from some of the sources has only theirs;
-    one built from another version of a source may need ``signatures`` of
-    its own)."""
-    lib = ctypes.CDLL(path)
-    for name in names:
-        fn = getattr(lib, name)
-        fn.argtypes = signatures[name]
-        fn.restype = ctypes.c_int
-    return lib
-
-
 def library() -> ctypes.CDLL:
-    """The loaded kernel library; builds it on first use."""
+    """The loaded kernel library, every entry point's C signature set;
+    builds it on first use."""
     global _lib
     with _lock:
         if _lib is None:
-            sources = _sources()
-            _lib = bind(_build(sources,
-                               os.path.join(BUILD_ROOT, _digest(sources))))
+            lib = ctypes.CDLL(_build())
+            for name, argtypes in _SIGNATURES.items():
+                fn = getattr(lib, name)
+                fn.argtypes = argtypes
+                fn.restype = ctypes.c_int
+            _lib = lib
     return _lib
 
 
 def build_log() -> str:
     """nvcc's output of the cached build (registers, spills per kernel)."""
-    sources = _sources()
-    path = os.path.join(BUILD_ROOT, _digest(sources), "nvcc.log")
+    path = os.path.join(BUILD_ROOT, _digest(_sources()), "nvcc.log")
     with open(path) as f:
         return f.read()
 
 
-def check(code: int, what: str) -> None:
-    """Raise if a C entry point reported a CUDA error."""
+def takes_kernel(*tensors: torch.Tensor) -> bool:
+    """Whether an f32, eval-only kernel (3 or 4) takes a call with these
+    float arguments: all on the card, all f32, and no gradient wanted
+    through any. Its op takes the plain version otherwise."""
+    return (all(t.is_cuda and t.dtype == torch.float32 for t in tensors)
+            and not (torch.is_grad_enabled()
+                     and any(t.requires_grad for t in tensors)))
+
+
+def expect(what: str, specs, aligned=()) -> None:
+    """The launch contract's checks: each (tensor, shape, dtype) of
+    ``specs`` has that shape and dtype, is contiguous and sits on the
+    first one's device, and each tensor of ``aligned`` starts on a 16-byte
+    boundary (the kernel reads it in 16-byte vectors). Raises ValueError,
+    the message led by ``what``."""
+    device = specs[0][0].device
+    for t, shape, dtype in specs:
+        if tuple(t.shape) != tuple(shape) or t.dtype != dtype:
+            raise ValueError(f"{what}: expected {tuple(shape)} {dtype}, "
+                             f"got {tuple(t.shape)} {t.dtype}")
+        if not t.is_contiguous() or t.device != device:
+            raise ValueError(f"{what}: inputs must be contiguous, one "
+                             "device")
+    if any(t.data_ptr() % 16 for t in aligned):
+        raise ValueError(f"{what}: inputs must be 16-byte aligned")
+
+
+def launch(what: str, kernel: str, counter: str, out: torch.Tensor,
+           *args) -> None:
+    """Launch entry point ``heal_<kernel>_<f32|bf16>`` for ``out``'s dtype
+    (TypeError where none is built) with ``args`` (a tensor passes its
+    data pointer, None a null one) on the current stream of ``out``'s
+    device, raise on the error code it returns, and count the launch
+    under ``counter`` when ``out`` is not empty (the kernel launches
+    nothing then). ``what`` leads the messages."""
+    entry = f"heal_{kernel}_{_SUFFIX.get(out.dtype)}"
+    if entry not in _SIGNATURES:
+        raise TypeError(f"{what}: no kernel for {out.dtype}")
+    code = getattr(library(), entry)(
+        *(a.data_ptr() if isinstance(a, torch.Tensor) else a for a in args),
+        torch.cuda.current_stream(out.device).cuda_stream)
     if code != 0:
         raise RuntimeError(f"{what}: CUDA error {code} at launch")
-
-
-def stream_ptr(device) -> int:
-    import torch
-
-    return torch.cuda.current_stream(device).cuda_stream
+    if out.numel():
+        trace.count(counter)

@@ -1,5 +1,5 @@
-"""Kernel 1's measured inputs and the work they need, for chip_smoke.py and
-the kernel A/B (tools/kernel_ab.py). Nothing here runs at import time.
+"""Kernel 1's measured inputs, for chip_smoke.py (the work they need is
+ops/pillar.py ``pillar_work``). Nothing here runs at import time.
 
 Three cases: the eval encoder's arguments on a served frame
 (:func:`frame_inputs`: the flagship's first frame, whose points the host
@@ -77,31 +77,3 @@ def dense_inputs(grid, batch: int, f: int, dtype, device, seed: int = 0,
     ], dim=1).contiguous()
     weights = 0.1 * torch.randn((7, f), generator=gen, device=device)
     return u, g4, torch.from_numpy(fi).to(device), weights, grid, batch
-
-
-def pillar_work(args) -> dict:
-    """What kernel 1's function needs on these arguments, whatever
-    implements it: ``bytes`` reads the u, g4 and fi rows of the points
-    whose run lands on the canvas, the weights, and writes the canvas once;
-    ``flops`` counts the channel max and four sums a landed point and the
-    epilogue a landed run (two 3-term products, bias, ReLU: 14 a channel).
-    ``bytes_all`` is the earlier, larger count, which read all of u, g4 and
-    fi, padding and drop bucket included."""
-    import torch
-
-    u, g4, fi, weights, grid, batch = args
-    n, f = u.shape
-    ids = fi.long()
-    land = (ids >= 0) & (ids < batch * grid.cells) & (
-        ids % grid.cells < grid.stride)
-    n_land = int(land.sum())
-    runs = int(torch.unique_consecutive(fi[land]).numel())
-    canvas = batch * grid.stride * f * u.element_size()
-    wbytes = weights.numel() * weights.element_size()
-    row = f * u.element_size() + g4.shape[1] * 4 + 4
-    return dict(
-        bytes=n_land * row + wbytes + canvas,
-        bytes_all=n * row + wbytes + canvas,
-        flops=n_land * (f + 4) + runs * f * 14,
-        landed=n_land, runs=runs,
-    )

@@ -1,5 +1,5 @@
-"""Device timing and the H100's bound, for chip_smoke.py and the kernel
-A/B (tools/kernel_ab.py). Nothing here runs at import time."""
+"""Device timing and the H100's bound, for chip_smoke.py. Nothing here
+runs at import time."""
 from __future__ import annotations
 
 # published peaks of one H100 SXM at 700 W (NVIDIA's data sheet)

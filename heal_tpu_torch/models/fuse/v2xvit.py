@@ -134,12 +134,9 @@ class WindowAttention(nn.Module):
     The q, k and v projections run as one product into a (N, H, W, 3,
     heads, dim_head) buffer (the three kernels joined at call time, so
     the parameters keep flax's layout), the out projection as its own
-    module over the tokens. On the card an f32 forward that
-    no gradient needs runs the attention as one launch of kernel 4
-    (``ops/window_attention.window_attention``, which raises at window
-    sizes and head widths it is not built for); everywhere else (the
-    CPU, training, bf16) it runs the kernel's plain version, which reads
-    the offsets through ``rel_idx``."""
+    module over the tokens. The attention is one call of
+    ``ops/window_attention.window_attention``, which takes kernel 4 or
+    its plain version (which reads the offsets through ``rel_idx``)."""
 
     def __init__(self, dim: int, window: int, heads: int = 8,
                  dropout: float = 0.0, dim_head: int | None = None):
@@ -154,15 +151,6 @@ class WindowAttention(nn.Module):
         self.MultiHeadDotProductAttention_0 = MultiHeadDotProductAttention(
             dim, heads, heads * dim_head)
         self.Dropout_0 = Dropout(dropout)
-
-    def _fused(self, x) -> bool:
-        """Whether this call takes kernel 4."""
-        params = (self.rel_pos_bias,
-                  *self.MultiHeadDotProductAttention_0.parameters())
-        return (x.is_cuda and x.dtype == torch.float32
-                and all(p.dtype == torch.float32 for p in params)
-                and not (torch.is_grad_enabled() and any(
-                    t.requires_grad for t in (x,) + params)))
 
     def _qkv(self, x):
         """(N, H, W, C) -> (N, H, W, 3, heads, dh): the q, k and v
@@ -181,13 +169,8 @@ class WindowAttention(nn.Module):
     def forward(self, x):
         # x (N, H, W, C), H and W multiples of the window (caller pads)
         m, dh = self.heads, self.dim_head
-        qkv = self._qkv(x)
-        if self._fused(x):
-            o = wa.window_attention(qkv, self.rel_pos_bias, self.window, m,
-                                    dh)
-        else:
-            o = wa.window_attention_plain(qkv, self.rel_pos_bias,
-                                          self.window, m, dh, self.rel_idx)
+        o = wa.window_attention(self._qkv(x), self.rel_pos_bias,
+                                self.window, m, dh, self.rel_idx)
         return self.Dropout_0(self.MultiHeadDotProductAttention_0.out(
             o.unflatten(-1, (m, dh))))
 

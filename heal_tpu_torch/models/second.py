@@ -48,12 +48,9 @@ from .layers import LayerNorm
 
 class ColumnConvLayer(nn.Module):
     """One sparse conv (subm or strided) + LayerNorm + ReLU on columns.
-    ``table`` is the level's precomputed neighbour table.
-
-    On the card an f32 layer that no gradient needs runs as one launch of
-    kernel 3 (``cc.column_conv_layer``, which raises at widths it is not
-    built for); everywhere else (the CPU, training, bf16) the layer runs
-    the kernel's plain version, ``cc.column_conv_layer_plain``."""
+    ``table`` is the level's precomputed neighbour table. The layer is
+    one call of ``cc.column_conv_layer``, which takes kernel 3 or its
+    plain version."""
 
     def __init__(self, cin: int, cout: int, strided: bool = False,
                  precise_input: bool = False):
@@ -63,24 +60,13 @@ class ColumnConvLayer(nn.Module):
         self.kernel = nn.Parameter(torch.empty(27, cin, cout))
         self.LayerNorm_0 = LayerNorm(cout, epsilon=1e-3)
 
-    def _fused(self, feats) -> bool:
-        """Whether this call takes kernel 3."""
-        ln = self.LayerNorm_0
-        params = (self.kernel, ln.scale, ln.bias)
-        return (feats.is_cuda and feats.dtype == torch.float32
-                and all(p.dtype == torch.float32 for p in params)
-                and not (torch.is_grad_enabled() and any(
-                    t.requires_grad for t in (feats,) + params)))
-
     def forward(self, cols: dict, table, out: dict | None = None) -> dict:
         ln = self.LayerNorm_0
-        args = (table, self.kernel, ln.scale, ln.bias, ln.epsilon)
-        out_cols = out if self.strided else None
-        if self._fused(cols["feats"]):
-            return cc.column_conv_layer(cols, *args, out_cols=out_cols)
         if self.kernel.dtype == torch.bfloat16 and not self.precise_input:
             cols = dict(cols, feats=cols["feats"].to(torch.bfloat16))
-        return cc.column_conv_layer_plain(cols, *args, out_cols=out_cols)
+        return cc.column_conv_layer(cols, table, self.kernel, ln.scale,
+                                    ln.bias, ln.epsilon,
+                                    out_cols=out if self.strided else None)
 
 
 class _DenseSubmLayer(nn.Module):

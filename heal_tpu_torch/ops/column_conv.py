@@ -34,11 +34,12 @@ divides by a tensor of voxel sizes, in f32 on both devices, as the host
 presort does (a division by a Python scalar may become a product with
 its reciprocal on the card).
 
-``column_conv_layer`` is kernel 3 (csrc/column_conv.cu): a whole conv
-layer of the encoder (conv, LayerNorm, ReLU, masks) in one launch, the
-nine tap products summed in registers, for f32 eval forwards on the
-card; ``column_conv_layer_plain`` is its plain version, the composition
-of ``subm_conv`` / ``strided_conv`` and the layer's epilogue.
+``column_conv_layer`` is a whole conv layer of the encoder (conv,
+LayerNorm, ReLU, masks). For f32 eval forwards on the card it is kernel 3
+(csrc/column_conv.cu), one launch with the nine tap products summed in
+registers; everywhere else it is ``column_conv_layer_plain``, the
+composition of ``subm_conv`` / ``strided_conv`` and the layer's
+epilogue.
 """
 from __future__ import annotations
 
@@ -361,9 +362,9 @@ KERNEL3_SHAPES = frozenset({(4, 16, False), (16, 32, True), (32, 32, False),
 def column_conv_layer_plain(cols: dict, table, weights, scale, bias,
                             eps: float, out_cols: dict | None = None) -> dict:
     """Plain PyTorch version of :func:`column_conv_layer` (same
-    arguments), and models/second.ColumnConvLayer's own path in any dtype:
-    the conv, LayerNorm (models/layers.layer_norm), cast to the weights'
-    dtype, ReLU and the mask."""
+    arguments), in any dtype and with gradients: the conv, LayerNorm
+    (models/layers.layer_norm), cast to the weights' dtype, ReLU and the
+    mask."""
     if out_cols is None:
         new = dict(cols, feats=subm_conv(cols, weights, table=table))
         occ = cols["occ"]
@@ -377,27 +378,22 @@ def column_conv_layer_plain(cols: dict, table, weights, scale, bias,
 
 def column_conv_layer(cols: dict, table, weights, scale, bias, eps: float,
                       out_cols: dict | None = None) -> dict:
-    """Kernel 3: one SECOND conv layer (models/second.ColumnConvLayer) in
-    one launch: the submanifold conv of ``cols`` through its level's
-    ``table`` (``column_table``), or with ``out_cols`` the strided conv
-    into them (``strided_table``), then LayerNorm over the output
-    channels (``scale``, ``bias``, ``eps``), ReLU and the occupancy mask.
-    Returns ``cols`` with the new features (subm), or ``out_cols``
-    completed with feats and occ (strided), as the layer does.
+    """One SECOND conv layer (models/second.ColumnConvLayer): the
+    submanifold conv of ``cols`` through its level's ``table``
+    (``column_table``), or with ``out_cols`` the strided conv into them
+    (``strided_table``), then LayerNorm over the output channels
+    (``scale``, ``bias``, ``eps``), ReLU and the occupancy mask. Returns
+    ``cols`` with the new features (subm), or ``out_cols`` completed with
+    feats and occ (strided), as the layer does.
 
-    f32 only, eval only: under a gradient it raises, as ``pillar_tables``
-    does. On a CPU tensor it takes :func:`column_conv_layer_plain`; on a
-    CUDA tensor it launches csrc/column_conv.cu once for every agent (an
-    empty slot's columns are skipped on the card: no host sync) or
-    raises; only the (Cin, Cout, strided) of ``KERNEL3_SHAPES`` are built.
-    The tracer counts each launch as ``kernel3.launches``."""
+    On the card, in f32, with no gradient wanted, it is kernel 3
+    (csrc/column_conv.cu): one launch for every agent (an empty slot's
+    columns are skipped on the card: no host sync), only for the (Cin,
+    Cout, strided) of ``KERNEL3_SHAPES`` (it raises at others); the
+    tracer counts each launch as ``kernel3.launches``. Everywhere else
+    (the CPU, training, bf16) it is :func:`column_conv_layer_plain`."""
     feats, occ = cols["feats"], cols["occ"]
-    if torch.is_grad_enabled() and any(
-            t.requires_grad for t in (feats, weights, scale, bias)):
-        raise RuntimeError(
-            "column_conv_layer has no backward (eval only): call it under "
-            "torch.no_grad() / inference_mode, or use the layer's own path")
-    if feats.device.type == "cpu":
+    if not build.takes_kernel(feats, weights, scale, bias):
         return column_conv_layer_plain(cols, table, weights, scale, bias, eps,
                                        out_cols)
     b, vc, z, cin = feats.shape
@@ -410,23 +406,12 @@ def column_conv_layer(cols: dict, table, weights, scale, bias, eps: float,
     valid = dst["cvalid"]
     o = valid.shape[1]
     zo = dst["grid"][0]
-    checks = ((feats, (b, vc, z, cin), torch.float32),
-              (occ, (b, vc, z), torch.bool),
-              (table, (b, o, 9), torch.int32),
-              (weights, (27, cin, cout), torch.float32),
-              (scale, (cout,), torch.float32),
-              (bias, (cout,), torch.float32),
-              (valid, (b, o), torch.bool))
-    for t, shape, dtype in checks:
-        if tuple(t.shape) != shape or t.dtype != dtype:
-            raise ValueError(f"column_conv_layer: expected {shape} {dtype}, "
-                             f"got {tuple(t.shape)} {t.dtype}")
-        if not t.is_contiguous() or t.device != feats.device:
-            raise ValueError("column_conv_layer: inputs must be contiguous, "
-                             "one device")
-    if feats.data_ptr() % 16 or weights.data_ptr() % 16:
-        raise ValueError("column_conv_layer: feats and weights must be "
-                         "16-byte aligned")
+    build.expect("column_conv_layer", (
+        (feats, (b, vc, z, cin), torch.float32), (occ, (b, vc, z), torch.bool),
+        (table, (b, o, 9), torch.int32),
+        (weights, (27, cin, cout), torch.float32),
+        (scale, (cout,), torch.float32), (bias, (cout,), torch.float32),
+        (valid, (b, o), torch.bool)), aligned=(feats, weights))
     if zo != ((z - 1) // 2 + 1 if strided else z):
         raise ValueError(f"column_conv_layer: {zo} output z layers from {z}")
     # the kernel writes every output (zeros where a voxel is unoccupied):
@@ -435,18 +420,22 @@ def column_conv_layer(cols: dict, table, weights, scale, bias, eps: float,
                       device=feats.device)
     out_occ = (torch.empty((b, o, zo), dtype=torch.bool, device=feats.device)
                if strided else None)
-    code = build.library().heal_column_conv_f32(
-        feats.data_ptr(), occ.data_ptr(), table.data_ptr(),
-        weights.data_ptr(), scale.data_ptr(), bias.data_ptr(),
-        valid.data_ptr(), out.data_ptr(),
-        out_occ.data_ptr() if strided else None, b, vc, o, z, zo, cin, cout,
-        int(strided), eps, build.stream_ptr(feats.device))
-    build.check(code, "column_conv_layer")
-    if out.numel():  # an empty batch launches nothing
-        trace.count("kernel3.launches")
+    build.launch("column_conv_layer", "column_conv", "kernel3.launches",
+                 out, feats, occ, table, weights, scale, bias, valid, out,
+                 out_occ, b, vc, o, z, zo, cin, cout, int(strided), eps)
     if strided:
         return dict(out_cols, feats=out, occ=out_occ)
     return dict(cols, feats=out)
+
+
+def column_conv_ops(cols: dict, table, weights, scale, bias, eps: float,
+                    out_cols: dict | None = None) -> int:
+    """Operations of one :func:`column_conv_layer` call (same arguments):
+    the conv's products at every output voxel, as the plain version's."""
+    b, _, _, cin = cols["feats"].shape
+    dst = cols if out_cols is None else out_cols
+    return (2 * 27 * cin * weights.shape[-1] * b * dst["cvalid"].shape[1]
+            * dst["grid"][0])
 
 
 def _agent_rows(cols: dict) -> torch.Tensor:

@@ -23,7 +23,6 @@ from typing import NamedTuple
 
 import torch
 
-from .. import trace
 from ..kernels import build
 
 
@@ -126,36 +125,52 @@ def pillar_tables(
     if u.device.type == "cpu":
         return pillar_tables_plain(u, g4, fi, weights, grid, batch)
     n, f = u.shape
-    if u.dtype not in (torch.float32, torch.bfloat16):
-        raise TypeError(f"pillar_tables: u must be f32 or bf16, got {u.dtype}")
-    if g4.shape != (n, 4) or g4.dtype != torch.float32:
-        raise ValueError(f"pillar_tables: g4 must be ({n}, 4) f32")
-    if fi.shape != (n,) or fi.dtype != torch.int32:
-        raise ValueError(f"pillar_tables: fi must be ({n},) int32")
-    if weights.shape != (7, f) or weights.dtype != torch.float32:
-        raise ValueError(f"pillar_tables: weights must be (7, {f}) f32")
-    for t in (u, g4, fi, weights):
-        if not t.is_contiguous() or t.device != u.device:
-            raise ValueError("pillar_tables: inputs must be contiguous, one device")
-    if g4.data_ptr() % 16:
-        raise ValueError("pillar_tables: g4 must be 16-byte aligned")
+    build.expect("pillar_tables", (
+        (u, (n, f), u.dtype), (g4, (n, 4), torch.float32),
+        (fi, (n,), torch.int32), (weights, (7, f), torch.float32)),
+        aligned=(g4,))
     # the kernel writes every row (zeros where no point lands): no fill
     # beforehand, and nothing is read back, so the call never syncs
     canvas = torch.empty((batch * grid.stride, f), dtype=u.dtype,
                          device=u.device)
-    lib = build.library()
-    entry = (lib.heal_pillar_tables_f32 if u.dtype == torch.float32
-             else lib.heal_pillar_tables_bf16)
-    code = entry(
-        u.data_ptr(), g4.data_ptr(), fi.data_ptr(), weights.data_ptr(),
-        canvas.data_ptr(), n, f, grid.nx, grid.stride, grid.cells, batch,
-        grid.vx, grid.vy, grid.cx0, grid.cy0, grid.cz,
-        build.stream_ptr(u.device),
-    )
-    build.check(code, "pillar_tables")
-    if canvas.numel():  # a canvas of no rows launches nothing
-        trace.count("kernel1.launches")
+    build.launch("pillar_tables", "pillar_tables", "kernel1.launches",
+                 canvas, u, g4, fi, weights, canvas, n, f, grid.nx,
+                 grid.stride, grid.cells, batch, grid.vx, grid.vy, grid.cx0,
+                 grid.cy0, grid.cz)
     return canvas
+
+
+def pillar_work(args) -> dict:
+    """What kernel 1's function needs on these arguments (those of
+    :func:`pillar_tables`), whatever implements it: ``bytes`` reads the
+    u, g4 and fi rows of the points whose run lands on the canvas, the
+    weights, and writes the canvas once; ``flops`` counts the channel max
+    and four sums a landed point and the epilogue a landed run (two
+    3-term products, bias, ReLU: 14 a channel). ``bytes_all`` is the
+    earlier, larger count, which read all of u, g4 and fi, padding and
+    drop bucket included."""
+    u, g4, fi, weights, grid, batch = args
+    n, f = u.shape
+    ids = fi.long()
+    land = (ids >= 0) & (ids < batch * grid.cells) & (
+        ids % grid.cells < grid.stride)
+    n_land = int(land.sum())
+    runs = int(torch.unique_consecutive(fi[land]).numel())
+    canvas = batch * grid.stride * f * u.element_size()
+    wbytes = weights.numel() * weights.element_size()
+    row = f * u.element_size() + g4.shape[1] * 4 + 4
+    return dict(
+        bytes=n_land * row + wbytes + canvas,
+        bytes_all=n * row + wbytes + canvas,
+        flops=n_land * (f + 4) + runs * f * 14,
+        landed=n_land, runs=runs,
+    )
+
+
+def pillar_ops(*args) -> int:
+    """Operations of one :func:`pillar_tables` call (same arguments):
+    :func:`pillar_work`'s ``flops``."""
+    return pillar_work(args)["flops"]
 
 
 def pillar_rows_plain(u, g4, cidx, ends, cellf, sampf, consts):

@@ -41,7 +41,6 @@ from __future__ import annotations
 
 import torch
 
-from .. import trace
 from ..kernels import build
 
 
@@ -79,42 +78,36 @@ def shift_cols_plain(
     ).transpose(1, 2).contiguous()
 
 
-def _launch(x: torch.Tensor, shifts: torch.Tensor, axis: int, pad: int,
-            backward: bool):
-    n, h, w, c = x.shape
-    if x.dtype not in (torch.float32, torch.bfloat16):
-        raise TypeError(f"shift_rows: x must be f32 or bf16, got {x.dtype}")
-    want = (n, h) if axis == 0 else (n, w)
-    if tuple(shifts.shape) != want or shifts.dtype != torch.float32:
-        raise ValueError(f"shift_rows: shifts must be {want} f32")
-    if shifts.device != x.device:
-        raise ValueError("shift_rows: x and shifts must be on one device")
-    x = x.contiguous()
-    if x.data_ptr() % 16:  # the kernel reads 16-byte vectors
-        x = x.clone()
-    shifts = shifts.contiguous()
-    out = torch.empty_like(x)
-    lib = build.library()
-    entry = (lib.heal_shift_rows_f32 if x.dtype == torch.float32
-             else lib.heal_shift_rows_bf16)
-    code = entry(
-        x.data_ptr(), shifts.data_ptr(), out.data_ptr(), n, h, w, c, axis,
-        pad, build.stream_ptr(x.device),
-    )
-    build.check(code, "shift_rows")
-    trace.count("kernel2.backward_launches" if backward
-                else "kernel2.launches")
-    return out
+def _shift_plain(x, shifts, max_shift, axis, backward=False):
+    """Plain version of :func:`_shift` (same arguments)."""
+    plain = shift_rows_plain if axis == 0 else shift_cols_plain
+    return plain(x, shifts, max_shift)
 
 
 def _shift(x, shifts, max_shift, axis, backward=False):
     """One direction of the shift: the plain version on the CPU, the
     kernel on CUDA (no autograd here)."""
     if x.device.type == "cpu":
-        plain = shift_rows_plain if axis == 0 else shift_cols_plain
-        return plain(x, shifts, max_shift)
-    return _launch(x, shifts, axis, _pad(x.shape[2 - axis], max_shift),
-                   backward)
+        return _shift_plain(x, shifts, max_shift, axis)
+    n, h, w, c = x.shape
+    x = x.contiguous()
+    if x.data_ptr() % 16:  # the kernel reads 16-byte vectors
+        x = x.clone()
+    shifts = shifts.contiguous()
+    build.expect("shift_rows", ((x, (n, h, w, c), x.dtype),
+                                (shifts, (n, h) if axis == 0 else (n, w),
+                                 torch.float32)))
+    out = torch.empty_like(x)
+    build.launch("shift_rows", "shift_rows", "kernel2.backward_launches"
+                 if backward else "kernel2.launches", out, x, shifts, out,
+                 n, h, w, c, axis, _pad(x.shape[2 - axis], max_shift))
+    return out
+
+
+def shift_ops(x, shifts, max_shift, axis, backward=False) -> int:
+    """Operations of one :func:`_shift` call (same arguments): three a
+    blended element."""
+    return 3 * x.numel()
 
 
 class _Shift(torch.autograd.Function):

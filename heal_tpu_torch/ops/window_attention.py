@@ -1,9 +1,9 @@
 """Window self-attention of V2X-ViT's MSwin branches (torch).
 
-``window_attention`` is kernel 4 (csrc/window_attention.cu): the core of
-one branch, softmax(q k^T / sqrt(dh) + bias) v inside every window x
-window tile of the map, in one launch for f32 eval forwards on the card.
-It reads q, k and v from the fused projection's token layout
+``window_attention`` is the core of one branch, softmax(q k^T / sqrt(dh)
++ bias) v inside every window x window tile of the map. For f32 eval
+forwards on the card it is kernel 4 (csrc/window_attention.cu), one
+launch. It reads q, k and v from the fused projection's token layout
 (N, H, W, 3, heads, dh) in place, computes each logit's relative-position
 bias index from the two tokens' offset, keeps the logits on chip and
 writes (N, H, W, heads * dh). ``window_attention_plain`` is its plain
@@ -19,7 +19,6 @@ import math
 import numpy as np
 import torch
 
-from .. import trace
 from ..kernels import build
 from ..models.layers import dot_product_attention
 
@@ -58,52 +57,45 @@ def window_attention_plain(qkv, table, window: int, heads: int, dh: int,
     return o.permute(0, 1, 3, 2, 4, 5).reshape(n, h, w, heads * dh)
 
 
-def window_attention(qkv, table, window: int, heads: int,
-                     dh: int) -> torch.Tensor:
-    """Kernel 4: window self-attention of the fused projection ``qkv``
-    (N, H, W, 3, heads, dh), H and W multiples of ``window``, with the
-    relative-position ``table`` ((2 window - 1)^2, heads) -> (N, H, W,
-    heads * dh). q is scaled by the f32 reciprocal of sqrt(dh), as the
-    plain version's division by a Python scalar is computed on the card.
+def window_attention(qkv, table, window: int, heads: int, dh: int,
+                     rel_idx=None) -> torch.Tensor:
+    """Window self-attention of the fused projection ``qkv`` (N, H, W, 3,
+    heads, dh), H and W multiples of ``window``, with the relative-position
+    ``table`` ((2 window - 1)^2, heads) -> (N, H, W, heads * dh).
 
-    f32 only, eval only: under a gradient it raises. On a CPU tensor it
-    takes :func:`window_attention_plain`; on a CUDA tensor it launches
-    csrc/window_attention.cu once or raises; only the (window, head
-    width) pairs of ``KERNEL4_SHAPES`` are built. The tracer counts each
-    launch as ``kernel4.launches``."""
-    if torch.is_grad_enabled() and (qkv.requires_grad
-                                    or table.requires_grad):
-        raise RuntimeError(
-            "window_attention has no backward (eval only): call it under "
-            "torch.no_grad() / inference_mode, or use "
-            "window_attention_plain")
-    if qkv.device.type == "cpu":
-        return window_attention_plain(qkv, table, window, heads, dh)
+    On the card, in f32, with no gradient wanted, it is kernel 4
+    (csrc/window_attention.cu): one launch, only for the (window, head
+    width) pairs of ``KERNEL4_SHAPES`` (it raises at others and at a map
+    that is not whole windows); q is scaled by the f32 reciprocal of
+    sqrt(dh), as the plain version's division by a Python scalar is
+    computed on the card; the tracer counts each launch as
+    ``kernel4.launches``. Everywhere else (the CPU, training, bf16) it is
+    :func:`window_attention_plain`, which reads the offsets through
+    ``rel_idx``."""
+    if not build.takes_kernel(qkv, table):
+        return window_attention_plain(qkv, table, window, heads, dh, rel_idx)
     if (window, dh) not in KERNEL4_SHAPES:
         raise ValueError(f"window_attention: no kernel for window {window}, "
                          f"head width {dh}")
     n, h, w = qkv.shape[:3]
     span = 2 * window - 1
-    for t, shape in ((qkv, (n, h, w, 3, heads, dh)),
-                     (table, (span * span, heads))):
-        if tuple(t.shape) != shape or t.dtype != torch.float32:
-            raise ValueError(f"window_attention: expected {shape} "
-                             f"torch.float32, got {tuple(t.shape)} {t.dtype}")
-        if not t.is_contiguous() or t.device != qkv.device:
-            raise ValueError("window_attention: inputs must be contiguous, "
-                             "one device")
+    build.expect("window_attention", (
+        (qkv, (n, h, w, 3, heads, dh), torch.float32),
+        (table, (span * span, heads), torch.float32)), aligned=(qkv,))
     if h % window or w % window:
         raise ValueError(f"window_attention: window {window} does not "
                          f"divide the {h}x{w} map")
-    if qkv.data_ptr() % 16:
-        raise ValueError("window_attention: qkv must be 16-byte aligned")
     out = torch.empty((n, h, w, heads * dh), dtype=torch.float32,
                       device=qkv.device)
     scale = float(np.float32(1.0) / np.float32(math.sqrt(dh)))
-    code = build.library().heal_window_attention_f32(
-        qkv.data_ptr(), table.data_ptr(), out.data_ptr(), n, h, w, heads,
-        window, dh, scale, build.stream_ptr(qkv.device))
-    build.check(code, "window_attention")
-    if out.numel():  # an empty batch launches nothing
-        trace.count("kernel4.launches")
+    build.launch("window_attention", "window_attention", "kernel4.launches",
+                 out, qkv, table, out, n, h, w, heads, window, dh, scale)
     return out
+
+
+def window_attention_ops(qkv, table, window: int, heads: int, dh: int,
+                         rel_idx=None) -> int:
+    """Operations of one :func:`window_attention` call (same arguments):
+    the q k^T and P V products, as the plain version's."""
+    n, h, w = qkv.shape[:3]
+    return 4 * n * h * w * window * window * heads * dh

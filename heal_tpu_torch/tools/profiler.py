@@ -7,12 +7,11 @@ tools/profiler/{params_calc.py, traintp_calc.py}) for the port:
   * ``flop_count``: one eval forward under
     ``torch.utils.flop_counter.FlopCounterMode`` in place of XLA's
     ``cost_analysis``. The counter sees the ATen products (convolutions,
-    matmuls); kernels 1, 2 and 3 are launches of their own that it
-    cannot see, so they run outside it on every device (their plain
-    versions too, on the CPU) and their operations are reported apart,
-    from the counts their bounds use (kernels/cases.pillar_work for
-    kernel 1, three a blended element for kernel 2, 2*27*Cin*Cout an
-    output voxel for kernel 3). ``counter_flops`` is not XLA's
+    matmuls); the hand-written kernels (ops.KERNELS) are launches of
+    their own that it cannot see, so their ops run outside it on every
+    device (their plain versions too, on the CPU) and their operations
+    are reported apart, from the formula beside each op (``ops`` of its
+    entry). ``counter_flops`` is not XLA's
     ``flops``: XLA counts every elementwise op of the fused program;
     the counter counts only products;
   * ``profile_inference``: the frame already on the device, ``warmup``
@@ -47,69 +46,27 @@ def count_params(model: torch.nn.Module) -> int:
 
 @contextlib.contextmanager
 def kernels_apart(ops: dict):
-    """Run kernels 1, 2, 3 and 4 outside any dispatch mode (a
-    FlopCounterMode then sees none of their work, on the card or in their
-    plain versions on the CPU), adding each call's operations to ``ops``
-    under ``pillar_tables`` / ``shift_rows`` / ``column_conv`` /
-    ``window_attention`` (kernel 3: the conv's products at every output
-    voxel, as its plain version multiplies; kernel 4: the q k^T and P V
-    products, as its plain version's two batched products. Off the card
-    V2X-ViT calls kernel 4's plain version itself, and the counter counts
-    that)."""
+    """Run every hand-written kernel's op (ops.KERNELS) outside any
+    dispatch mode (a FlopCounterMode then sees none of its work, on the
+    card or in its plain version on the CPU), adding each call's
+    operations, from the formula beside its op, to ``ops`` under the
+    kernel's name."""
     from torch.utils._python_dispatch import _disable_current_modes
 
-    from ..kernels.cases import pillar_work
-    from ..ops import column_conv, pillar, shift_rows, window_attention
+    from ..ops import launches_replaced
 
-    saved = (pillar.pillar_tables, shift_rows._shift,
-             column_conv.column_conv_layer,
-             column_conv.column_conv_layer_plain,
-             window_attention.window_attention)
+    def apart(kernel):
+        launch = getattr(kernel.module, kernel.launch)
+        count = getattr(kernel.module, kernel.ops)
 
-    def tables(*args, **kw):
-        with _disable_current_modes():
-            ops["pillar_tables"] += pillar_work(args)["flops"]
-            return saved[0](*args, **kw)
-
-    def shift(x, *args, **kw):
-        with _disable_current_modes():
-            ops["shift_rows"] += 3 * x.numel()
-            return saved[1](x, *args, **kw)
-
-    def conv(fn):
-        # the layer takes kernel 3 on the card and its plain version
-        # elsewhere; kernel 3's wrapper on a CPU tensor calls the plain
-        # version, which counts then
-        def call(cols, table, weights, *args, out_cols=None, **kw):
+        def call(*args, **kw):
             with _disable_current_modes():
-                if fn is saved[3] or cols["feats"].is_cuda:
-                    b, _, _, cin = cols["feats"].shape
-                    dst = cols if out_cols is None else out_cols
-                    ops["column_conv"] += (
-                        2 * 27 * cin * weights.shape[-1] * b
-                        * dst["cvalid"].shape[1] * dst["grid"][0])
-                return fn(cols, table, weights, *args, out_cols=out_cols,
-                          **kw)
+                ops[kernel.name] += count(*args, **kw)
+                return launch(*args, **kw)
         return call
 
-    def attention(qkv, table, window, heads, dh):
-        with _disable_current_modes():
-            n, h, w = qkv.shape[:3]
-            ops["window_attention"] += (4 * n * h * w * window * window
-                                        * heads * dh)
-            return saved[4](qkv, table, window, heads, dh)
-
-    (pillar.pillar_tables, shift_rows._shift, column_conv.column_conv_layer,
-     column_conv.column_conv_layer_plain,
-     window_attention.window_attention) = (
-        tables, shift, conv(saved[2]), conv(saved[3]), attention)
-    try:
+    with launches_replaced(apart):
         yield ops
-    finally:
-        (pillar.pillar_tables, shift_rows._shift,
-         column_conv.column_conv_layer,
-         column_conv.column_conv_layer_plain,
-         window_attention.window_attention) = saved
 
 
 def forward(model, inputs):
@@ -122,12 +79,13 @@ def forward(model, inputs):
 
 def flop_count(model, inputs) -> dict:
     """The counter's FLOPs of one eval forward (``counter_flops``, and by
-    ATen op), with kernels 1, 2, 3 and 4's operations apart
+    ATen op), with the hand-written kernels' operations apart
     (``kernel_ops``)."""
     from torch.utils.flop_counter import FlopCounterMode
 
-    ops = {"pillar_tables": 0, "shift_rows": 0, "column_conv": 0,
-           "window_attention": 0}
+    from ..ops import KERNELS
+
+    ops = dict.fromkeys((k.name for k in KERNELS), 0)
     with torch.inference_mode(), kernels_apart(ops), \
             FlopCounterMode(display=False) as counter:
         forward(model, inputs)

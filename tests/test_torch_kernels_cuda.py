@@ -820,23 +820,28 @@ def test_column_conv_kernel_is_one_kernel_and_never_syncs(dev, tmp_path):
     assert len(launched) == 1 and "column_conv" in launched[0], launched
 
 
-def test_column_conv_kernel_refuses_grad_widths_and_dtypes(dev):
+def test_column_conv_takes_the_plain_version_under_grad_and_in_bf16(dev):
+    """Under a gradient or in bf16 ``column_conv_layer`` on the card
+    returns the plain version's output and counts no launch; at a width
+    kernel 3 is not built for, or with an int64 table, it raises."""
     from heal_tpu_torch.ops import column_conv as cc
 
     cols, table, _ = _k3_inputs(dev, 32, False, 20, [300, 40], 2)
     w, scale, bias = _k3_params(dev, 32, 32, 2)
     before = _launches("kernel3.launches")
-    with pytest.raises(RuntimeError, match="no backward"):
-        cc.column_conv_layer(cols, table, w.requires_grad_(), scale, bias,
-                             1e-3)
-    w = w.detach()
+    wg = w.clone().requires_grad_()
+    got = cc.column_conv_layer(cols, table, wg, scale, bias, 1e-3)["feats"]
+    assert got.requires_grad
+    _close(got.detach(), cc.column_conv_layer_plain(
+        cols, table, w, scale, bias, 1e-3)["feats"], torch.float32)
     with torch.no_grad():
+        c16 = dict(cols, feats=cols["feats"].to(torch.bfloat16))
+        _close(cc.column_conv_layer(c16, table, w, scale, bias, 1e-3)[
+            "feats"], cc.column_conv_layer_plain(
+            c16, table, w, scale, bias, 1e-3)["feats"], torch.bfloat16)
         with pytest.raises(ValueError, match="no kernel"):
             cc.column_conv_layer(cols, table, w[:, :, :16].contiguous(),
                                  scale[:16], bias[:16], 1e-3)
-        with pytest.raises(ValueError):
-            cc.column_conv_layer(dict(cols, feats=cols["feats"].to(
-                torch.bfloat16)), table, w, scale, bias, 1e-3)
         with pytest.raises(ValueError):
             cc.column_conv_layer(cols, table.long(), w, scale, bias, 1e-3)
     assert _launches("kernel3.launches") == before
@@ -963,9 +968,11 @@ def test_window_attention_kernel_matches_plain(dev, ws, dh, shape):
     assert torch.equal(got, again)
 
 
-def test_window_attention_refuses_unbuilt_shapes_dtypes_and_grad(dev):
-    """Another window or head width, bf16, a map that is not whole
-    windows, or a gradient: the wrapper raises and launches nothing."""
+def test_window_attention_takes_the_plain_version_under_grad_and_in_bf16(
+        dev):
+    """Another window or head width, or a map that is not whole windows:
+    ``window_attention`` on the card raises. In bf16 or under a gradient
+    it returns the plain version's output. No launch is counted."""
     from heal_tpu_torch.ops import window_attention as wa
 
     qkv, table = _k4_inputs(dev, 1, 24, 24, 4, 6, 16, 0)
@@ -983,10 +990,15 @@ def test_window_attention_refuses_unbuilt_shapes_dtypes_and_grad(dev):
         with pytest.raises(ValueError, match="does not divide"):
             wa.window_attention(qkv, table, 8, 4, 16)
         qkv, table = _k4_inputs(dev, 1, 16, 16, 4, 4, 16, 0)
-        with pytest.raises(ValueError, match="float32"):
-            wa.window_attention(qkv.to(torch.bfloat16), table, 4, 4, 16)
-    with pytest.raises(RuntimeError, match="no backward"):
-        wa.window_attention(qkv, table.requires_grad_(), 4, 4, 16)
+        q16 = qkv.to(torch.bfloat16)
+        _close(wa.window_attention(q16, table, 4, 4, 16),
+               wa.window_attention_plain(q16, table, 4, 4, 16),
+               torch.bfloat16)
+    tg = table.clone().requires_grad_()
+    got = wa.window_attention(qkv, tg, 4, 4, 16)
+    assert got.requires_grad
+    _close(got.detach(), wa.window_attention_plain(qkv, table, 4, 4, 16),
+           torch.float32)
     assert _launches("kernel4.launches") == before
 
 

@@ -15,13 +15,13 @@ import torch
 
 from heal_tpu.models.encoders import PointPillarEncoder as JaxEncoder
 from heal_tpu.ops import pallas_pillar as pp
-from heal_tpu_torch.kernels.cases import (dense_counts, dense_inputs,
-                                          pillar_work)
+from heal_tpu_torch.kernels.cases import dense_counts, dense_inputs
 from heal_tpu_torch.models.encoders import PointPillarEncoder
 from heal_tpu_torch.ops.pillar import (
     PillarGrid,
     pillar_rows_plain,
     pillar_tables,
+    pillar_work,
 )
 from heal_tpu_torch.utils.bridge import load_flax
 from torch_pillar_cases import CASES, make_case

@@ -453,15 +453,21 @@ def test_fused_layer_plain_matches_jax_layer(level0, cin, cout, strided):
                          ids=[f"{a}_{b}_{'s2' if s else 'subm'}"
                               for a, b, s in PUBLISHED])
 def test_layer_dispatch_on_the_cpu(level0, monkeypatch, cin, cout, strided):
-    """On the CPU ColumnConvLayer never calls kernel 3's wrapper, in eval,
-    in training, frozen or in bf16: it runs the plain version, whose
-    values are bit-equal to the conv, ``LayerNorm``, ReLU and mask
-    composed op by op, and which training differentiates."""
+    """On the CPU, in eval, in training, frozen or in bf16,
+    ColumnConvLayer makes one call of ``column_conv_layer`` and the op
+    takes the plain version, whose values are bit-equal to the conv,
+    ``LayerNorm``, ReLU and mask composed op by op, and which training
+    differentiates; no kernel-3 launch is counted."""
+    from heal_tpu_torch import trace
     from heal_tpu_torch.models import second
 
-    calls = []
+    calls, plain = [], []
+    op, plain_fn = cc.column_conv_layer, cc.column_conv_layer_plain
     monkeypatch.setattr(cc, "column_conv_layer",
-                        lambda *a, **k: calls.append(1))
+                        lambda *a, **k: calls.append(1) or op(*a, **k))
+    monkeypatch.setattr(cc, "column_conv_layer_plain",
+                        lambda *a, **k: plain.append(1) or plain_fn(*a, **k))
+    trace.clear()
     layer = second.ColumnConvLayer(cin, cout, strided=strided)
     w, scale, bias = _layer_params(40 + cin, cin, cout)
     with torch.no_grad():
@@ -491,14 +497,15 @@ def test_layer_dispatch_on_the_cpu(level0, monkeypatch, cin, cout, strided):
     assert torch.equal(frozen["feats"], eval_out["feats"])
     with torch.no_grad():
         layer.to(torch.bfloat16)(cols, table, out=out)
-    assert calls == []
+    assert len(calls) == len(plain) == 4
+    assert trace.counters().get("kernel3.launches", 0) == 0
 
 
 def test_layer_dispatch_keeps_other_widths_and_refuses_grad(level0):
-    """On the CPU a width kernel 3 is not built for runs the layer's plain
-    version (on the card the wrapper raises there:
-    tests/test_torch_kernels_cuda.py); ``column_conv_layer`` itself
-    raises under a gradient."""
+    """On the CPU a width kernel 3 is not built for runs the plain version
+    (on the card the op raises there: tests/test_torch_kernels_cuda.py);
+    under a gradient ``column_conv_layer`` returns the plain version's
+    output, and its gradient is the plain version's."""
     from heal_tpu_torch.models import second
 
     layer = second.ColumnConvLayer(6, 10)
@@ -510,10 +517,16 @@ def test_layer_dispatch_keeps_other_widths_and_refuses_grad(level0):
                                     torch.ones(10), torch.zeros(10), 1e-3)
     assert got["feats"].shape == (2, 512, 8, 10)
     assert torch.equal(got["feats"], want["feats"])
-    w = torch.zeros((27, 6, 10), requires_grad=True)
-    with pytest.raises(RuntimeError, match="no backward"):
-        cc.column_conv_layer(cols, table, w, torch.ones(10), torch.zeros(10),
-                             1e-3)
+    w = layer.kernel.detach().clone().requires_grad_()
+    args = (cols, table, w, torch.ones(10), torch.zeros(10), 1e-3)
+    got = cc.column_conv_layer(*args)["feats"]
+    want = cc.column_conv_layer_plain(*args)["feats"]
+    assert torch.equal(got, want)
+    g = torch.from_numpy(np.random.default_rng(61).standard_normal(
+        tuple(got.shape)).astype(np.float32))
+    (grad,) = torch.autograd.grad(got, w, g)
+    assert torch.equal(grad, torch.autograd.grad(want, w, g)[0])
+    assert grad.any()
 
 
 def test_profiler_counts_kernel_3_apart():

@@ -106,7 +106,7 @@ def test_profiler_flops_equal_the_hook_count():
     assert got["counter_flops"] == _hook_flops(model, inputs) > 0
     assert got["counter_flops"] == sum(got["by_op"].values())
     # kernel 1's plain version ran apart from the counter: its operations
-    # are reported from kernels/cases.pillar_work, kernel 2 not reached
+    # are reported from ops/pillar.pillar_work, kernel 2 not reached
     # (the CPU warps with grid_sample)
     assert got["kernel_ops"]["pillar_tables"] > 0
     assert got["kernel_ops"]["shift_rows"] == 0

@@ -10,8 +10,8 @@ merged back. The new forward (one q / k / v product, then
 (windows 4 / 8 / 16 with 16 x 16, 8 x 32, 4 x 64 heads) and at the flat
 form (8 heads of C / 8), with gradients; MSwin on maps that are not a
 whole number of windows, whose padded tokens take the projections' biases
-as keys; and the dispatch: the CPU and a wanted gradient take the plain
-version and launch nothing. Kernel 4 itself runs on the card only
+as keys; and the op's choice: the CPU and a wanted gradient take the
+plain version and launch nothing. Kernel 4 itself runs on the card only
 (tests/test_torch_kernels_cuda.py).
 """
 import numpy as np
@@ -186,33 +186,42 @@ def test_mswin_pads_as_before(hw, monkeypatch):
 
 
 def test_the_cpu_and_a_gradient_take_the_plain_version(monkeypatch):
-    """On the CPU, in eval and in training, WindowAttention calls
-    window_attention_plain and never kernel 4's wrapper; kernel4.launches
-    stays 0; the wrapper on a CPU tensor takes the plain version and
-    under a gradient raises."""
+    """On the CPU, in eval and in training, WindowAttention makes one call
+    of ``window_attention`` a forward, and the op takes
+    window_attention_plain; kernel4.launches stays 0. Under a gradient the
+    op returns the plain version's output, and its gradient is the plain
+    version's."""
     mod = seeded(WindowAttention(64, 4, heads=16, dim_head=16), 1)
     x = _map(1, 8, 8, 64, 2)
-    plain, kernel = [], []
+    plain, op = [], []
     monkeypatch.setattr(wa, "window_attention_plain",
                         lambda *a, **k: plain.append(1) or _PLAIN(*a, **k))
     monkeypatch.setattr(wa, "window_attention",
-                        lambda *a, **k: kernel.append(1) or _KERNEL(*a, **k))
+                        lambda *a, **k: op.append(1) or _KERNEL(*a, **k))
     trace.clear()
     with torch.no_grad():
         mod.eval()(x)
     with torch.inference_mode():
         mod(x)
     mod.train()(x).sum().backward()
-    assert len(plain) == 3 and not kernel
+    assert len(plain) == len(op) == 3
     assert mod.rel_pos_bias.grad is not None and mod.rel_pos_bias.grad.any()
     monkeypatch.undo()
     qkv = mod._qkv(x)
-    with pytest.raises(RuntimeError, match="no backward"):
-        wa.window_attention(qkv, mod.rel_pos_bias, 4, 16, 16)
+    table = mod.rel_pos_bias
+    assert qkv.requires_grad and table.requires_grad
+    got = wa.window_attention(qkv, table, 4, 16, 16)
+    want = wa.window_attention_plain(qkv, table, 4, 16, 16)
+    assert torch.equal(got, want)
+    g = torch.from_numpy(np.random.default_rng(3).standard_normal(
+        tuple(got.shape)).astype(np.float32))
+    for a, b in zip(torch.autograd.grad(got, (qkv, table), g),
+                    torch.autograd.grad(want, (qkv, table), g)):
+        assert torch.equal(a, b) and a.any()
     with torch.no_grad():
         assert torch.equal(
-            wa.window_attention(qkv, mod.rel_pos_bias, 4, 16, 16),
-            wa.window_attention_plain(qkv, mod.rel_pos_bias, 4, 16, 16))
+            wa.window_attention(qkv, table, 4, 16, 16),
+            wa.window_attention_plain(qkv, table, 4, 16, 16))
     assert trace.counters().get("kernel4.launches", 0) == 0
 
 
@@ -245,14 +254,28 @@ def test_seeded_init_keeps_the_offset_indices(method):
             assert torch.equal(b, want[k]) and b.max() > 0, k
 
 
-def test_the_profiler_counts_kernel_4_apart():
-    """tools/profiler.kernels_apart takes kernel 4's wrapper out of the
+@pytest.mark.parametrize("call", ["op", "module"])
+def test_the_profiler_counts_kernel_4_apart(call):
+    """tools/profiler.kernels_apart takes kernel 4's op out of the
     FlopCounterMode and counts its two products apart, as many as the
-    counter finds in the plain version."""
+    counter finds in the plain version; through a V2X-ViT WindowAttention
+    module's ``flop_count`` the counter's FLOPs and the kernels'
+    operations add up to the counter's total without the split."""
     from torch.utils.flop_counter import FlopCounterMode
 
-    from heal_tpu_torch.tools.profiler import kernels_apart
+    from heal_tpu_torch.tools.profiler import flop_count, kernels_apart
 
+    if call == "module":
+        mod = seeded(WindowAttention(64, 4, heads=16, dim_head=16), 5)
+        x = _map(1, 8, 8, 64, 6)
+        with torch.no_grad(), FlopCounterMode(display=False) as whole:
+            mod.eval()(x)
+        got = flop_count(mod, x)
+        assert got["kernel_ops"]["window_attention"] > 0
+        assert got["counter_flops"] + sum(got["kernel_ops"].values()) == (
+            whole.get_total_flops())
+        assert wa.window_attention.__name__ == "window_attention"
+        return
     qkv, table = torch.randn(2, 8, 16, 3, 4, 8), torch.randn(49, 4)
     with torch.no_grad(), FlopCounterMode(display=False) as plain:
         wa.window_attention_plain(qkv, table, 4, 4, 8)
